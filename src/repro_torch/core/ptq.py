@@ -1,0 +1,164 @@
+"""Post-training int packing of parameter trees (QuaRL Algorithm 1).
+
+Counterpart of ``repro/core/ptq.py`` (the deployment form only).  A param
+tree is nested dicts (and tuples) of tensors; ``ptq_pack`` turns every
+float weight of two dimensions into a ``PackedTensor`` -- int8 codes (or
+int4 codes two per byte) with per-tensor affine params -- and passes
+biases (one dimension) through unchanged, as the paper's per-layer weight
+quantization does.  Weights keep the reference's ``(K, N)`` layout
+(``y = x @ w``), so codes and column scales compare one for one.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Iterator, Optional, Tuple
+
+import torch
+
+from repro_torch.core import affine
+from repro_torch.core.qconfig import QuantConfig, QuantMode
+
+Tree = Any
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class PackedTensor:
+    """An int-packed weight: codes + affine params (deployment format).
+
+    ``col_scale`` / ``col_zero`` are the ``(N,)`` f32 per-column arrays the
+    GEMM epilogue reads, built once at pack time.  With ``bits <= 4`` the
+    codes are packed two per byte along K (``affine.pack_int4``) and
+    ``orig_shape`` holds the unpacked ``(K, N)``; ``None`` means the codes
+    are stored one per byte in the weight's own layout.
+    """
+
+    codes: torch.Tensor
+    delta: torch.Tensor
+    zero_point: torch.Tensor
+    bits: int
+    col_scale: torch.Tensor
+    col_zero: torch.Tensor
+    orig_shape: Optional[Tuple[int, ...]] = None
+
+    TENSOR_FIELDS = ("codes", "delta", "zero_point", "col_scale", "col_zero")
+
+    def unpacked_codes(self) -> torch.Tensor:
+        """Codes widened to one per int8."""
+        if self.orig_shape is None:
+            return self.codes
+        return affine.unpack_int4(self.codes, self.orig_shape[0])
+
+    def dequantize(self) -> torch.Tensor:
+        """The float32 weight ``delta * (q - z)``."""
+        p = affine.AffineParams(self.delta, self.zero_point, self.bits)
+        return affine.dequantize_from_int(self.unpacked_codes(), p)
+
+    @property
+    def nbytes(self) -> int:
+        """Codes + canonical affine params (the derived columns are not
+        counted, as in the reference)."""
+        return (self.codes.numel() * self.codes.element_size()
+                + self.delta.numel() * 4 + self.zero_point.numel() * 4)
+
+
+# ---------------------------------------------------------------------------
+# tree helpers (nested dicts / tuples / lists; PackedTensor is one node)
+# ---------------------------------------------------------------------------
+
+def tree_map(fn: Callable[[Any], Any], tree: Tree) -> Tree:
+    """Apply ``fn`` to every leaf; a ``PackedTensor`` is one leaf."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, v) for v in tree)
+    return fn(tree)
+
+
+def tree_tensors(tree: Tree) -> Iterator[Tuple[str, torch.Tensor]]:
+    """``(path, tensor)`` of every tensor, dict keys in sorted order and a
+    ``PackedTensor``'s tensors in field order (the reference's flatten
+    order)."""
+    def walk(node, path):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                yield from walk(node[k], f"{path}/{k}")
+        elif isinstance(node, (tuple, list)):
+            for i, v in enumerate(node):
+                yield from walk(v, f"{path}/{i}")
+        elif isinstance(node, PackedTensor):
+            for f in PackedTensor.TENSOR_FIELDS:
+                yield from walk(getattr(node, f), f"{path}.{f}")
+        elif isinstance(node, torch.Tensor):
+            yield path or "<root>", node
+    yield from walk(tree, "")
+
+
+def tree_to(tree: Tree, device) -> Tree:
+    """Copy every tensor of the tree (packed ones included) to ``device``."""
+    def one(leaf):
+        if isinstance(leaf, PackedTensor):
+            return dataclasses.replace(leaf, **{
+                f: getattr(leaf, f).to(device)
+                for f in PackedTensor.TENSOR_FIELDS})
+        if isinstance(leaf, torch.Tensor):
+            return leaf.to(device)
+        return leaf
+    return tree_map(one, tree)
+
+
+# ---------------------------------------------------------------------------
+# packing
+# ---------------------------------------------------------------------------
+
+def _is_weight(leaf: Any) -> bool:
+    return (isinstance(leaf, torch.Tensor) and leaf.is_floating_point()
+            and leaf.dim() >= 2)
+
+
+def _pack_leaf(leaf: torch.Tensor, bits: int) -> PackedTensor:
+    """Quantize one dense ``(K, N)`` weight into the kernel layout."""
+    if leaf.dim() != 2:
+        raise NotImplementedError(
+            "the port packs dense (K, N) weights only; conv kernels come "
+            "with the int8 conv actor (ROADMAP queue A, item 6)")
+    codes, p = affine.quantize_to_int(leaf, bits)
+    n = leaf.shape[-1]
+    col_scale = p.delta.reshape(1).expand(n).clone()
+    col_zero = p.zero_point.reshape(1).expand(n).clone()
+    if bits > 4:
+        return PackedTensor(codes, p.delta, p.zero_point, bits,
+                            col_scale, col_zero)
+    return PackedTensor(affine.pack_int4(codes), p.delta, p.zero_point,
+                        bits, col_scale, col_zero,
+                        orig_shape=tuple(leaf.shape))
+
+
+def ptq_pack(params: Tree, config: QuantConfig) -> Tree:
+    """Pack weights into int storage; non-weights pass through unchanged."""
+    if config.mode != QuantMode.PTQ_INT:
+        raise ValueError(f"packing is for int PTQ, got {config.mode}")
+    return tree_map(lambda leaf: _pack_leaf(leaf, config.bits)
+                    if _is_weight(leaf) else leaf, params)
+
+
+def ptq_unpack(packed: Tree) -> Tree:
+    """Dequantize every ``PackedTensor`` back to a float32 weight."""
+    return tree_map(lambda leaf: leaf.dequantize()
+                    if isinstance(leaf, PackedTensor) else leaf, packed)
+
+
+def tree_nbytes(params: Tree) -> int:
+    """Parameter-memory footprint (the paper's 4x memory claim)."""
+    total = 0
+    for leaf in _leaves(params):
+        if isinstance(leaf, PackedTensor):
+            total += leaf.nbytes
+        elif isinstance(leaf, torch.Tensor):
+            total += leaf.numel() * leaf.element_size()
+    return total
+
+
+def _leaves(tree: Tree) -> list:
+    out = []
+    tree_map(out.append, tree)
+    return out

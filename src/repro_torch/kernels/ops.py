@@ -1,0 +1,78 @@
+"""Public quantized ops: a CUDA tensor goes to the kernel, a CPU tensor to
+the plain PyTorch version.
+
+Counterpart of ``repro/kernels/ops.py:78-151``.  There is no backend knob
+and no environment override: where the data lies decides, so the card's
+path always runs the hand-written kernel (or raises) and the CPU tests run
+the plain versions.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from repro_torch.core import affine
+from repro_torch.kernels import fused_qmlp as _fq
+from repro_torch.kernels import int8_matmul as _mm
+
+
+def _device_type(t: torch.Tensor) -> str:
+    if t.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no kernel for device {t.device}")
+    return t.device.type
+
+
+def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor,
+                x_scale: torch.Tensor, x_zero: torch.Tensor,
+                w_scale: torch.Tensor, w_zero: torch.Tensor, *,
+                w_bits: int = 8) -> torch.Tensor:
+    """``(M, K) int8 @ (K, N) int8 -> (M, N) f32`` with affine dequant.
+
+    ``w_bits <= 4`` takes byte-packed int4 codes ``(ceil(K/2), N)``
+    (``core.affine.pack_int4``).  A ``w_q`` whose rows do not match K for
+    the given ``w_bits`` raises ``ValueError`` (an int4 cache passed as
+    int8, or unpacked codes passed as int4, would compute garbage).
+    """
+    k = x_q.shape[-1]
+    if w_bits <= 4:
+        if w_q.shape[0] != (k + 1) // 2:
+            raise ValueError(
+                f"w_bits={w_bits} expects byte-packed codes of "
+                f"{(k + 1) // 2} rows for K={k}, got {tuple(w_q.shape)}")
+    elif w_q.shape[0] != k:
+        raise ValueError(
+            f"w_bits={w_bits} expects unpacked codes of {k} rows for "
+            f"K={k}, got {tuple(w_q.shape)}; byte-packed int4 caches must "
+            f"pass w_bits<=4")
+    if _device_type(x_q) == "cuda":
+        return _mm.int8_matmul_cuda(x_q, w_q, x_scale, x_zero, w_scale,
+                                    w_zero, w_bits=w_bits)
+    return _mm.int8_matmul_plain(x_q, w_q, x_scale, x_zero, w_scale, w_zero,
+                                 w_bits=w_bits)
+
+
+def fused_qmlp(x: torch.Tensor, layers: Sequence[_fq.QMLPLayer]
+               ) -> torch.Tensor:
+    """Whole-MLP quantized forward in one kernel launch.
+
+    ``x`` is f32 with any leading batch dims; ``layers`` carry static
+    activation params (``rl.actorq.calibrate_actor_cache``).  The input is
+    quantized here with layer 0's params; every inter-layer activation
+    then stays int8 inside the kernel and only the head is f32.
+    """
+    if not layers:
+        raise ValueError("fused_qmlp needs at least one layer")
+    if layers[0].k != x.shape[-1]:
+        raise ValueError(f"layer 0 expects K={layers[0].k}, x has "
+                         f"{x.shape[-1]}")
+    lead = x.shape[:-1]
+    l0 = layers[0]
+    x_q = affine.quantize_with_params(
+        x.reshape(-1, x.shape[-1]),
+        affine.AffineParams(l0.x_delta, l0.x_zero, 8)).contiguous()
+    if _device_type(x_q) == "cuda":
+        y = _fq.fused_qmlp_cuda(x_q, layers)
+    else:
+        y = _fq.fused_qmlp_plain(x_q, layers)
+    return y.reshape(lead + y.shape[-1:])

@@ -1,0 +1,67 @@
+"""Plain PyTorch versions of the port's kernels, op for op.
+
+Counterpart of ``repro/kernels/ref.py:38-90``.  These are the reference
+each CUDA kernel is held against (bitwise), and the path a CPU tensor
+takes.  CUDA has no integer ``matmul``, so the int32 accumulator is taken
+in float64, which is exact here: ``|acc| <= 2**14 * K < 2**53`` for any K
+the policies use (float32 would not be exact past 2**24, which K = 4096
+exceeds).  The float epilogue is separate torch ops, so nothing is fused
+into an FMA: ``(x_scale * w_scale) * corr``, then ``+ bias``.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from repro_torch.core import affine
+
+
+def int8_matmul_ref(x_q: torch.Tensor, w_q: torch.Tensor,
+                    x_scale: torch.Tensor, w_scale: torch.Tensor,
+                    x_zero: torch.Tensor, w_zero: torch.Tensor
+                    ) -> torch.Tensor:
+    """Dequantized product of int8 operands, f32 ``(M, N)``.
+
+    ``x_q`` (M, K) int8 with scalar ``x_scale``/``x_zero``; ``w_q`` (K, N)
+    int8 with per-column ``w_scale``/``w_zero`` (N,).  Computes
+
+        (x_scale * w_scale) * [x_q @ w_q - x_zero * sum_k w_q
+                               - w_zero * sum_k x_q + K * x_zero * w_zero]
+
+    with the bracket in int32.
+    """
+    k = x_q.shape[-1]
+    acc = torch.matmul(x_q.to(torch.float64), w_q.to(torch.float64)
+                       ).to(torch.int32)
+    sum_w = w_q.to(torch.int32).sum(dim=0, dtype=torch.int32)        # (N,)
+    sum_x = x_q.to(torch.int32).sum(dim=-1, keepdim=True,
+                                    dtype=torch.int32)                # (M,1)
+    xz = x_zero.to(torch.int32)
+    wz = w_zero.to(torch.int32)[None, :]
+    corr = acc - xz * sum_w[None, :] - wz * sum_x + k * xz * wz
+    return x_scale * w_scale[None, :] * corr.to(torch.float32)
+
+
+def fused_qmlp_ref(x_q: torch.Tensor, layers: Sequence) -> torch.Tensor:
+    """Whole quantized MLP over int8 input codes (``fused_qmlp`` oracle).
+
+    ``layers`` are ``fused_qmlp.QMLPLayer``.  Each layer is
+    ``int8_matmul_ref`` + bias; hidden layers then apply ReLU and the
+    static requant to the next layer's input params.  Only the head's f32
+    output is returned.
+    """
+    h = x_q
+    for i, layer in enumerate(layers):
+        w = layer.codes
+        if layer.bits <= 4:
+            w = affine.unpack_int4(w, layer.k)
+        y = int8_matmul_ref(h, w, layer.x_delta, layer.col_scale,
+                            layer.x_zero, layer.col_zero)
+        y = y + layer.bias
+        if i + 1 == len(layers):
+            return y
+        nxt = layers[i + 1]
+        h = affine.quantize_with_params(
+            torch.relu(y), affine.AffineParams(nxt.x_delta, nxt.x_zero, 8))
+    raise ValueError("fused_qmlp needs at least one layer")

@@ -1,0 +1,91 @@
+"""The port stands alone: no file of ``src/repro_torch`` and not
+``chip_smoke.py`` imports ``jax`` or the JAX package ``repro`` (whose name
+is a prefix of ``repro_torch``, so the scan compares whole module names).
+"""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
+    + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.module \
+                and node.level == 0:
+            yield node.module
+
+
+def test_scan_sees_the_port():
+    names = {p.name for p in PORT_FILES}
+    assert {"server.py", "actorq.py", "ops.py", "chip_smoke.py"} <= names
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_repro_imports(path):
+    for mod in _imported_modules(path):
+        top = mod.split(".")[0]
+        assert top not in FORBIDDEN, f"{path} imports {mod}"
+
+
+def test_importing_the_port_loads_no_jax():
+    code = ("import sys, repro_torch, repro_torch.serving, "
+            "repro_torch.rl.actorq, repro_torch.kernels.ops, "
+            "repro_torch.rl.envs, repro_torch.resilience.guards\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   timeout=120)
+
+
+def _entry_points():
+    import numpy as np
+    import torch
+
+    from repro_torch.rl import networks
+    from repro_torch.rl.env import batched_env
+    from repro_torch.rl.envs import make
+    from repro_torch.serving import PolicyServer
+
+    spec = networks.mlp_spec(9, (8,), 25)
+    gen = torch.Generator().manual_seed(0)
+    env = make("airnav")
+    return {
+        "init_mlp": lambda: networks.init_mlp(spec, gen)["fc0"]["w"],
+        "params_from_jax": lambda: networks.params_from_jax(
+            {"out": {"w": np.zeros((9, 25), np.float32)}})["out"]["w"],
+        "airnav_reset": lambda: env.reset(gen, 4)[1],
+        "batched_env_reset": lambda: batched_env(env, 4).reset(gen)[1],
+        "policy_server": lambda: PolicyServer(env.spec).device,
+    }
+
+
+@pytest.mark.parametrize("name", ["init_mlp", "params_from_jax",
+                                  "airnav_reset", "batched_env_reset",
+                                  "policy_server"])
+def test_entry_points_default_to_the_card(name):
+    """``device=None`` means ``cuda``: it lands there with a card and
+    raises without one, never falling back to the CPU."""
+    import torch
+    call = _entry_points()[name]
+    if torch.cuda.is_available():
+        out = call()
+        assert (out if isinstance(out, torch.device) else out.device
+                ).type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
