@@ -125,3 +125,30 @@ def unpack_int4(packed: torch.Tensor, k: int) -> torch.Tensor:
     both = torch.stack([lo, hi], dim=1)        # (Kp, 2, ...)
     out = both.reshape((-1,) + tuple(packed.shape[1:]))
     return out[:k].to(torch.int8)
+
+
+# ---------------------------------------------------------------------------
+# Symmetric per-token quantizer (the KV-cache writer)
+# ---------------------------------------------------------------------------
+
+def quantize_symmetric(x: torch.Tensor, dim: int = -1
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-slice int8 quantization (the KV-cache token quantizer).
+
+    Counterpart of ``repro/core/affine.py:208-233``.  Reduces ``|x|`` over
+    ``dim`` (kept) and maps the slice onto [-127, 127] with ``scale =
+    amax / 127``; an all-zero slice gets scale 1, so its codes are 0.
+    Returns ``(codes int8, scale f32)``; dequantization is ``codes *
+    scale``.  The division is correctly rounded and ``torch.round`` rounds
+    half to even on the CPU and on the card alike, so the same ``x`` gives
+    the same codes and scales on both, and the reference's bit for bit.
+    ``127`` is a tensor on ``x``'s device, not a Python scalar: on the
+    card, torch divides by a CPU scalar as a multiply by its reciprocal,
+    which is not correctly rounded.
+    """
+    xf = x.to(torch.float32)
+    amax = xf.abs().amax(dim=dim, keepdim=True)
+    scale = torch.where(amax == 0, torch.ones_like(amax),
+                        amax / amax.new_full((), 127.0))
+    codes = torch.clamp(torch.round(xf / scale), -127.0, 127.0)
+    return codes.to(torch.int8), scale

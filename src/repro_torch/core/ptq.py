@@ -65,13 +65,18 @@ class PackedTensor:
 # tree helpers (nested dicts / tuples / lists; PackedTensor is one node)
 # ---------------------------------------------------------------------------
 
-def tree_map(fn: Callable[[Any], Any], tree: Tree) -> Tree:
-    """Apply ``fn`` to every leaf; a ``PackedTensor`` is one leaf."""
+def tree_map(fn: Callable[..., Any], tree: Tree, *rest: Tree) -> Tree:
+    """Apply ``fn`` to every leaf of ``tree`` (and the matching leaves of
+    the ``rest`` trees, of the same structure); dicts, ``NamedTuple``s,
+    tuples and lists are nodes, a ``PackedTensor`` is one leaf."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, *xs) for xs in zip(tree, *rest)))
     if isinstance(tree, (tuple, list)):
-        return type(tree)(tree_map(fn, v) for v in tree)
-    return fn(tree)
+        return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
+    return fn(tree, *rest)
 
 
 def tree_tensors(tree: Tree) -> Iterator[Tuple[str, torch.Tensor]]:

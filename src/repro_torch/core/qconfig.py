@@ -25,6 +25,11 @@ class QuantConfig:
     bits: int = 8
 
     @staticmethod
+    def none() -> "QuantConfig":
+        """No quantization (the fp32 learner and actor)."""
+        return QuantConfig()
+
+    @staticmethod
     def ptq_int(bits: int = 8) -> "QuantConfig":
         """Post-training uniform affine quantization to ``bits`` bits."""
         return QuantConfig(mode=QuantMode.PTQ_INT, bits=bits)

@@ -1,19 +1,20 @@
 """Public quantized ops: a CUDA tensor goes to the kernel, a CPU tensor to
 the plain PyTorch version.
 
-Counterpart of ``repro/kernels/ops.py:78-151``.  There is no backend knob
-and no environment override: where the data lies decides, so the card's
-path always runs the hand-written kernel (or raises) and the CPU tests run
-the plain versions.
+Counterpart of ``repro/kernels/ops.py:78-151, 191-230``.  There is no
+backend knob and no environment override: where the data lies decides, so
+the card's path always runs the hand-written kernel (or raises) and the CPU
+tests run the plain versions.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
 from repro_torch.core import affine
 from repro_torch.kernels import fused_qmlp as _fq
+from repro_torch.kernels import int8_cache_attention as _ca
 from repro_torch.kernels import int8_matmul as _mm
 
 
@@ -76,3 +77,43 @@ def fused_qmlp(x: torch.Tensor, layers: Sequence[_fq.QMLPLayer]
     else:
         y = _fq.fused_qmlp_plain(x_q, layers)
     return y.reshape(lead + y.shape[-1:])
+
+
+def int8_cache_attention(q: torch.Tensor, k_codes: torch.Tensor,
+                         k_scale: torch.Tensor, v_codes: torch.Tensor,
+                         v_scale: torch.Tensor, pos, *,
+                         window: Optional[int] = None) -> torch.Tensor:
+    """Single-token decode attention over an int8-coded KV cache.
+
+    Innermost shapes: ``q (G, Dh)`` -- G query heads sharing one KV head
+    -- against ``k_codes/v_codes (T, Dh)`` int8 and ``k_scale/v_scale (T,
+    1)`` f32 (``core.affine.quantize_symmetric``).  Slots ``> pos`` (and,
+    with ``window``, ``<= pos - window``) are masked out.  Leading dims
+    are batch dims, flattened into the kernel's grid; ``pos`` is a scalar
+    or has a leading prefix of them as its shape (one position shared, or
+    ragged decode), and a ``pos`` of higher rank raises ``ValueError``.
+    The contract is ``0 <= pos < T``.  Returns ``(..., G, Dh)``.
+    """
+    pos = torch.as_tensor(pos, dtype=torch.int32, device=q.device)
+    lead = tuple(q.shape[:-2])
+    if pos.dim() > len(lead):
+        raise ValueError(f"pos rank {pos.dim()} exceeds batch rank "
+                         f"{len(lead)}")
+    if tuple(pos.shape) != lead[:pos.dim()]:
+        raise ValueError(f"pos shape {tuple(pos.shape)} is not a prefix "
+                         f"of the batch dims {lead}")
+    pos = pos.reshape(tuple(pos.shape) + (1,) * (len(lead) - pos.dim()))
+    g, dh = q.shape[-2:]
+    t = k_codes.shape[-2]
+    flat = (-1, t, dh)
+    args = (q.reshape(-1, g, dh).contiguous(),
+            k_codes.reshape(flat).contiguous(),
+            k_scale.reshape(-1, t, 1).contiguous(),
+            v_codes.reshape(flat).contiguous(),
+            v_scale.reshape(-1, t, 1).contiguous(),
+            pos.expand(lead).reshape(-1).contiguous())
+    if _device_type(q) == "cuda":
+        out = _ca.int8_cache_attention_cuda(*args, window=window)
+    else:
+        out = _ca.int8_cache_attention_plain(*args, window=window)
+    return out.reshape(q.shape)

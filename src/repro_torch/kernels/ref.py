@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the port's kernels, op for op.
 
-Counterpart of ``repro/kernels/ref.py:38-90``.  These are the reference
-each CUDA kernel is held against (bitwise), and the path a CPU tensor
+Counterpart of ``repro/kernels/ref.py:38-90, 136-149``.  These are the
+reference each CUDA kernel is held against (bitwise for the integer
+GEMMs, within 1e-5 for the float attention), and the path a CPU tensor
 takes.  CUDA has no integer ``matmul``, so the int32 accumulator is taken
 in float64, which is exact here: ``|acc| <= 2**14 * K < 2**53`` for any K
 the policies use (float32 would not be exact past 2**24, which K = 4096
@@ -10,7 +11,7 @@ into an FMA: ``(x_scale * w_scale) * corr``, then ``+ bias``.
 """
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -65,3 +66,33 @@ def fused_qmlp_ref(x_q: torch.Tensor, layers: Sequence) -> torch.Tensor:
         h = affine.quantize_with_params(
             torch.relu(y), affine.AffineParams(nxt.x_delta, nxt.x_zero, 8))
     raise ValueError("fused_qmlp needs at least one layer")
+
+
+NEG_INF = -1e30     # the reference's mask value (not -inf)
+
+
+def int8_cache_decode_ref(q: torch.Tensor, k_codes: torch.Tensor,
+                          k_scale: torch.Tensor, v_codes: torch.Tensor,
+                          v_scale: torch.Tensor, pos: torch.Tensor,
+                          window: Optional[int] = None) -> torch.Tensor:
+    """Decode attention over an int8 KV cache, as a dense softmax.
+
+    ``q (..., G, Dh)``; codes ``(..., T, Dh)`` int8 with ``(..., T, 1)``
+    f32 scales; ``pos`` an int tensor of the leading dims' shape
+    ``q.shape[:-2]``, or a scalar (one decode position per problem).  In
+    the reference's order: dequantize K, ``q @ k.T``, times ``Dh ** -0.5``,
+    mask slots ``> pos`` (and ``<= pos - window``) with ``-1e30``, softmax,
+    ``@ v``.  Returns ``(..., G, Dh)`` in ``q``'s dtype.
+    """
+    k = k_codes.to(torch.float32) * k_scale
+    v = v_codes.to(torch.float32) * v_scale
+    t = k.shape[-2]
+    s = torch.matmul(q.to(torch.float32), k.transpose(-1, -2)) \
+        * (q.shape[-1] ** -0.5)
+    idx = torch.arange(t, device=q.device)
+    p = pos.to(device=q.device, dtype=torch.int64)[..., None, None]
+    valid = idx <= p
+    if window is not None:
+        valid = valid & (idx > p - window)
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    return torch.matmul(torch.softmax(s, dim=-1), v).to(q.dtype)

@@ -1,7 +1,8 @@
-"""ActorQ: the packed int8/int4 actor (MLP path) of the port.
+"""ActorQ: the packed int8/int4 actor of the port (MLP and sequence
+policies).
 
 Counterpart of ``repro/rl/actorq.py`` (lines 85-157, 164-205, 259-302,
-325-342, 489-554).  fp32 policy params are packed once per push into an
+325-512, 489-554).  fp32 policy params are packed once per push into an
 int cache (``pack_actor_params``); the actor forward then runs every dense
 layer through the W8A8 / W4A8 integer GEMM (``kernels.ops.int8_matmul``,
 kernel B1 on the card) with dynamic per-tensor activation quantization,
@@ -12,7 +13,11 @@ The calibrated path is the dynamic path on the calibration batch, bit for
 bit: the static params are exactly those the dynamic quantizer derives at
 each layer, and the fused epilogue repeats the per-layer float op order.
 
-Conv and sequence caches are not ported yet: they raise
+Sequence-policy caches (an ``embed`` key) run the decoder transformer:
+windowed (``quantized_seq_apply``, for eval) or one token at a time on a
+per-env int8 KV cache (``quantized_seq_step``, the rollout hot path),
+whose attention is ``kernels.ops.int8_cache_attention`` (kernel B3 on the
+card).  Conv caches are not ported yet: they raise
 ``NotImplementedError`` naming the ROADMAP item that brings them.
 """
 from __future__ import annotations
@@ -24,8 +29,12 @@ import torch
 from repro_torch.core import affine, ptq
 from repro_torch.core.ptq import PackedTensor
 from repro_torch.core.qconfig import QuantConfig
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 from repro_torch.kernels.fused_qmlp import QMLPLayer
+from repro_torch.models import common as mcommon
+from repro_torch.models.seq_policy import NEG_INF, valid_mask
+from repro_torch.rl.env import attach_policy_state
 
 QuantizedParams = Any
 
@@ -60,19 +69,15 @@ def backend_bits(actor_backend: str) -> int:
     return _BACKEND_BITS[actor_backend]
 
 
-def _check_mlp(qparams: QuantizedParams) -> None:
-    names = set(qparams)
-    if "embed" in names:
-        raise NotImplementedError(
-            "sequence-policy actors are not ported yet (ROADMAP queue A, "
-            "item 12)")
-    if any(n.startswith("conv") for n in names):
+def _check_ported(qparams: QuantizedParams) -> None:
+    if any(n.startswith("conv") for n in qparams):
         raise NotImplementedError(
             "int8 conv actors are not ported yet (ROADMAP queue A, item 6)")
 
 
 def pack_actor_params(params: Any, bits: int = 8) -> QuantizedParams:
-    """Pack an fp32 MLP param tree into the int-code deployment cache.
+    """Pack an fp32 MLP or sequence-policy param tree into the int-code
+    deployment cache (every 2-D weight; biases and norm gains stay fp32).
 
     ``bits <= 4`` stores two codes per byte along K (W4A8, half the
     cache); activations always quantize to 8 bits at run time.
@@ -80,7 +85,7 @@ def pack_actor_params(params: Any, bits: int = 8) -> QuantizedParams:
     if not 1 <= bits <= 8:
         raise ValueError(f"int actor cache needs 1 <= bits <= 8, "
                          f"got {bits}")
-    _check_mlp(params)
+    _check_ported(params)
     return ptq.ptq_pack(params, QuantConfig.ptq_int(bits))
 
 
@@ -165,10 +170,146 @@ def quantized_mlp_apply(qparams: QuantizedParams, x: torch.Tensor,
 
 def quantized_apply(qparams: QuantizedParams, x: torch.Tensor
                     ) -> torch.Tensor:
-    """Head outputs of the packed actor (MLP caches)."""
-    _check_mlp(qparams)
+    """Head outputs of the packed actor, dispatched on the cache's keys:
+    ``embed`` selects the sequence policy (windowed form,
+    ``quantized_seq_apply``), otherwise the MLP."""
+    _check_ported(qparams)
+    if "embed" in qparams:
+        return quantized_seq_apply(qparams, x)
     n_hidden = sum(1 for n in qparams if n.startswith("fc"))
     return quantized_mlp_apply(qparams, x, n_hidden)
+
+
+# ---------------------------------------------------------------------------
+# Quantized sequence policy (mirror of models.seq_policy.seq_apply)
+# ---------------------------------------------------------------------------
+
+def _n_blocks(qparams: QuantizedParams) -> int:
+    return sum(1 for n in qparams if n.startswith("blk"))
+
+
+def quantized_seq_apply(qparams: QuantizedParams, obs: torch.Tensor
+                        ) -> torch.Tensor:
+    """Windowed int8 forward of the packed decoder transformer.
+
+    The stateless mirror of ``models.seq_policy.seq_apply``: every dense
+    projection runs through the W{8,4}A8 GEMM with dynamic per-tensor
+    activation quantization, while rms-norms, the softmax attention and
+    the residual adds stay fp32.  ``obs`` is ``(..., context, feat)``;
+    the output is the head on the newest row.  Eval uses it; the rollout
+    steps incrementally through ``quantized_seq_step``.
+    """
+    s = obs.shape[-2]
+    x = int8_dense(qparams["embed"], obs)
+    causal = torch.tril(torch.ones((s, s), dtype=torch.bool,
+                                   device=obs.device))
+    mask = causal & valid_mask(obs)[..., None, :]
+    scale = x.shape[-1] ** -0.5
+    for i in range(_n_blocks(qparams)):
+        blk = qparams[f"blk{i}"]
+        h = mcommon.rms_norm(blk["ln1"], x)
+        q = int8_dense(blk["q"], h)
+        k = int8_dense(blk["k"], h)
+        v = int8_dense(blk["v"], h)
+        logits = torch.matmul(q, k.transpose(-1, -2)) * scale
+        logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+        a = torch.matmul(torch.softmax(logits, dim=-1), v)
+        x = x + int8_dense(blk["o"], a)
+        h2 = mcommon.rms_norm(blk["ln2"], x)
+        y = int8_dense(blk["fc"], h2, act=torch.relu)
+        x = x + int8_dense(blk["proj"], y)
+    return int8_dense(qparams["head"], x[..., -1, :])
+
+
+def seq_cache_zeros(seq_cfg, n_envs: int, size: int,
+                    device=None) -> Dict[str, Any]:
+    """All-zero per-env KV-cache actor state of the sequence policy.
+
+    One int8 cache per block, slot == step index: codes ``(n_envs, size,
+    d_model)`` with ``(n_envs, size, 1)`` f32 scales, plus the per-env
+    int32 write counter ``count``.  ``size`` must exceed the longest
+    episode (the drivers use ``max_steps + 1``).  The all-zero tree is
+    also what ``rl.env.auto_reset_step`` restores when an episode ends.
+    ``device=None`` is ``cuda``.
+    """
+    device = resolve_device(device)
+
+    def layer():
+        codes = (n_envs, size, seq_cfg.d_model)
+        return {"k_codes": torch.zeros(codes, dtype=torch.int8,
+                                       device=device),
+                "k_scale": torch.zeros((n_envs, size, 1), device=device),
+                "v_codes": torch.zeros(codes, dtype=torch.int8,
+                                       device=device),
+                "v_scale": torch.zeros((n_envs, size, 1), device=device)}
+    return {"count": torch.zeros((n_envs,), dtype=torch.int32,
+                                 device=device),
+            "layers": tuple(layer() for _ in range(seq_cfg.n_layers))}
+
+
+def seq_cache_nbytes(pstate: Dict[str, Any]) -> int:
+    """Bytes of a KV-cache actor state (codes, scales and the counter)."""
+    return sum(t.numel() * t.element_size()
+               for _, t in ptq.tree_tensors(pstate))
+
+
+def quantized_seq_step(qparams: QuantizedParams, feat: torch.Tensor,
+                       pstate: Dict[str, Any], *, context: int):
+    """One decode step of the packed transformer on the int8 KV cache.
+
+    ``feat`` is the newest frame row ``(B, feat)``; ``pstate`` the per-env
+    cache from ``seq_cache_zeros``.  Each block quantizes the new token's
+    K and V with ``core.affine.quantize_symmetric``, writes them to slot
+    ``count`` of each env, and attends over the last ``context`` slots
+    through ``kernels.ops.int8_cache_attention``.  The write index is
+    clamped to the cache as the reference's ``dynamic_update_slice``
+    clamps it.  The cache is written out of place: ``pstate`` (which may
+    be the reset value itself) is left as it was.  Returns ``(head_out,
+    new_pstate)`` with ``count`` advanced.
+    """
+    count = pstate["count"]
+    x = int8_dense(qparams["embed"], feat)                      # (B, D)
+    layers = pstate["layers"]
+    size = layers[0]["k_codes"].shape[1] if layers else 1
+    rows = torch.arange(count.shape[0], device=count.device)
+    slot = (rows, count.clamp(0, size - 1).to(torch.int64))
+    new_layers = []
+    for i in range(_n_blocks(qparams)):
+        blk = qparams[f"blk{i}"]
+        h = mcommon.rms_norm(blk["ln1"], x)
+        q = int8_dense(blk["q"], h)
+        kc, ks = affine.quantize_symmetric(int8_dense(blk["k"], h))
+        vc, vs = affine.quantize_symmetric(int8_dense(blk["v"], h))
+        cache = {name: layers[i][name].index_put(slot, val)
+                 for name, val in (("k_codes", kc), ("k_scale", ks),
+                                   ("v_codes", vc), ("v_scale", vs))}
+        out = ops.int8_cache_attention(
+            q[:, None, :], cache["k_codes"], cache["k_scale"],
+            cache["v_codes"], cache["v_scale"], count, window=context)
+        x = x + int8_dense(blk["o"], out[:, 0, :])
+        h2 = mcommon.rms_norm(blk["ln2"], x)
+        y = int8_dense(blk["fc"], h2, act=torch.relu)
+        x = x + int8_dense(blk["proj"], y)
+        new_layers.append(cache)
+    head = int8_dense(qparams["head"], x)
+    return head, {"count": count + 1, "layers": tuple(new_layers)}
+
+
+def maybe_attach_seq_state(benv, net, actor_backend: str, n_envs: int,
+                           device=None):
+    """Wrap a batched env with the KV-cache actor state when it applies.
+
+    A no-op unless ``net`` carries a ``seq_cfg`` and the actor backend is
+    quantized: exactly when the rollout policy is the cached stepper
+    (``quantized_seq_step``); fp32 sequence actors stay windowed.  The
+    cache has ``max_steps + 1`` slots.  ``device=None`` is ``cuda``.
+    """
+    seq_cfg = getattr(net, "seq_cfg", None)
+    if seq_cfg is None or not is_quantized(actor_backend):
+        return benv
+    pstate0 = seq_cache_zeros(seq_cfg, n_envs, benv.spec.max_steps + 1,
+                              device)
+    return attach_policy_state(benv, pstate0)
 
 
 def calibrate_actor_cache(qparams: QuantizedParams, obs: torch.Tensor
@@ -178,9 +319,12 @@ def calibrate_actor_cache(qparams: QuantizedParams, obs: torch.Tensor
     Runs the per-layer dynamic path once over ``obs`` and records, per
     dense layer, the affine params the dynamic quantizer derives for that
     layer's input.  ``quantized_apply`` on the returned cache then takes
-    the single-launch fused kernel.
+    the single-launch fused kernel.  The fused kernel is MLP-only, so a
+    sequence-policy cache comes back as it is (per-layer path).
     """
-    _check_mlp(qparams)
+    _check_ported(qparams)
+    if "embed" in qparams:
+        return qparams
     n_hidden = sum(1 for n in qparams if n.startswith("fc"))
     act = []
     x = obs.reshape(-1, obs.shape[-1]).to(torch.float32)

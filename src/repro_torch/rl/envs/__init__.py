@@ -1,9 +1,27 @@
-"""Batched torch environments of the port (AirNav so far)."""
+"""Batched torch environments of the port: AirNav, Catch and the
+partially observed / frame-stacked wrappers of the sequence policy."""
 from repro_torch.rl.envs.airnav import make_airnav
+from repro_torch.rl.envs.catch import make_catch
+from repro_torch.rl.envs.wrappers import (
+    make_airnav_seq,
+    make_catch_seq,
+    make_flicker_airnav,
+    make_framestack,
+    make_masked_catch,
+)
 
-ENVS = {"airnav": make_airnav}
+ENVS = {
+    "airnav": make_airnav,
+    "catch": make_catch,
+    "catch_masked": make_masked_catch,
+    "airnav_flicker": make_flicker_airnav,
+    "catch_seq": make_catch_seq,
+    "airnav_seq": make_airnav_seq,
+}
 
-__all__ = ["ENVS", "make", "make_airnav"]
+__all__ = ["ENVS", "make", "make_airnav", "make_catch", "make_masked_catch",
+           "make_flicker_airnav", "make_framestack", "make_catch_seq",
+           "make_airnav_seq"]
 
 
 def make(name: str, **kwargs):

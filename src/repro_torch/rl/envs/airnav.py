@@ -14,8 +14,8 @@ its distance, each scaled as in the reference.
 """
 from __future__ import annotations
 
-import dataclasses
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -33,8 +33,7 @@ N_ACTIONS = 25
 OBS_DIM = 9
 
 
-@dataclasses.dataclass(frozen=True, eq=False)
-class AirNavState:
+class AirNavState(NamedTuple):
     """Batched env state; every field has a leading batch dimension B."""
 
     pos: torch.Tensor        # (B, 2)
@@ -74,34 +73,37 @@ def make_airnav(max_steps: int = 300) -> Env:
                    max_steps=max_steps)
 
     def reset(generator: torch.Generator, n: int, device=None):
-        """Draw ``n`` fresh episodes from ``generator`` (a CPU generator)
+        """Draw ``n`` fresh episodes from ``generator``, on its device,
         onto ``device`` (``None`` is ``cuda``)."""
         device = resolve_device(device)
+        gdev = generator.device
 
         def uniform(shape, lo, hi):
-            return lo + (hi - lo) * torch.rand(shape, generator=generator)
+            return lo + (hi - lo) * torch.rand(shape, generator=generator,
+                                               device=gdev)
 
         pos = uniform((n, 2), 2.0, ARENA - 2.0)
         goal = uniform((n, 2), 2.0, ARENA - 2.0)
         n_active = torch.randint(1, N_OBSTACLES + 1, (n, 1),
-                                 generator=generator)
+                                 generator=generator, device=gdev)
         obs_xy = uniform((n, N_OBSTACLES, 2), 3.0, ARENA - 3.0)
         heading = uniform((n,), -math.pi, math.pi)
         # keep obstacles away from the start position
         d_start = torch.linalg.vector_norm(obs_xy - pos[:, None], dim=-1)
         obs_xy = torch.where((d_start < 3.0)[..., None], obs_xy + 4.0,
                              obs_xy)
-        active = (torch.arange(N_OBSTACLES)[None] < n_active).float()
-        s = AirNavState(pos=pos, vel=torch.zeros(n, 2), heading=heading,
-                        goal=goal,
+        active = (torch.arange(N_OBSTACLES, device=gdev)[None]
+                  < n_active).float()
+        s = AirNavState(pos=pos, vel=torch.zeros(n, 2, device=gdev),
+                        heading=heading, goal=goal,
                         obstacles=torch.cat([obs_xy, active[..., None]], -1),
-                        t=torch.zeros(n, dtype=torch.int32))
-        s = AirNavState(**{f.name: getattr(s, f.name).to(device)
-                           for f in dataclasses.fields(s)})
+                        t=torch.zeros(n, dtype=torch.int32, device=gdev))
+        s = AirNavState(*(t.to(device) for t in s))
         return s, obs_of(s)
 
-    def step(s: AirNavState, action: torch.Tensor):
-        """One step of every env: ``(state, obs, reward, done)``."""
+    def step(s: AirNavState, action: torch.Tensor, generator=None):
+        """One step of every env: ``(state, obs, reward, done)``.  AirNav
+        draws nothing in a step, so ``generator`` is not used."""
         speeds, yaws = _speeds_yaws(s.pos.device)
         action = action.to(device=s.pos.device, dtype=torch.long)
         speed = speeds[action // 5]

@@ -1,11 +1,14 @@
-"""MLP policy network of the port (the deployment MLPs of paper Table 5).
+"""Policy networks of the port: the deployment MLPs of paper Table 5 and
+the decoder-transformer sequence policy.
 
-Counterpart of ``repro/rl/networks.py:74-91``.  Params are nested dicts
-in the reference's naming and layout -- ``{"fc0": {"w": (K, N), "b":
-(N,)}, ..., "out": {...}}`` with ``y = x @ w + b`` -- so ``core.ptq``
-packs them exactly as the reference packs its pytree, and
-``params_from_jax`` carries a JAX param tree across unchanged.
-``MLP`` is the same forward as an ``nn.Module``.
+Counterpart of ``repro/rl/networks.py:74-91, 127-169``.  Params are nested
+dicts in the reference's naming and layout -- ``{"fc0": {"w": (K, N), "b":
+(N,)}, ..., "out": {...}}`` with ``y = x @ w + b``, or the sequence
+policy's ``embed`` / ``blk{i}`` / ``head`` tree -- so ``core.ptq`` packs
+them exactly as the reference packs its pytree, and ``params_from_jax``
+carries a JAX param tree across unchanged.  ``make_network`` picks the
+network for an observation shape; ``MLP`` and ``SeqPolicy`` are the same
+forwards as ``nn.Module``s.
 
 The fp32 actor runs in full float32: ``full_fp32()`` turns TF32 off for
 matmuls and convolutions (JAX on the CPU computes full fp32, and the
@@ -14,13 +17,17 @@ port's fp32 path is compared against it).
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Sequence, Tuple
+from typing import (Any, Callable, Dict, NamedTuple, Optional, Sequence,
+                    Tuple)
 
 import numpy as np
 import torch
 from torch import nn
 
 from repro_torch.device import resolve_device
+from repro_torch.models import common
+from repro_torch.models.seq_policy import (SeqPolicyConfig, make_seq_policy,
+                                           seq_apply)
 
 Params = Dict[str, Dict[str, torch.Tensor]]
 
@@ -96,13 +103,89 @@ class MLP(nn.Module):
         return mlp_apply(self.params(), x)
 
 
+class SeqPolicy(nn.Module):
+    """The fp32 sequence policy as a module over a param tree (JAX
+    layout); ``forward`` is the windowed ``seq_apply``."""
+
+    def __init__(self, params: Any, cfg: SeqPolicyConfig):
+        super().__init__()
+        full_fp32()
+        self.cfg = cfg
+        self.tree = _to_module_dict(params)
+
+    def params(self) -> Any:
+        """The module's tensors as a param tree (shared storage)."""
+        return _from_module_dict(self.tree)
+
+    def forward(self, obs: torch.Tensor) -> torch.Tensor:
+        """Head outputs on the newest row of ``obs (..., S, F)``."""
+        return seq_apply(self.params(), obs, self.cfg)
+
+
+def _to_module_dict(tree: Any) -> nn.Module:
+    if isinstance(tree, dict):
+        if all(isinstance(v, torch.Tensor) for v in tree.values()):
+            return nn.ParameterDict({k: nn.Parameter(v)
+                                     for k, v in tree.items()})
+        return nn.ModuleDict({k: _to_module_dict(v)
+                              for k, v in tree.items()})
+    raise TypeError(f"param trees are nested dicts, got {type(tree)}")
+
+
+def _from_module_dict(mod: nn.Module) -> Any:
+    if isinstance(mod, nn.ParameterDict):
+        return {k: mod[k] for k in mod.keys()}
+    return {k: _from_module_dict(v) for k, v in mod.items()}
+
+
+class Network(NamedTuple):
+    """A network for one observation shape: ``init(generator)`` draws its
+    params from a CPU generator (onto the network's device),
+    ``apply(params, obs)`` gives the head outputs.  ``seq_cfg`` is the
+    ``SeqPolicyConfig`` of a sequence policy (``rl.actorq`` sizes the
+    KV-cache actor state from it), else ``None``."""
+
+    init: Callable[[torch.Generator], Any]
+    apply: Callable[[Any, torch.Tensor], torch.Tensor]
+    out_dim: int
+    seq_cfg: Optional[SeqPolicyConfig] = None
+
+
+def make_network(obs_shape: Tuple[int, ...], out_dim: int, *,
+                 hidden: Sequence[int] = (64, 64),
+                 transformer: Optional[Dict[str, Any]] = None,
+                 device=None) -> Network:
+    """The network for an observation shape, as the reference picks it.
+
+    ``transformer`` (a dict of ``models.seq_policy.make_seq_policy``
+    keyword arguments, possibly empty) selects the decoder-transformer
+    sequence policy for frame-stacked ``(context, feat)`` observations;
+    otherwise the observation is flattened into the ``hidden`` MLP.
+    Pixel (3-D) observations need the conv actor, which is not ported yet
+    (ROADMAP queue A, item 6).  ``device=None`` is ``cuda``.
+    """
+    device = resolve_device(device)
+    if transformer is not None:
+        spec, apply_fn, cfg = make_seq_policy(tuple(obs_shape), out_dim,
+                                              **transformer)
+        return Network(lambda g: common.init_params(spec, g, device),
+                       apply_fn, out_dim, seq_cfg=cfg)
+    if len(obs_shape) == 3:
+        raise NotImplementedError(
+            "conv (pixel) networks are not ported yet (ROADMAP queue A, "
+            "item 6)")
+    obs_dim = int(np.prod(obs_shape))
+    spec = mlp_spec(obs_dim, hidden, out_dim)
+    return Network(lambda g: init_mlp(spec, g, device), mlp_apply, out_dim)
+
+
 def params_from_jax(tree: Any, device=None) -> Params:
-    """The port's params from a JAX MLP param tree.
+    """The port's params from a JAX param tree.
 
     ``tree`` is nested dicts of arrays (numpy, or anything ``np.asarray``
-    takes), as ``repro.rl.networks`` lays them out; the result keeps the
-    names and the ``(K, N)`` layout, in float32 on ``device`` (``None`` is
-    ``cuda``).
+    takes), as ``repro.rl.networks`` lays them out (MLP or sequence
+    policy); the result keeps the names and the ``(K, N)`` layout, in
+    float32 on ``device`` (``None`` is ``cuda``).
     """
     device = resolve_device(device)
     if isinstance(tree, dict):

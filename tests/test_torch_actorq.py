@@ -95,8 +95,10 @@ def test_backend_validation_and_unported_caches():
         actorq.pack_actor_params({}, bits=9)
     with pytest.raises(NotImplementedError, match="item 6"):
         actorq.pack_actor_params({"conv0": {}, "out": {}})
-    with pytest.raises(NotImplementedError, match="item 12"):
-        actorq.quantized_apply({"embed": {}}, torch.zeros(1, 3))
+    with pytest.raises(NotImplementedError, match="item 6"):
+        actorq.quantized_apply({"conv0": {}, "out": {}}, torch.zeros(1, 3))
+    with pytest.raises(NotImplementedError, match="item 6"):
+        actorq.calibrate_actor_cache({"conv0": {}}, torch.zeros(1, 3))
     assert tuple(actorq.calib_slice(torch.zeros(10, 3), 4).shape) == (4, 3)
     assert tuple(actorq.calib_slice(torch.zeros(2, 3), 4).shape) == (2, 3)
 

@@ -1,4 +1,8 @@
-"""On the card: each CUDA kernel equals its plain PyTorch version, bitwise.
+"""On the card: each CUDA kernel against its plain PyTorch version.
+
+The integer GEMMs (B1, B2) are bitwise equal to theirs; the int8-cache
+decode attention (B3) is float attention summed in another order, so it
+agrees within rtol = atol = 1e-5, the reference's attention contract.
 
 The kernels have no CPU mode, so every test here takes the ``cuda``
 fixture, which skips on a machine without a card.  The file imports no
@@ -11,8 +15,12 @@ import pytest
 import torch
 
 from repro_torch.core import affine
-from repro_torch.kernels import fused_qmlp, int8_matmul
-from repro_torch.rl import actorq, networks
+from repro_torch.kernels import (fused_qmlp, int8_cache_attention,
+                                 int8_matmul, ops)
+from repro_torch.rl import actorq, dqn, networks
+from repro_torch.rl import env as env_mod
+from repro_torch.rl.env import batched_env
+from repro_torch.rl.envs import make
 
 
 @pytest.fixture
@@ -72,3 +80,89 @@ def test_fused_qmlp_kernel_equals_plain_on_card(cuda, bits, widths, m):
     want = fused_qmlp.fused_qmlp_plain(x_q, layers)
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def _attention_inputs(r, g, t, dh, seed):
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    k = rng.normal(size=(r, t, dh)).astype(f32) * 3.0
+    v = rng.normal(size=(r, t, dh)).astype(f32)
+    kc, ks = affine.quantize_symmetric(torch.from_numpy(k))
+    vc, vs = affine.quantize_symmetric(torch.from_numpy(v))
+    return (torch.from_numpy(rng.normal(size=(r, g, dh)).astype(f32)),
+            kc, ks, vc, vs)
+
+
+@pytest.mark.parametrize("shape", [
+    # (R, G, T, Dh, window): airnav_seq, catch_seq, odd sizes, long cache
+    (512, 1, 121, 32, 8), (512, 1, 8, 32, 6), (7, 3, 37, 16, None),
+    (5, 2, 50, 200, 9), (3, 1, 64, 256, None), (8, 4, 4096, 128, None)])
+@pytest.mark.parametrize("ragged", [True, False])
+def test_int8_cache_attention_kernel_vs_plain_on_card(cuda, shape, ragged):
+    r, g, t, dh, window = shape
+    args = [a.to(cuda) for a in _attention_inputs(r, g, t, dh, seed=r + t)]
+    rng = np.random.default_rng(dh)
+    pos = rng.integers(0, t, size=r) if ragged else np.full(r, t - 1)
+    pos = torch.from_numpy(pos.astype(np.int32)).to(cuda)
+    before = int8_cache_attention.launches.value
+    got = int8_cache_attention.int8_cache_attention_cuda(*args, pos, window)
+    want = int8_cache_attention.int8_cache_attention_plain(*args, pos,
+                                                           window)
+    torch.cuda.synchronize()
+    assert int8_cache_attention.launches.value == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_int8_cache_attention_op_on_card_and_leading_dims(cuda):
+    q, kc, ks, vc, vs = _attention_inputs(6, 2, 20, 16, seed=1)
+    lead = (2, 3)
+    args = [a.reshape(lead + a.shape[1:]) for a in (q, kc, ks, vc, vs)]
+    pos = torch.tensor([4, 19], dtype=torch.int32)
+    want = ops.int8_cache_attention(*args, pos, window=5)      # CPU: plain
+    before = int8_cache_attention.launches.value
+    got = ops.int8_cache_attention(*[a.to(cuda) for a in args],
+                                   pos.to(cuda), window=5)
+    assert int8_cache_attention.launches.value == before + 1
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="Dh"):
+        int8_cache_attention.int8_cache_attention_cuda(
+            *[a.to(cuda) for a in _attention_inputs(1, 1, 4, 300, 0)],
+            torch.zeros(1, dtype=torch.int32, device=cuda))
+
+
+def test_cache_codes_on_card_equal_cpu(cuda):
+    """The KV-cache writer: the same K gives the same codes and scales on
+    the card as on the CPU (correctly rounded division, round half to
+    even on both)."""
+    rng = np.random.default_rng(0)
+    k = torch.from_numpy((rng.normal(size=(512, 4, 32)) * 4.0)
+                         .astype(np.float32))
+    k[0, 0] = 0.0
+    k[1, 0, :3] = torch.tensor([127.0, 0.5, 1.5])
+    want = affine.quantize_symmetric(k)
+    got = affine.quantize_symmetric(k.to(cuda))
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+def test_seq_rollout_on_card_launches_b3(cuda):
+    """A short int8 cached rollout on the card: B3 launches once per block
+    per step, B1 once per dense layer."""
+    env = make("catch_seq")
+    net = networks.make_network(env.spec.obs_shape, env.spec.n_actions,
+                                transformer={"d_model": 32, "n_layers": 2,
+                                             "d_ff": 64}, device=cuda)
+    params = net.init(torch.Generator().manual_seed(0))
+    benv = actorq.maybe_attach_seq_state(batched_env(env, 64), net, "int8",
+                                         64, device=cuda)
+    pol = dqn.make_behaviour_policy(benv, net, dqn.DQNConfig(
+        actor_backend="int8"))(params, torch.tensor(0, device=cuda))
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    state, obs = benv.reset(gen, cuda)
+    b3, b1 = int8_cache_attention.launches.value, int8_matmul.launches.value
+    state, obs, traj = env_mod.rollout(benv, pol, params, state, obs, gen, 5)
+    torch.cuda.synchronize()
+    assert int8_cache_attention.launches.value - b3 == 2 * 5
+    assert int8_matmul.launches.value - b1 == 14 * 5
+    assert traj.action.device.type == "cuda"
+    assert bool(torch.isfinite(traj.logits_or_value).all())

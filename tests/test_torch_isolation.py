@@ -29,7 +29,9 @@ def _imported_modules(path):
 
 def test_scan_sees_the_port():
     names = {p.name for p in PORT_FILES}
-    assert {"server.py", "actorq.py", "ops.py", "chip_smoke.py"} <= names
+    assert {"server.py", "actorq.py", "ops.py", "chip_smoke.py",
+            "seq_policy.py", "int8_cache_attention.py", "dqn.py",
+            "wrappers.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -43,7 +45,8 @@ def test_no_jax_or_repro_imports(path):
 def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.serving, "
             "repro_torch.rl.actorq, repro_torch.kernels.ops, "
-            "repro_torch.rl.envs, repro_torch.resilience.guards\n"
+            "repro_torch.rl.envs, repro_torch.resilience.guards, "
+            "repro_torch.rl.dqn, repro_torch.models.seq_policy\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
@@ -56,7 +59,7 @@ def _entry_points():
     import numpy as np
     import torch
 
-    from repro_torch.rl import networks
+    from repro_torch.rl import actorq, networks
     from repro_torch.rl.env import batched_env
     from repro_torch.rl.envs import make
     from repro_torch.serving import PolicyServer
@@ -64,6 +67,12 @@ def _entry_points():
     spec = networks.mlp_spec(9, (8,), 25)
     gen = torch.Generator().manual_seed(0)
     env = make("airnav")
+    seq_env = make("catch_seq")
+
+    def seq_net():
+        return networks.make_network(seq_env.spec.obs_shape, 3,
+                                     transformer={"d_model": 8,
+                                                  "n_layers": 1})
     return {
         "init_mlp": lambda: networks.init_mlp(spec, gen)["fc0"]["w"],
         "params_from_jax": lambda: networks.params_from_jax(
@@ -71,12 +80,20 @@ def _entry_points():
         "airnav_reset": lambda: env.reset(gen, 4)[1],
         "batched_env_reset": lambda: batched_env(env, 4).reset(gen)[1],
         "policy_server": lambda: PolicyServer(env.spec).device,
+        "catch_reset": lambda: make("catch").reset(gen, 4)[1],
+        "wrapper_reset": lambda: seq_env.reset(gen, 4)[1],
+        "make_network_init": lambda: seq_net().init(gen)["embed"]["w"],
+        "seq_cache_zeros": lambda: actorq.seq_cache_zeros(
+            networks.make_network((6, 27), 3, transformer={},
+                                  device="cpu").seq_cfg, 4, 8)["count"],
     }
 
 
 @pytest.mark.parametrize("name", ["init_mlp", "params_from_jax",
                                   "airnav_reset", "batched_env_reset",
-                                  "policy_server"])
+                                  "policy_server", "catch_reset",
+                                  "wrapper_reset", "make_network_init",
+                                  "seq_cache_zeros"])
 def test_entry_points_default_to_the_card(name):
     """``device=None`` means ``cuda``: it lands there with a card and
     raises without one, never falling back to the CPU."""

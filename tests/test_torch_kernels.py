@@ -120,7 +120,10 @@ def test_launch_counter_counts_and_resets():
 
 
 def test_build_names_every_source_and_hashes_flags():
-    assert set(build.SOURCES) == {"int8_matmul", "fused_qmlp"}
+    assert set(build.SOURCES) == {"int8_matmul", "fused_qmlp",
+                                  "int8_cache_attention"}
+    assert sorted(build.SOURCES.values()) == sorted(
+        p.name for p in build.CSRC.glob("*.cu"))
     for name, src in build.SOURCES.items():
         assert (build.CSRC / src).is_file()
         assert build._lib_path(name).name.startswith(f"lib{name}-")
