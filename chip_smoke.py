@@ -7,8 +7,9 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds each kernel against its plain PyTorch version on the card (the
-integer GEMMs bitwise, the int8-cache attention within 1e-5) at the shapes
-its paths give it and times both, then drives the port's two paths:
+integer GEMMs and the fake quantizer bitwise, the int8-cache attention
+within 1e-5) at the shapes its paths give it and times both, then drives
+the port's three paths:
 
 * serving -- ``PolicyServer`` answering batched AirNav sessions through
   the ActorQ int8 / int4 policy: every request answered, the hot-swap
@@ -19,14 +20,23 @@ its paths give it and times both, then drives the port's two paths:
   replay of the same step and a finished env's cache is reset; then an
   evaluation, and the windowed and cached actors held to the reference's
   contract on a catch_seq episode (and compared on an airnav_seq one);
+* training -- ``loops.train`` runs DQN on CartPole (MLP 4-64-64-2, the
+  reference's defaults, 400 iterations): QAT int8 (every fake-quant site
+  through kernel B5), the ActorQ int4 and int8 actors with calibrated
+  caches (rollouts through kernel B2) and the fp32 baseline, then
+  ``quarl_ptq`` evaluates the fp32 run at int8 and fp16; the eval
+  rewards are held to the bars stated in ``PERF.md``, and one TD update
+  of the QAT run is replayed on the CPU (within 1e-5);
 
 and checks that each path really launched its kernels.  Any failed check
 raises.  The last line of standard output is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
-and the line before it is a JSON object listing every ported kernel with
-its launches on the serving path, its largest difference from the plain
+the line before it the card's name and power limit, and the one before
+that a JSON object listing every ported kernel with its launches on the
+path it serves (serving for B1 and B2, the sequence-actor rollouts for
+B3, the QAT training run for B5), its largest difference from the plain
 version and its times.  All rows are also written to
 ``chiprun_out/chip_smoke.json``.  Without CUDA, or outside the repository,
 it exits with code 2 and prints no result.
@@ -71,6 +81,27 @@ REPLAY_ATOL = 1e-4
 FLIP_ATOL = 5e-3
 # B1 launches per env step: embed, q k v o fc proj per block, head
 DENSE_PER_STEP = 1 + 6 * SEQ_NET["n_layers"] + 1
+# B5 at the sites of the training path and beyond (label, shape): the
+# CartPole net's weights, its activations at the TD batch (64) and the
+# rollout batch (8 envs), the deployment policies' widest weights, odd
+# sizes, and degenerate inputs
+FQ_ROWS = (("cartpole fc0/w", (4, 64)), ("cartpole fc1/w", (64, 64)),
+           ("cartpole out/w", (64, 2)), ("td fc/out", (64, 64)),
+           ("td out/out", (64, 2)), ("rollout fc/out", (8, 64)),
+           ("Policy II", (512, 256)), ("Policy III", (4096, 512)),
+           ("odd", (1,)), ("odd", (7, 13)), ("odd", (2 ** 20 + 3,)),
+           ("zeros", (8, 64)), ("positive", (64, 2)), ("ties", (4, 64)))
+# the training phase: DQN on CartPole with the reference's defaults and
+# the bar run of tests/test_fused_qmlp.py:300-307
+TRAIN_ITERS, TRAIN_RECORD, TRAIN_SPC = 400, 50, 5
+QAT_DELAY = 200                   # TD updates: iteration 25 of 400
+# bars on max(eval rewards), stated in PERF.md before the first chip run:
+# 100 where the JAX package clears it on the CPU with this config; the
+# JAX package's QAT run collapses to about 9.4 once quantization turns
+# on (ROADMAP queue C), so the QAT run is held to 9.0, the bar it clears
+TRAIN_BARS = {"qat8": 9.0, "actorq_int4": 100.0, "actorq_int8": 100.0,
+              "fp32": 100.0}
+TD_ATOL = 1e-5
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float = INT8_OPS_PER_S):
@@ -85,16 +116,25 @@ def device_ms(torch, fn, reps: int = 25, per_rep: int = 10) -> float:
 
     Each rep first parks the stream on a sleep kernel so the host can
     enqueue ``per_rep`` calls back to back; the events then time the
-    calls' device work, not the host's launch cost.
+    calls' device work, not the host's launch cost.  The sleep lasts
+    twice the host's measured enqueue time of ``per_rep`` calls (in
+    cycles at 2 GHz, the H100's top clock, so at a lower clock it lasts
+    longer), and at least 1e6 cycles.
     """
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(per_rep):
+        fn()
+    enqueue_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    sleep_cycles = int(max(2.0 * enqueue_s * 2e9, 1e6))
     times = []
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(50_000_000)
+        torch.cuda._sleep(sleep_cycles)
         start.record()
         for _ in range(per_rep):
             fn()
@@ -148,6 +188,196 @@ def profile_dispatch(torch, server, obs_host, n: int = 20) -> dict:
         kernels_per_dispatch=p["kernels_per_call"], top=p["top"])
 
 
+def fake_quant_rows(torch, dev, gen) -> list:
+    """Kernel B5 against its plain version at ``FQ_ROWS`` x bits 2, 4, 8:
+    bitwise, and timed beside the plain version and
+    ``torch.fake_quantize_per_tensor_affine`` (which rounds ``x * (1 /
+    scale)`` and so differs at ties: a yardstick of time only)."""
+    from repro_torch.core import affine
+    from repro_torch.kernels import fake_quant
+    rows = []
+    for label, shape in FQ_ROWS:
+        for bits in (2, 4, 8):
+            if label == "zeros":
+                x = torch.zeros(shape, device=dev)
+            elif label == "positive":
+                x = (torch.rand(shape, generator=gen) + 0.5).to(dev)
+            elif label == "ties":      # x / delta = k + 0.5 on (-32, 32)
+                k = torch.randint(-100, 100, shape, generator=gen)
+                x = ((k.to(torch.float32) + 0.5) * (64.0 / 2 ** bits)
+                     ).to(dev)
+            else:
+                x = (torch.randn(shape, generator=gen) * 1.7).to(dev)
+            if label == "ties":
+                lo = torch.tensor(-32.0, device=dev)
+                hi = torch.tensor(32.0, device=dev)
+            else:     # the activation sites clip: a range inside x's own
+                lo = torch.clamp(x.amin(), max=0.0) * 0.9
+                hi = torch.clamp(x.amax(), min=0.0) * 0.8
+            got = fake_quant.fake_quant_cuda(x, lo, hi, bits)
+            want = fake_quant.fake_quant_plain(x, lo, hi, bits)
+            torch.cuda.synchronize()
+            same = torch.equal(got, want)
+            err = float((got - want).abs().max())
+            check(same, f"fake_quant {label} {list(shape)} bits={bits} "
+                        f"bitwise (max abs diff {err})")
+            p = affine.affine_params_from_range(lo, hi, bits)
+            top = 2 ** bits - 1
+            scale = float(p.delta)
+            zp = int(min(max(float(p.zero_point), 0), top))
+
+            def lib(x=x, scale=scale, zp=zp, top=top):
+                return torch.fake_quantize_per_tensor_affine(x, scale, zp,
+                                                             0, top)
+            n = x.numel()
+            b_ms, b_by = bound(8.0 * n + 8, 8.0 * n, F32_OPS_PER_S)
+            rows.append(dict(
+                name="fake_quant", label=label, shape=list(shape),
+                bits=bits, bitwise=same, max_abs_err=err,
+                library_max_abs_diff=float((lib() - want).abs().max()),
+                ms=device_ms(torch, lambda: fake_quant.fake_quant_cuda(
+                    x, lo, hi, bits)),
+                plain_ms=device_ms(torch, lambda: fake_quant.
+                                   fake_quant_plain(x, lo, hi, bits)),
+                bound_ms=b_ms, bound_by=b_by,
+                library_ms=device_ms(torch, lib),
+                library="fake_quantize_per_tensor_affine"))
+    return rows
+
+
+def train_phase(torch, dev, smi, counters) -> dict:
+    """The training path, through ``loops.train`` and ``quarl_ptq``.
+
+    Each run is driven with every kernel count set to 0 just before it
+    and read just after, and held to its launch counts and its bar."""
+    from repro_torch.core import ptq
+    from repro_torch.core.qconfig import QuantConfig
+    from repro_torch.rl import buffer as rb
+    from repro_torch.rl import dqn, loops
+    runs = (("qat8", dict(quant=QuantConfig.qat(8, quant_delay=QAT_DELAY))),
+            ("actorq_int4", dict(actor_backend="int4", calib_batch=32)),
+            ("actorq_int8", dict(actor_backend="int8", calib_batch=32)),
+            ("fp32", {}))
+    rows, results = [], {}
+    for name, kw in runs:
+        for c in counters.values():
+            c.reset()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = loops.train("dqn", "cartpole", iterations=TRAIN_ITERS,
+                          record_every=TRAIN_RECORD,
+                          steps_per_call=TRAIN_SPC, seed=SEED, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        n = {k: c.value for k, c in counters.items()}
+        cfg = res.algo_cfg
+        steps = TRAIN_ITERS * cfg.rollout_steps          # batched env steps
+        updates = TRAIN_ITERS * cfg.updates_per_iter
+        records = len(res.rewards)
+        if name == "qat8":
+            want = {"fake_quant": 6 * (steps + res.eval_steps) + 12 * updates,
+                    "int8_matmul": 0, "fused_qmlp": 0}
+        elif cfg.calib_batch:
+            # calibration runs the per-layer path over the 2 hidden layers
+            # at every refresh: each iteration and each eval mint
+            want = {"fused_qmlp": steps + res.eval_steps,
+                    "int8_matmul": 2 * (TRAIN_ITERS + records),
+                    "fake_quant": 0}
+        else:
+            want = {"fake_quant": 0, "int8_matmul": 0, "fused_qmlp": 0}
+        want["int8_cache_attention"] = 0
+        check(n == want, f"train {name}: launches {n}, the config implies "
+                         f"{want}")
+        check(len(res.rewards) == TRAIN_ITERS // TRAIN_RECORD
+              and all(np.isfinite(res.rewards)),
+              f"train {name}: rewards {res.rewards}")
+        check(max(res.rewards) > TRAIN_BARS[name],
+              f"train {name}: max eval reward {max(res.rewards)} does not "
+              f"clear its bar {TRAIN_BARS[name]} ({res.rewards})")
+        row = dict(run=name, rewards=res.rewards, bar=TRAIN_BARS[name],
+                   wall_s=wall, updates_per_s=updates / wall,
+                   env_steps_per_s=steps * cfg.n_envs / wall,
+                   eval_env_steps=res.eval_steps, launches=n,
+                   observers={k: [float(o.vmin), float(o.vmax)]
+                              for k, o in res.state.observers.items()},
+                   card=smi)
+        rows.append(row)
+        print("train " + json.dumps(row))
+        results[name] = res
+
+    # quarl_ptq on the fp32 run: its fp32, int8 and fp16 evaluations
+    for c in counters.values():
+        c.reset()
+    ptq_rows = loops.quarl_ptq("dqn", "cartpole", bits_list=(8, 16),
+                               result=results["fp32"], seed=SEED)
+    n = {k: c.value for k, c in counters.items()}
+    check(n["fake_quant"] == 3 and n["int8_matmul"] == n["fused_qmlp"] == 0,
+          f"quarl_ptq: launches {n} (want 3 fake_quant: the ptq_int8 "
+          f"weights)")
+    for r in ptq_rows:
+        check(np.isfinite(r.quant_reward), f"quarl_ptq {r.label}: {r}")
+        row = dict(ptq=r.label, fp32_reward=r.fp32_reward,
+                   quant_reward=r.quant_reward, error_pct=r.error_pct,
+                   launches=n, card=smi)
+        rows.append(row)
+        print("train " + json.dumps(row))
+
+    # one TD update of the QAT run (past the delay) on the card and,
+    # from the same state and batch, on the CPU
+    res = results["qat8"]
+    check(int(res.state.step) >= QAT_DELAY, "the QAT run is past its delay")
+    td = dqn.make_td_update(res.env, res.net, res.algo_cfg)
+    batch = rb.replay_sample(res.state.extras.replay,
+                             torch.Generator(device=dev).manual_seed(SEED),
+                             res.algo_cfg.batch_size)
+    card_state, (card_loss, card_td) = td(res.state, batch,
+                                          res.state.extras.replay.size)
+    cpu_in = ptq.tree_to(res.state, "cpu")
+    cpu_state, (cpu_loss, cpu_td) = td(cpu_in, ptq.tree_to(batch, "cpu"),
+                                       cpu_in.extras.replay.size)
+    diffs = {}
+    for what, a, b in (("params", card_state.params, cpu_state.params),
+                       ("target", card_state.extras.target_params,
+                        cpu_state.extras.target_params),
+                       ("adam_m", card_state.opt.m, cpu_state.opt.m),
+                       ("adam_v", card_state.opt.v, cpu_state.opt.v),
+                       ("observers", card_state.observers,
+                        cpu_state.observers)):
+        diffs[what] = max(
+            float((x.cpu().to(torch.float32) - y.to(torch.float32)).abs()
+                  .max())
+            for (_, x), (_, y) in zip(ptq.tree_tensors(a),
+                                      ptq.tree_tensors(b)))
+    td_diff = (card_td.cpu() - cpu_td).abs()
+    replay = dict(step=int(res.state.step),
+                  loss_card=float(card_loss), loss_cpu=float(cpu_loss),
+                  loss_abs_diff=abs(float(card_loss) - float(cpu_loss)),
+                  max_abs_diff=diffs,
+                  td_rows_over_1e6=int((td_diff > 1e-6).sum()),
+                  td_max_abs_diff=float(td_diff.max()), card=smi)
+    print("train td_replay " + json.dumps(replay))
+    check(replay["loss_abs_diff"] <= TD_ATOL
+          and max(diffs.values()) <= TD_ATOL,
+          f"TD update on the card vs the CPU: {replay}")
+    rows.append(dict(td_replay=replay))
+
+    # where an iteration's time goes, profiled after every timed run
+    for name, res in results.items():
+        iteration, _, benv = dqn.make_iteration(res.env, res.net,
+                                                res.algo_cfg, dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 40)
+        env_state, obs = benv.reset(gen, dev)
+        carry = [res.state, env_state, obs]
+
+        def one(iteration=iteration, carry=carry, gen=gen):
+            carry[0], carry[1], carry[2], _ = iteration(*carry, gen)
+        prof = dict(run=name, **profile_calls(torch, one, n=2))
+        rows.append(dict(profile=prof))
+        print("train profile " + json.dumps(prof))
+    return dict(rows=rows, qat_launches=next(
+        r["launches"] for r in rows if r.get("run") == "qat8"))
+
+
 def check(cond: bool, what: str) -> None:
     """Raise unless ``cond``."""
     if not cond:
@@ -170,8 +400,8 @@ def main() -> int:
     import torch.nn.functional as F
 
     from repro_torch.core import affine, ptq
-    from repro_torch.kernels import (build, fused_qmlp, int8_cache_attention,
-                                     int8_matmul)
+    from repro_torch.kernels import (build, fake_quant, fused_qmlp,
+                                     int8_cache_attention, int8_matmul)
     from repro_torch.rl import actorq, dqn, networks
     from repro_torch.rl import env as env_mod
     from repro_torch.rl.env import batched_env
@@ -322,10 +552,11 @@ def main() -> int:
             full_cache_bound_ms=bound(r * t * (2 * dh + 8) + io, 0.0)[0],
             library_ms=device_ms(torch, sdpa),
             library="scaled_dot_product_attention, K/V dequantized before"))
+    rows += fake_quant_rows(torch, dev, gen)
     for r in rows:
         print("kernel " + json.dumps(r))
-    print(f"kernel phase: {len(rows)} rows (B1, B2 bitwise; B3 within 1e-5), "
-          f"{time.perf_counter() - t0:.1f}s so far")
+    print(f"kernel phase: {len(rows)} rows (B1, B2, B5 bitwise; B3 within "
+          f"1e-5), {time.perf_counter() - t0:.1f}s so far")
 
     # ---- serve phase (the main path) --------------------------------------
     counters = (int8_matmul.launches, fused_qmlp.launches)
@@ -494,8 +725,8 @@ def main() -> int:
             batched_env(seq_env, ROLL_ENVS), net, backend, ROLL_ENVS)
         # epsilon at eps_end: the updates count is past the decay
         pol = dqn.make_behaviour_policy(benv, net, cfg)(
-            seq_params, torch.tensor(cfg.eps_decay_updates, device=dev),
-            qparams=qp)
+            seq_params, {}, torch.tensor(0, device=dev),
+            torch.tensor(cfg.eps_decay_updates, device=dev), qparams=qp)
         gen = torch.Generator(device=dev).manual_seed(SEED + 21)
         state, obs = benv.reset(gen)
         before = [c.value for c in roll_counters]
@@ -645,6 +876,14 @@ def main() -> int:
                     card=smi)
     print("eval " + json.dumps(eval_row))
 
+    # ---- train phase (the learner's path) ---------------------------------
+    t_train = time.perf_counter()
+    train = train_phase(torch, dev, smi, {
+        c.name: c for c in (int8_matmul.launches, fused_qmlp.launches,
+                            int8_cache_attention.launches,
+                            fake_quant.launches)})
+    print(f"train phase: {time.perf_counter() - t_train:.1f}s")
+
     # ---- report -----------------------------------------------------------
     def head(name, **want):
         """The kernel-phase row that stands for ``name`` in the report."""
@@ -664,7 +903,11 @@ def main() -> int:
              "src/repro/kernels/int8_cache_attention.py:70",
              roll_launches["int8_cache_attention"],
              head("int8_cache_attention", label="airnav_seq",
-                  pos="ragged"))):
+                  pos="ragged")),
+            ("fake_quant", "src/repro_torch/kernels/csrc/fake_quant.cu",
+             "src/repro/kernels/fake_quant.py:36",
+             train["qat_launches"]["fake_quant"],
+             head("fake_quant", label="td fc/out", bits=8))):
         report.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=n,
@@ -677,7 +920,9 @@ def main() -> int:
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         dict(card=smi, kernel_rows=rows, serve_rows=serve_rows,
              rollout_rows=roll_rows, eval_row=eval_row,
-             path_launches=dict(serve=launches, rollout=roll_launches),
+             train_rows=train["rows"],
+             path_launches=dict(serve=launches, rollout=roll_launches,
+                                train_qat=train["qat_launches"]),
              kernels=report, seconds=time.perf_counter() - t0), indent=1))
     print(f"total {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": report}))

@@ -5,19 +5,26 @@ Module paths mirror it (``repro_torch.core.affine`` is the counterpart of
 ``repro.core.affine``, and so on).  The port imports ``torch`` and never
 ``jax``, and nothing of ``repro``.
 
-What is ported so far is the serving path of the ActorQ policy and the
-sequence actor's rollout path:
+What is ported so far is the serving path of the ActorQ policy, the
+sequence actor's rollout path and the DQN learner with QAT:
 
-* ``core``       -- the paper's affine quantizer, the int8/int4 pack and
-  the symmetric KV-cache token quantizer;
+* ``core``       -- the paper's affine quantizer, the int8/int4 pack, the
+  symmetric KV-cache token quantizer, PTQ simulation, fake quantization
+  with the straight-through estimator and range observers (QAT), the
+  quantization config and the study metrics;
 * ``kernels``    -- the W8A8/W4A8 GEMM (``int8_matmul``), the fused
-  quantized MLP (``fused_qmlp``) and the decode attention over an int8
-  KV cache (``int8_cache_attention``), each a hand-written CUDA kernel
-  for ``sm_90a`` beside its plain PyTorch version;
+  quantized MLP (``fused_qmlp``), the decode attention over an int8
+  KV cache (``int8_cache_attention``) and the fake quantizer
+  (``fake_quant``), each a hand-written CUDA kernel for ``sm_90a``
+  beside its plain PyTorch version;
 * ``models``     -- the decoder-transformer sequence policy;
-* ``rl``         -- AirNav, Catch and the frame-stacking wrappers, the MLP
-  and sequence policies, the packed actor (MLP and KV-cache decode),
-  rollouts with auto-reset, evaluation and DQN's behaviour policy;
+* ``optim``      -- Adam with global-norm clipping (fp32);
+* ``rl``         -- AirNav, CartPole, Catch and the frame-stacking
+  wrappers, the QAT-aware MLP and the sequence policy, the packed actor
+  (MLP and KV-cache decode), rollouts with auto-reset, evaluation,
+  uniform replay, DQN (behaviour policy, TD update, iteration), the
+  fused training loop and the QuaRL PTQ/QAT pipelines;
+* ``launch``     -- ``python -m repro_torch.launch.train --mode rl``;
 * ``serving``    -- ``PolicyServer``: shape buckets, hot-swap, worker loop;
 * ``resilience`` -- the CRC and structural guards the server uses.
 

@@ -51,6 +51,35 @@ def quantize(w: torch.Tensor, params: AffineParams) -> torch.Tensor:
     return torch.clamp(q, 0.0, 2.0 ** params.bits - 1.0)
 
 
+def dequantize(q: torch.Tensor, params: AffineParams) -> torch.Tensor:
+    """Codes (in a float dtype) -> ``delta * (q - z)``."""
+    return params.delta * (q - params.zero_point)
+
+
+def quantize_dequantize(w: torch.Tensor, params: AffineParams
+                        ) -> torch.Tensor:
+    """The paper's Q followed by D: the fake-quantization value map."""
+    return dequantize(quantize(w, params), params)
+
+
+def ptq_tensor(w: torch.Tensor, bits: int, axis=None) -> torch.Tensor:
+    """One-shot post-training quantize-dequantize of a tensor over its
+    own range (Algorithm 1), through ``kernels.ops.fake_quant`` (kernel
+    B5 on the card).  Per-axis (conv) quantization comes with the conv
+    actor (ROADMAP queue A, item 6) and raises until then."""
+    if axis is not None:
+        raise NotImplementedError(
+            "per-axis (conv) quantization is not ported yet (ROADMAP "
+            "queue A, item 6)")
+    from repro_torch.kernels import ops      # ops imports this module
+    return ops.fake_quant(w, bits)
+
+
+def fp16_quantize(w: torch.Tensor) -> torch.Tensor:
+    """IEEE-754 fp16 round trip (the paper's Q_fp16)."""
+    return w.to(torch.float16).to(w.dtype)
+
+
 def _int_dtype(bits: int) -> torch.dtype:
     return torch.int8 if bits <= 8 else torch.int16
 

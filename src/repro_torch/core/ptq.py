@@ -1,6 +1,8 @@
-"""Post-training int packing of parameter trees (QuaRL Algorithm 1).
+"""Post-training quantization of parameter trees (QuaRL Algorithm 1).
 
-Counterpart of ``repro/core/ptq.py`` (the deployment form only).  A param
+Counterpart of ``repro/core/ptq.py``: ``ptq_simulate`` quantize-dequantizes
+every weight in place of the float one (what the paper evaluates), and
+``ptq_pack`` / ``ptq_unpack`` are the deployment form.  A param
 tree is nested dicts (and tuples) of tensors; ``ptq_pack`` turns every
 float weight of two dimensions into a ``PackedTensor`` -- int8 codes (or
 int4 codes two per byte) with per-tensor affine params -- and passes
@@ -136,6 +138,29 @@ def _pack_leaf(leaf: torch.Tensor, bits: int) -> PackedTensor:
     return PackedTensor(affine.pack_int4(codes), p.delta, p.zero_point,
                         bits, col_scale, col_zero,
                         orig_shape=tuple(leaf.shape))
+
+
+def ptq_simulate(params: Tree, config: QuantConfig) -> Tree:
+    """Quantize-dequantize every weight (Algorithm 1's Q applied to M).
+
+    Dense weights are quantized per tensor over their own range
+    (``affine.ptq_tensor``, kernel B5 on the card) or round-tripped
+    through fp16; biases pass through.  Conv kernels (per-axis) raise
+    until the conv actor is ported (ROADMAP queue A, item 6).  A config
+    that is not PTQ returns ``params`` as they are.
+    """
+    if not config.is_ptq:
+        return params
+
+    def one(leaf):
+        if not _is_weight(leaf):
+            return leaf
+        if config.mode == QuantMode.PTQ_FP16:
+            return affine.fp16_quantize(leaf)
+        if leaf.dim() == 4 and config.per_axis_conv:
+            return affine.ptq_tensor(leaf, config.bits, axis=3)
+        return affine.ptq_tensor(leaf, config.bits)
+    return tree_map(one, params)
 
 
 def ptq_pack(params: Tree, config: QuantConfig) -> Tree:

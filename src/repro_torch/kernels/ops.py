@@ -1,7 +1,7 @@
 """Public quantized ops: a CUDA tensor goes to the kernel, a CPU tensor to
 the plain PyTorch version.
 
-Counterpart of ``repro/kernels/ops.py:78-151, 191-230``.  There is no
+Counterpart of ``repro/kernels/ops.py:58-151, 191-230``.  There is no
 backend knob and no environment override: where the data lies decides, so
 the card's path always runs the hand-written kernel (or raises) and the CPU
 tests run the plain versions.
@@ -13,6 +13,7 @@ from typing import Optional, Sequence
 import torch
 
 from repro_torch.core import affine
+from repro_torch.kernels import fake_quant as _fk
 from repro_torch.kernels import fused_qmlp as _fq
 from repro_torch.kernels import int8_cache_attention as _ca
 from repro_torch.kernels import int8_matmul as _mm
@@ -22,6 +23,27 @@ def _device_type(t: torch.Tensor) -> str:
     if t.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no kernel for device {t.device}")
     return t.device.type
+
+
+def fake_quant_with_range(x: torch.Tensor, vmin: torch.Tensor,
+                          vmax: torch.Tensor, bits: int) -> torch.Tensor:
+    """Quantize-dequantize ``x`` (f32, any shape) with the scalar range
+    ``(vmin, vmax)`` -- 0-d f32 tensors on ``x``'s device -- extended to
+    0 (kernel B5 on the card)."""
+    if _device_type(x) == "cuda":
+        return _fk.fake_quant_cuda(x.contiguous(), vmin, vmax, bits)
+    return _fk.fake_quant_plain(x, vmin, vmax, bits)
+
+
+def fake_quant(x: torch.Tensor, bits: int = 8) -> torch.Tensor:
+    """Per-tensor quantize-dequantize over ``x``'s own range.
+
+    The range is a torch reduction outside the kernel, as in the
+    reference (``min(x)`` and ``max(x)``, extended to 0).
+    """
+    vmin = torch.clamp(x.amin(), max=0.0).to(torch.float32)
+    vmax = torch.clamp(x.amax(), min=0.0).to(torch.float32)
+    return fake_quant_with_range(x, vmin, vmax, bits)
 
 
 def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor,

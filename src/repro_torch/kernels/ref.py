@@ -1,9 +1,9 @@
 """Plain PyTorch versions of the port's kernels, op for op.
 
-Counterpart of ``repro/kernels/ref.py:38-90, 136-149``.  These are the
+Counterpart of ``repro/kernels/ref.py:23-90, 136-149``.  These are the
 reference each CUDA kernel is held against (bitwise for the integer
-GEMMs, within 1e-5 for the float attention), and the path a CPU tensor
-takes.  CUDA has no integer ``matmul``, so the int32 accumulator is taken
+GEMMs and the fake quantizer, within 1e-5 for the float attention), and
+the path a CPU tensor takes.  CUDA has no integer ``matmul``, so the int32 accumulator is taken
 in float64, which is exact here: ``|acc| <= 2**14 * K < 2**53`` for any K
 the policies use (float32 would not be exact past 2**24, which K = 4096
 exceeds).  The float epilogue is separate torch ops, so nothing is fused
@@ -16,6 +16,21 @@ from typing import Optional, Sequence
 import torch
 
 from repro_torch.core import affine
+
+
+def fake_quant_ref(x: torch.Tensor, bits: int) -> torch.Tensor:
+    """Per-tensor affine quantize-dequantize over ``x``'s own range."""
+    return affine.quantize_dequantize(
+        x, affine.compute_affine_params(x, bits))
+
+
+def fake_quant_with_range_ref(x: torch.Tensor, vmin: torch.Tensor,
+                              vmax: torch.Tensor, bits: int) -> torch.Tensor:
+    """Quantize-dequantize with a given scalar (vmin, vmax) range, first
+    extended to 0.  Both divisions are by a tensor, so the card divides
+    correctly rounded, as the CPU and the kernel do."""
+    return affine.quantize_dequantize(
+        x, affine.affine_params_from_range(vmin, vmax, bits))
 
 
 def int8_matmul_ref(x_q: torch.Tensor, w_q: torch.Tensor,

@@ -1,10 +1,89 @@
-"""Shared RL helpers of the port (the subset the behaviour policy needs).
+"""Shared RL plumbing of the port: the train state, the QAT context
+wiring, evaluation-time quantization and the loss and schedule helpers.
 
-Counterpart of ``repro/rl/common.py:114-116``.
+Counterpart of ``repro/rl/common.py:15-72, 114-126``.  ``state_from_jax``
+carries a JAX ``TrainState`` across (as numpy arrays), so a learner step
+can start from the same state in both packages.
 """
 from __future__ import annotations
 
+from typing import Any, Dict, NamedTuple
+
+import numpy as np
 import torch
+
+from repro_torch.core import affine, fake_quant, ptq
+from repro_torch.core.qconfig import QuantConfig
+from repro_torch.device import resolve_device
+from repro_torch.optim.adam import AdamState
+from repro_torch.rl import buffer as rb
+
+
+class TrainState(NamedTuple):
+    """Learner params, Adam state, QAT observers, the update step (0-d
+    int32) and the algorithm's extras (target params, replay, ...)."""
+
+    params: Any
+    opt: AdamState
+    observers: Dict[str, fake_quant.ObserverState]
+    step: torch.Tensor
+    extras: Any = ()
+
+
+def make_ctx(quant: QuantConfig, observers, step):
+    """The QAT context of one forward at update ``step``."""
+    return fake_quant.make_context(quant, observers, step)
+
+
+class PrefixCtx:
+    """A QAT context whose site names carry a prefix (a DDPG actor's and
+    critic's observers side by side)."""
+
+    def __init__(self, ctx, prefix: str):
+        self._ctx = ctx
+        self._prefix = prefix
+
+    @property
+    def config(self):
+        """The wrapped context's config."""
+        return self._ctx.config
+
+    @property
+    def enabled(self):
+        """The wrapped context's ``enabled``."""
+        return self._ctx.enabled
+
+    def weight(self, name, w):
+        """The wrapped ``weight`` at ``prefix + name``."""
+        return self._ctx.weight(self._prefix + name, w)
+
+    def activation(self, name, x):
+        """The wrapped ``activation`` at ``prefix + name``."""
+        return self._ctx.activation(self._prefix + name, x)
+
+    def merged_collection(self):
+        """The wrapped context's merged collection."""
+        return self._ctx.merged_collection()
+
+
+def eval_params(params: Any, quant: QuantConfig) -> Any:
+    """Algorithm 1/2's evaluation-time quantization of the params.
+
+    PTQ: quantize-dequantize the trained weights (``ptq.ptq_simulate``).
+    QAT: the same per-tensor map over each weight's own final range.
+    Otherwise the params as they are.
+    """
+    if quant.is_ptq:
+        return ptq.ptq_simulate(params, quant)
+    if quant.is_qat:
+        def one(leaf):
+            if isinstance(leaf, torch.Tensor) and leaf.dim() >= 2 \
+                    and leaf.is_floating_point():
+                return affine.ptq_tensor(
+                    leaf, quant.bits, axis=3 if leaf.dim() == 4 else None)
+            return leaf
+        return ptq.tree_map(one, params)
+    return params
 
 
 def linear_epsilon(step: torch.Tensor, start: float, end: float,
@@ -16,3 +95,48 @@ def linear_epsilon(step: torch.Tensor, start: float, end: float,
     frac = torch.clamp(step / step.new_full((), float(max(decay_steps, 1))),
                        0.0, 1.0)
     return start + frac * (end - start)
+
+
+def huber(x: torch.Tensor, delta: float = 1.0) -> torch.Tensor:
+    """Elementwise Huber loss."""
+    a = torch.abs(x)
+    return torch.where(a <= delta, 0.5 * x * x, delta * (a - 0.5 * delta))
+
+
+def state_from_jax(state: Any, device=None) -> TrainState:
+    """The port's ``TrainState`` from a JAX one (fields read as numpy).
+
+    Carries the params, Adam's step and moments, the observers, the step
+    and, for DQN, the extras (target params, the uniform replay and the
+    update count), with dtypes kept, onto ``device`` (``None`` is
+    ``cuda``).
+    """
+    from repro_torch.rl import dqn          # dqn imports this module
+    device = resolve_device(device)
+
+    def t(a):
+        return torch.from_numpy(np.array(a)).to(device)
+
+    def tree(x):
+        if isinstance(x, dict):
+            return {k: tree(v) for k, v in x.items()}
+        return t(x)
+
+    observers = {k: fake_quant.ObserverState(t(o.vmin), t(o.vmax),
+                                             t(o.initialized))
+                 for k, o in state.observers.items()}
+    extras = state.extras
+    if hasattr(extras, "target_params"):
+        r = extras.replay
+        extras = dqn.DQNExtras(
+            target_params=tree(extras.target_params),
+            replay=rb.ReplayState(rb.Transition(*(t(x) for x in r.data)),
+                                  t(r.index), t(r.size)),
+            updates=t(extras.updates))
+    elif extras != ():
+        raise NotImplementedError("state_from_jax carries DQN extras only "
+                                  "(ROADMAP queue A, item 8)")
+    return TrainState(params=tree(state.params),
+                      opt=AdamState(t(state.opt.step), tree(state.opt.m),
+                                    tree(state.opt.v)),
+                      observers=observers, step=t(state.step), extras=extras)

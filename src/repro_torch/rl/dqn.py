@@ -1,23 +1,42 @@
-"""DQN's behaviour (data-collection) policy, with the ActorQ actors.
+"""DQN (Mnih et al. 2013) with a target network and uniform replay,
+QAT-instrumented, with the ActorQ actors.
 
-Counterpart of ``repro/rl/dqn.py:25-58, 91-152``.  ``DQNConfig`` keeps the
-reference's fields and defaults.  ``make_behaviour_policy`` builds the
-epsilon-greedy policy a rollout collects experience with: the fp32
-network, the packed int8/int4 MLP actor, or -- for a sequence policy with
-a quantized backend -- the cached stepper on the per-env int8 KV cache
-(an ``env.StatefulPolicy``).  The learner's TD update, replay and the
-training loop are not ported yet (ROADMAP queue A, item 5).
+Counterpart of ``repro/rl/dqn.py``.  ``DQNConfig`` keeps the reference's
+fields and defaults.
+
+* ``make_behaviour_policy`` -- the epsilon-greedy policy a rollout
+  collects experience with: the fp32 network under the run's QAT context
+  (observing, never updating the observers), the packed int8/int4 MLP
+  actor (kernels B1 / B2 on the card), or -- for a sequence policy with a
+  quantized backend -- the cached stepper on the per-env int8 KV cache
+  (an ``env.StatefulPolicy``, kernel B3).
+* ``make_td_update`` -- one fp32 learner step on a sampled batch: Huber
+  TD loss under the QAT context (every fake-quant site is kernel B5 on
+  the card), ``torch.autograd`` gradients, Adam.  The warmup gate and the
+  target sync are ``torch.where`` on device tensors, so an update never
+  waits on the host.
+* ``make_iteration`` -- rollout, replay write, ``updates_per_iter`` TD
+  updates; and the deterministic ``act_fn``.
+
+All random draws come from one ``torch.Generator`` on the data's device,
+in turn (the reference splits keys).  Prioritized replay comes with the
+actor-learner topologies (ROADMAP queue A, item 7) and raises.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, NamedTuple, Tuple
 
 import torch
 
-from repro_torch.core.qconfig import QuantConfig, QuantMode
+from repro_torch.core.ptq import tree_map, tree_tensors
+from repro_torch.core.qconfig import QuantConfig
+from repro_torch.device import resolve_device
+from repro_torch.optim.adam import AdamConfig, adam_init, adam_update
 from repro_torch.rl import actorq
+from repro_torch.rl import buffer as rb
 from repro_torch.rl import common
-from repro_torch.rl.env import Env, StatefulPolicy
+from repro_torch.rl.env import Env, StatefulPolicy, batched_env, rollout
 from repro_torch.rl.networks import Network
 
 
@@ -26,8 +45,11 @@ class DQNConfig:
     """DQN hyperparameters (the reference's fields and defaults).
 
     ``actor_backend`` picks the behaviour policy's actor: ``"fp32"``, or
-    the packed ``"int8"`` / ``"int4"`` cache.  The port dispatches its
-    kernels by device, so ``kernel_backend`` takes only ``"auto"``.
+    the packed ``"int8"`` / ``"int4"`` cache.  ``calib_batch > 0`` (with a
+    quantized backend) calibrates static activation params from that
+    many live observations at every cache refresh, so the rollout runs
+    the fused MLP kernel.  The port dispatches its kernels by device, so
+    ``kernel_backend`` takes only ``"auto"``.
     """
 
     lr: float = 1e-3
@@ -52,12 +74,58 @@ class DQNConfig:
     is_beta_anneal_updates: int = 4000
 
 
+class DQNExtras(NamedTuple):
+    """Target params, the replay buffer and the learner-update count
+    (0-d int32; it moves only once warmup is over)."""
+
+    target_params: Any
+    replay: rb.ReplayState
+    updates: torch.Tensor
+
+
+def _check_kernel_backend(cfg: DQNConfig) -> None:
+    if cfg.kernel_backend != "auto":
+        raise ValueError("the port dispatches kernels by device; "
+                         f"kernel_backend must be 'auto', got "
+                         f"{cfg.kernel_backend!r}")
+
+
+def init(generator: torch.Generator, env: Env, net: Network,
+         cfg: DQNConfig) -> common.TrainState:
+    """A fresh train state: params from the CPU ``generator`` (on the
+    network's device), zero Adam moments, an empty replay, and target
+    params that are a separate copy of the params."""
+    rb.use_prioritized(cfg.replay, cfg.priority_exponent)
+    params = net.init(generator)
+    device = next(t for _, t in tree_tensors(params)).device
+    zero = torch.zeros((), dtype=torch.int32, device=device)
+    return common.TrainState(
+        params=params, opt=adam_init(params, AdamConfig(lr=cfg.lr)),
+        observers={}, step=zero,
+        extras=DQNExtras(
+            target_params=tree_map(torch.clone, params),
+            replay=rb.replay_init(cfg.buffer_size, env.spec.obs_shape,
+                                  device=device),
+            updates=zero.clone()))
+
+
+def _q_values(net: Network, cfg: DQNConfig, params, obs, observers, step):
+    """Q-values of ``obs`` under the run's QAT context, and the observers
+    that forward leaves behind."""
+    ctx = common.make_ctx(cfg.quant, observers, step)
+    q = net.apply(params, obs, ctx=ctx)
+    return q, ctx.merged_collection()
+
+
 def make_behaviour_policy(env: Env, net: Network, cfg: DQNConfig):
-    """``build(params, updates, qparams=None) -> policy``.
+    """``build(params, observers, step, updates, qparams=None) -> policy``.
 
     ``updates`` (a tensor) sets epsilon on the reference's linear
-    schedule.  A quantized ``actor_backend`` packs ``params`` once per
-    build, unless a packed ``qparams`` cache is handed in.  The policy is
+    schedule; ``observers`` and ``step`` are the run's QAT state (the
+    fp32 actor's forward observes and fake-quantizes as the learner's
+    does, and its observer updates are dropped).  A quantized
+    ``actor_backend`` packs ``params`` once per build, unless a packed
+    (possibly calibrated) ``qparams`` cache is handed in.  The policy is
     ``policy(params, obs, generator) -> (action, q)``, or, for a sequence
     network with a quantized backend, a ``StatefulPolicy`` whose Q-values
     come from ``actorq.quantized_seq_step`` over the per-env cache that
@@ -66,18 +134,13 @@ def make_behaviour_policy(env: Env, net: Network, cfg: DQNConfig):
     generator keeps the step free of host syncs).
     """
     actorq.validate_actor_backend(cfg.actor_backend)
-    if cfg.kernel_backend != "auto":
-        raise ValueError("the port dispatches kernels by device; "
-                         f"kernel_backend must be 'auto', got "
-                         f"{cfg.kernel_backend!r}")
-    if cfg.quant.mode != QuantMode.NONE:
-        raise NotImplementedError("QAT is not ported yet (ROADMAP queue A, "
-                                  "item 8)")
+    _check_kernel_backend(cfg)
     seq_cfg = getattr(net, "seq_cfg", None)
     quantized = actorq.is_quantized(cfg.actor_backend)
     n_actions = env.spec.n_actions
 
-    def build(params, updates: torch.Tensor, qparams=None):
+    def build(params, observers, step, updates: torch.Tensor,
+              qparams=None):
         """The behaviour policy of ``params`` at ``updates`` updates."""
         eps = common.linear_epsilon(updates, cfg.eps_start, cfg.eps_end,
                                     cfg.eps_decay_updates)
@@ -106,8 +169,149 @@ def make_behaviour_policy(env: Env, net: Network, cfg: DQNConfig):
 
         def policy(_params, obs, generator):
             """Q-values of ``obs``, then the epsilon-greedy pick."""
-            q = actorq.quantized_apply(qparams, obs) if quantized \
-                else net.apply(params, obs)
+            if quantized:
+                q = actorq.quantized_apply(qparams, obs)
+            else:
+                q = _q_values(net, cfg, params, obs, observers, step)[0]
             return select(q, generator), q
         return policy
     return build
+
+
+def make_td_update(env: Env, net: Network, cfg: DQNConfig):
+    """``td_update(state, batch, replay_size) -> (state, (loss, td_abs))``.
+
+    One fp32 learner step on an already-sampled batch, as the reference's
+    (without its importance weights and cross-device ``reduce``, which
+    belong to prioritized replay and the actor-learner topology).  The
+    online forward runs under autograd and leaves the observers' new
+    state; the target forward reads the same observers and drops its
+    updates.  Adam's state, the observers and ``step`` always advance;
+    the params, and the update count, only once ``replay_size >=
+    warmup``; the target takes the new params every
+    ``target_update_every`` updates.  ``loss`` and ``td_abs`` stay on the
+    device.
+    """
+    adam_cfg = AdamConfig(lr=cfg.lr)
+
+    def td_update(state: common.TrainState, batch: rb.Transition,
+                  replay_size: torch.Tensor
+                  ) -> Tuple[common.TrainState, Tuple[torch.Tensor,
+                                                      torch.Tensor]]:
+        with torch.enable_grad():
+            leaves = tree_map(lambda p: p.detach().requires_grad_(True),
+                              state.params)
+            q, new_coll = _q_values(net, cfg, leaves, batch.obs,
+                                    state.observers, state.step)
+            q_sel = torch.gather(q, 1, batch.action[:, None].to(
+                torch.int64))[:, 0]
+            with torch.no_grad():
+                q_next, _ = _q_values(net, cfg, state.extras.target_params,
+                                      batch.next_obs, state.observers,
+                                      state.step)
+                target = batch.reward + cfg.gamma * (1 - batch.done) \
+                    * torch.amax(q_next, dim=-1)
+            td = q_sel - target
+            loss = torch.mean(common.huber(td))
+            flat = [t for _, t in tree_tensors(leaves)]
+            grads_flat = torch.autograd.grad(loss, flat)
+        grads = _unflatten(leaves, iter(grads_flat))
+        new_params, new_opt, _ = adam_update(grads, state.opt, state.params,
+                                             adam_cfg)
+        updates = state.extras.updates + 1
+        do_sync = (updates % cfg.target_update_every) == 0
+        target_p = tree_map(lambda t, o: torch.where(do_sync, o, t),
+                            state.extras.target_params, new_params)
+        warm = replay_size >= cfg.warmup
+        new_params = tree_map(lambda n, o: torch.where(warm, n, o),
+                              new_params, state.params)
+        state = common.TrainState(
+            params=new_params, opt=new_opt, observers=new_coll,
+            step=state.step + 1,
+            extras=DQNExtras(target_p, state.extras.replay,
+                             torch.where(warm, updates,
+                                         state.extras.updates)))
+        return state, (loss.detach(), td.detach().abs())
+
+    return td_update
+
+
+def _unflatten(tree, it):
+    """``tree`` (nested dicts) with its leaves replaced, in sorted-key
+    order, by the next items of ``it`` (``tree_tensors``' order)."""
+    if isinstance(tree, dict):
+        return {k: _unflatten(tree[k], it) for k in sorted(tree)}
+    return next(it)
+
+
+def make_iteration(env: Env, net: Network, cfg: DQNConfig, device=None):
+    """``(iteration, act_fn, benv)`` of the fused driver.
+
+    ``iteration(state, env_state, obs, generator) -> (state, env_state,
+    obs, metrics)``: one rollout of ``rollout_steps`` steps over
+    ``n_envs`` envs with the behaviour policy (a calibrated cache, and
+    so kernel B2, when ``calib_batch > 0`` with a quantized backend),
+    the replay write, then ``updates_per_iter`` sampled TD updates.
+    ``metrics`` (loss, reward per finished episode, the mean variance of
+    the softmax over Q) stay on the device.  ``act_fn(params, obs,
+    observers=None, step=1 << 30)`` is the greedy policy under the QAT
+    context.  ``benv`` is the batched env the iteration steps; its
+    ``reset(generator, device)`` starts a run.  ``device=None`` is
+    ``cuda``.
+    """
+    actorq.validate_actor_backend(cfg.actor_backend)
+    _check_kernel_backend(cfg)
+    rb.use_prioritized(cfg.replay, cfg.priority_exponent)
+    device = resolve_device(device)
+    benv = actorq.maybe_attach_seq_state(
+        batched_env(env, cfg.n_envs), net, cfg.actor_backend, cfg.n_envs,
+        device)
+    build_policy = make_behaviour_policy(env, net, cfg)
+    td_update = make_td_update(env, net, cfg)
+    calibrated = actorq.is_quantized(cfg.actor_backend) and cfg.calib_batch
+
+    def iteration(state: common.TrainState, env_state, obs,
+                  generator: torch.Generator):
+        """One rollout, the replay write and the TD updates."""
+        qparams = None
+        if calibrated:
+            qparams = actorq.make_actor_cache(
+                state.params, cfg.actor_backend,
+                calib_obs=actorq.calib_slice(obs, cfg.calib_batch))
+        policy = build_policy(state.params, state.observers, state.step,
+                              state.extras.updates, qparams=qparams)
+        env_state, obs, traj = rollout(benv, policy, state.params,
+                                       env_state, obs, generator,
+                                       cfg.rollout_steps)
+
+        def flat(x):
+            return x.reshape((-1,) + tuple(x.shape[2:]))
+        replay = rb.replay_add_batch(
+            state.extras.replay,
+            rb.Transition(flat(traj.obs), flat(traj.action),
+                          flat(traj.reward), flat(traj.done),
+                          flat(traj.next_obs)))
+        state = state._replace(extras=state.extras._replace(replay=replay))
+        losses = []
+        for _ in range(cfg.updates_per_iter):
+            batch = rb.replay_sample(state.extras.replay, generator,
+                                     cfg.batch_size)
+            state, (loss, _) = td_update(state, batch,
+                                         state.extras.replay.size)
+            losses.append(loss)
+        metrics = {
+            "loss": torch.mean(torch.stack(losses)),
+            "reward": torch.sum(traj.reward) / torch.clamp(
+                torch.sum(traj.done), min=1.0),
+            "mean_q_var": torch.var(torch.softmax(traj.logits_or_value,
+                                                  dim=-1),
+                                    dim=-1, correction=0).mean()}
+        return state, env_state, obs, metrics
+
+    def act_fn(params, obs, observers=None, step=1 << 30):
+        """Greedy actions (int32) under the QAT context at ``step``."""
+        step = torch.as_tensor(step, device=obs.device)
+        q = _q_values(net, cfg, params, obs, observers or {}, step)[0]
+        return torch.argmax(q, dim=-1).to(torch.int32)
+
+    return iteration, act_fn, benv

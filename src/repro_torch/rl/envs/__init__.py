@@ -1,6 +1,7 @@
-"""Batched torch environments of the port: AirNav, Catch and the
-partially observed / frame-stacked wrappers of the sequence policy."""
+"""Batched torch environments of the port: AirNav, CartPole, Catch and
+the partially observed / frame-stacked wrappers of the sequence policy."""
 from repro_torch.rl.envs.airnav import make_airnav
+from repro_torch.rl.envs.cartpole import make_cartpole
 from repro_torch.rl.envs.catch import make_catch
 from repro_torch.rl.envs.wrappers import (
     make_airnav_seq,
@@ -12,6 +13,7 @@ from repro_torch.rl.envs.wrappers import (
 
 ENVS = {
     "airnav": make_airnav,
+    "cartpole": make_cartpole,
     "catch": make_catch,
     "catch_masked": make_masked_catch,
     "airnav_flicker": make_flicker_airnav,
@@ -19,9 +21,9 @@ ENVS = {
     "airnav_seq": make_airnav_seq,
 }
 
-__all__ = ["ENVS", "make", "make_airnav", "make_catch", "make_masked_catch",
-           "make_flicker_airnav", "make_framestack", "make_catch_seq",
-           "make_airnav_seq"]
+__all__ = ["ENVS", "make", "make_airnav", "make_cartpole", "make_catch",
+           "make_masked_catch", "make_flicker_airnav", "make_framestack",
+           "make_catch_seq", "make_airnav_seq"]
 
 
 def make(name: str, **kwargs):

@@ -1,7 +1,7 @@
 """Policy networks of the port: the deployment MLPs of paper Table 5 and
 the decoder-transformer sequence policy.
 
-Counterpart of ``repro/rl/networks.py:74-91, 127-169``.  Params are nested
+Counterpart of ``repro/rl/networks.py:30-36, 74-91, 127-169``.  Params are nested
 dicts in the reference's naming and layout -- ``{"fc0": {"w": (K, N), "b":
 (N,)}, ..., "out": {...}}`` with ``y = x @ w + b``, or the sequence
 policy's ``embed`` / ``blk{i}`` / ``head`` tree -- so ``core.ptq`` packs
@@ -9,6 +9,12 @@ them exactly as the reference packs its pytree, and ``params_from_jax``
 carries a JAX param tree across unchanged.  ``make_network`` picks the
 network for an observation shape; ``MLP`` and ``SeqPolicy`` are the same
 forwards as ``nn.Module``s.
+
+The MLP is QAT-aware, as the reference's is: every dense layer sends its
+weight through ``ctx.weight("<layer>/w", ...)`` and its output through
+``ctx.activation("<layer>/out", ...)`` of a ``core.fake_quant`` context.
+Without one (``ctx=None``) it is the ``NullQATContext``, which passes
+both through, so the fp32 forward is unchanged.
 
 The fp32 actor runs in full float32: ``full_fp32()`` turns TF32 off for
 matmuls and convolutions (JAX on the CPU computes full fp32, and the
@@ -24,6 +30,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from repro_torch.core.fake_quant import NullQATContext
 from repro_torch.device import resolve_device
 from repro_torch.models import common
 from repro_torch.models.seq_policy import (SeqPolicyConfig, make_seq_policy,
@@ -71,12 +78,24 @@ def n_hidden(params: Any) -> int:
     return sum(1 for name in params if name.startswith("fc"))
 
 
-def mlp_apply(params: Params, x: torch.Tensor) -> torch.Tensor:
-    """Head outputs of the fp32 MLP; ``x`` has any leading batch dims."""
+def dense(ctx, name: str, params: Dict[str, torch.Tensor], x: torch.Tensor,
+          act: Optional[Callable] = None) -> torch.Tensor:
+    """``act(x @ w + b)`` with the weight and the output sent through the
+    QAT context's sites ``name/w`` and ``name/out``."""
+    w = ctx.weight(f"{name}/w", params["w"])
+    y = x @ w + params["b"]
+    if act is not None:
+        y = act(y)
+    return ctx.activation(f"{name}/out", y)
+
+
+def mlp_apply(params: Params, x: torch.Tensor, ctx=None) -> torch.Tensor:
+    """Head outputs of the MLP; ``x`` has any leading batch dims.  ``ctx``
+    is a ``core.fake_quant`` context (``None``: full precision)."""
+    ctx = NullQATContext() if ctx is None else ctx
     for i in range(n_hidden(params)):
-        layer = params[f"fc{i}"]
-        x = torch.relu(x @ layer["w"] + layer["b"])
-    return x @ params["out"]["w"] + params["out"]["b"]
+        x = dense(ctx, f"fc{i}", params[f"fc{i}"], x, act=torch.relu)
+    return dense(ctx, "out", params["out"], x)
 
 
 class MLP(nn.Module):
@@ -141,7 +160,9 @@ def _from_module_dict(mod: nn.Module) -> Any:
 class Network(NamedTuple):
     """A network for one observation shape: ``init(generator)`` draws its
     params from a CPU generator (onto the network's device),
-    ``apply(params, obs)`` gives the head outputs.  ``seq_cfg`` is the
+    ``apply(params, obs, ctx=None)`` gives the head outputs, ``ctx`` being
+    the QAT context of an MLP (a sequence policy takes none: its QAT
+    comes with its training, ROADMAP queue A, item 12).  ``seq_cfg`` is the
     ``SeqPolicyConfig`` of a sequence policy (``rl.actorq`` sizes the
     KV-cache actor state from it), else ``None``."""
 
@@ -166,8 +187,16 @@ def make_network(obs_shape: Tuple[int, ...], out_dim: int, *,
     """
     device = resolve_device(device)
     if transformer is not None:
-        spec, apply_fn, cfg = make_seq_policy(tuple(obs_shape), out_dim,
-                                              **transformer)
+        spec, seq_fn, cfg = make_seq_policy(tuple(obs_shape), out_dim,
+                                            **transformer)
+
+        def apply_fn(params, obs, ctx=None):
+            """The windowed sequence policy (no QAT sites)."""
+            if ctx is not None and ctx.config.is_qat:
+                raise NotImplementedError(
+                    "QAT of the sequence policy is not ported yet "
+                    "(ROADMAP queue A, item 12)")
+            return seq_fn(params, obs)
         return Network(lambda g: common.init_params(spec, g, device),
                        apply_fn, out_dim, seq_cfg=cfg)
     if len(obs_shape) == 3:

@@ -1,8 +1,10 @@
 """On the card: each CUDA kernel against its plain PyTorch version.
 
-The integer GEMMs (B1, B2) are bitwise equal to theirs; the int8-cache
-decode attention (B3) is float attention summed in another order, so it
-agrees within rtol = atol = 1e-5, the reference's attention contract.
+The integer GEMMs (B1, B2) and the fake quantizer (B5) are bitwise equal
+to theirs; the int8-cache decode attention (B3) is float attention summed
+in another order, so it agrees within rtol = atol = 1e-5, the
+reference's attention contract.  A short QAT training run shows the
+learner's path through B5.
 
 The kernels have no CPU mode, so every test here takes the ``cuda``
 fixture, which skips on a machine without a card.  The file imports no
@@ -15,9 +17,10 @@ import pytest
 import torch
 
 from repro_torch.core import affine
-from repro_torch.kernels import (fused_qmlp, int8_cache_attention,
+from repro_torch.core.qconfig import QuantConfig
+from repro_torch.kernels import (fake_quant, fused_qmlp, int8_cache_attention,
                                  int8_matmul, ops)
-from repro_torch.rl import actorq, dqn, networks
+from repro_torch.rl import actorq, dqn, loops, networks
 from repro_torch.rl import env as env_mod
 from repro_torch.rl.env import batched_env
 from repro_torch.rl.envs import make
@@ -156,7 +159,8 @@ def test_seq_rollout_on_card_launches_b3(cuda):
     benv = actorq.maybe_attach_seq_state(batched_env(env, 64), net, "int8",
                                          64, device=cuda)
     pol = dqn.make_behaviour_policy(benv, net, dqn.DQNConfig(
-        actor_backend="int8"))(params, torch.tensor(0, device=cuda))
+        actor_backend="int8"))(params, {}, torch.tensor(0, device=cuda),
+                               torch.tensor(0, device=cuda))
     gen = torch.Generator(device=cuda).manual_seed(0)
     state, obs = benv.reset(gen, cuda)
     b3, b1 = int8_cache_attention.launches.value, int8_matmul.launches.value
@@ -166,3 +170,59 @@ def test_seq_rollout_on_card_launches_b3(cuda):
     assert int8_matmul.launches.value - b1 == 14 * 5
     assert traj.action.device.type == "cuda"
     assert bool(torch.isfinite(traj.logits_or_value).all())
+
+
+def _fq_input(kind, shape, bits, seed):
+    rng = np.random.default_rng(seed)
+    if kind == "zeros":
+        return np.zeros(shape, np.float32)
+    if kind == "positive":
+        return rng.uniform(0.5, 2.0, size=shape).astype(np.float32)
+    if kind == "ties":  # x / delta = k + 0.5 over the range (-32, 32)
+        k = rng.integers(-100, 100, size=shape).astype(np.float32)
+        return ((k + np.float32(0.5)) * np.float32(64.0 / 2 ** bits))
+    return (rng.normal(size=shape) * 1.7).astype(np.float32)
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8, 16])
+@pytest.mark.parametrize("kind,shape", [
+    ("normal", (4, 64)), ("normal", (64, 64)), ("normal", (64, 2)),
+    ("normal", (8, 64)), ("normal", (512, 256)), ("normal", (4096, 512)),
+    ("normal", (1,)), ("normal", (7, 13)), ("normal", (2 ** 20 + 3,)),
+    ("zeros", (8, 64)), ("positive", (64, 2)), ("ties", (4, 64))])
+def test_fake_quant_kernel_equals_plain_on_card(cuda, bits, kind, shape):
+    x = torch.from_numpy(_fq_input(kind, shape, bits, sum(shape) + bits)
+                         ).to(cuda)
+    if kind == "ties":
+        lo, hi = torch.tensor(-32.0).to(cuda), torch.tensor(32.0).to(cuda)
+    else:
+        lo = torch.clamp(x.amin(), max=0.0) * 0.9
+        hi = torch.clamp(x.amax(), min=0.0) * 0.8
+    before = fake_quant.launches.value
+    got = fake_quant.fake_quant_cuda(x, lo, hi, bits)
+    want = fake_quant.fake_quant_plain(x, lo, hi, bits)
+    torch.cuda.synchronize()
+    assert fake_quant.launches.value == before + 1
+    assert torch.equal(got, want)
+    # the op: a view offset by one float takes the unaligned scalar loop
+    if x.numel() > 1:
+        xs = x.reshape(-1)[1:]
+        assert torch.equal(ops.fake_quant_with_range(xs, lo, hi, bits),
+                           fake_quant.fake_quant_plain(xs, lo, hi, bits))
+    assert torch.equal(ops.fake_quant(x, bits).cpu(),
+                       ops.fake_quant(x.cpu(), bits))
+
+
+def test_qat_train_on_card_launches_b5(cuda):
+    """Two QAT iterations on the card: 6 B5 launches per behaviour step,
+    12 per TD update and 6 per eval step."""
+    before = fake_quant.launches.value
+    res = loops.train("dqn", "cartpole", iterations=2, record_every=2,
+                      eval_episodes=4, quant=QuantConfig.qat(8, quant_delay=8))
+    torch.cuda.synchronize()
+    cfg = res.algo_cfg
+    want = 6 * (2 * cfg.rollout_steps + res.eval_steps) \
+        + 12 * 2 * cfg.updates_per_iter
+    assert fake_quant.launches.value - before == want
+    assert res.device.type == "cuda" and all(np.isfinite(res.rewards))
+    assert all(bool(o.initialized) for o in res.state.observers.values())

@@ -67,4 +67,4 @@ def test_reset_is_seeded_and_in_range():
     assert bool((s.vel == 0).all()) and bool((s.t == 0).all())
     assert env.spec.n_actions == 25 and env.spec.obs_shape == (9,)
     with pytest.raises(KeyError, match="not ported"):
-        make("cartpole")
+        make("pendulum")

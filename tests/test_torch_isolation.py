@@ -31,7 +31,8 @@ def test_scan_sees_the_port():
     names = {p.name for p in PORT_FILES}
     assert {"server.py", "actorq.py", "ops.py", "chip_smoke.py",
             "seq_policy.py", "int8_cache_attention.py", "dqn.py",
-            "wrappers.py"} <= names
+            "wrappers.py", "fake_quant.py", "metrics.py", "cartpole.py",
+            "adam.py", "buffer.py", "loops.py", "train.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -46,7 +47,9 @@ def test_importing_the_port_loads_no_jax():
     code = ("import sys, repro_torch, repro_torch.serving, "
             "repro_torch.rl.actorq, repro_torch.kernels.ops, "
             "repro_torch.rl.envs, repro_torch.resilience.guards, "
-            "repro_torch.rl.dqn, repro_torch.models.seq_policy\n"
+            "repro_torch.rl.dqn, repro_torch.models.seq_policy, "
+            "repro_torch.rl.loops, repro_torch.launch.train, "
+            "repro_torch.core.fake_quant, repro_torch.core.metrics\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
@@ -59,7 +62,8 @@ def _entry_points():
     import numpy as np
     import torch
 
-    from repro_torch.rl import actorq, networks
+    from repro_torch.launch import train as launch_train
+    from repro_torch.rl import actorq, buffer, dqn, loops, networks
     from repro_torch.rl.env import batched_env
     from repro_torch.rl.envs import make
     from repro_torch.serving import PolicyServer
@@ -86,6 +90,15 @@ def _entry_points():
         "seq_cache_zeros": lambda: actorq.seq_cache_zeros(
             networks.make_network((6, 27), 3, transformer={},
                                   device="cpu").seq_cfg, 4, 8)["count"],
+        "cartpole_reset": lambda: make("cartpole").reset(gen, 4)[1],
+        "replay_init": lambda: buffer.replay_init(8, (4,)).size,
+        "make_iteration": lambda: dqn.make_iteration(
+            make("cartpole"), networks.make_network((4,), 2, device="cpu"),
+            dqn.DQNConfig(n_envs=2))[2].reset(gen)[1],
+        "loops_train": lambda: loops.train("dqn", "cartpole",
+                                           iterations=1).device,
+        "launch_train": lambda: launch_train.main(
+            ["--algo", "dqn", "--iterations", "1"]),
     }
 
 
@@ -93,7 +106,9 @@ def _entry_points():
                                   "airnav_reset", "batched_env_reset",
                                   "policy_server", "catch_reset",
                                   "wrapper_reset", "make_network_init",
-                                  "seq_cache_zeros"])
+                                  "seq_cache_zeros", "cartpole_reset",
+                                  "replay_init", "make_iteration",
+                                  "loops_train", "launch_train"])
 def test_entry_points_default_to_the_card(name):
     """``device=None`` means ``cuda``: it lands there with a card and
     raises without one, never falling back to the CPU."""
@@ -101,6 +116,9 @@ def test_entry_points_default_to_the_card(name):
     call = _entry_points()[name]
     if torch.cuda.is_available():
         out = call()
+        if name == "launch_train":          # an exit code; it printed cuda
+            assert out == 0
+            return
         assert (out if isinstance(out, torch.device) else out.device
                 ).type == "cuda"
     else:

@@ -262,7 +262,7 @@ def test_framestack_rows_and_reset():
     assert bool((obs[:, -1, :9] == 0).all())               # flicker off
     assert obs.data_ptr() != state.frames.data_ptr()
     assert sorted(ENVS) == ["airnav", "airnav_flicker", "airnav_seq",
-                            "catch", "catch_masked", "catch_seq"]
+                            "cartpole", "catch", "catch_masked", "catch_seq"]
 
 
 # ---------------------------------------------------------------------------
@@ -286,7 +286,8 @@ def test_greedy_episode_matches_jax(name):
     jpol = jdqn.make_behaviour_policy(jenv, jnet, jcfg)(
         jparams, {}, jnp.zeros((), jnp.int32), jnp.zeros((), jnp.int32))
     tpol = dqn.make_behaviour_policy(tenv, tnet, tcfg)(
-        tparams, torch.zeros((), dtype=torch.int32))
+        tparams, {}, torch.zeros((), dtype=torch.int32),
+        torch.zeros((), dtype=torch.int32))
     jstate, jobs = jenv.reset(jax.random.PRNGKey(7))
     template, _ = tenv.reset(torch.Generator().manual_seed(0), "cpu")
     tstate, tobs = _to_port(jstate, template), torch.from_numpy(
@@ -337,7 +338,8 @@ def test_auto_reset_restores_policy_state():
     the same step; the others keep counting."""
     env, net, params, benv = _seq_actor("catch_seq", 6)
     pol = dqn.make_behaviour_policy(benv, net, dqn.DQNConfig(
-        actor_backend="int8"))(params, torch.tensor(0))
+        actor_backend="int8"))(params, {}, torch.tensor(0),
+                               torch.tensor(0))
     gen = torch.Generator().manual_seed(1)
     state, obs = benv.reset(gen, "cpu")
     pstate0 = state[1]
@@ -365,7 +367,7 @@ def test_rollout_trajectory_and_fp32_branch():
     env, net, params, benv = _seq_actor("airnav_seq", 5, backend="fp32")
     assert hasattr(benv.reset(torch.Generator(), "cpu")[0], "frames")
     pol = dqn.make_behaviour_policy(benv, net, dqn.DQNConfig())(
-        params, torch.tensor(10_000))
+        params, {}, torch.tensor(0), torch.tensor(10_000))
     gen = torch.Generator().manual_seed(2)
     state, obs = benv.reset(gen, "cpu")
     state, obs, traj = env_mod.rollout(benv, pol, params, state, obs, gen, 7)
@@ -381,7 +383,7 @@ def test_epsilon_one_explores_in_range():
     env, net, params, benv = _seq_actor("catch_seq", 64)
     pol = dqn.make_behaviour_policy(benv, net, dqn.DQNConfig(
         actor_backend="int4", eps_start=1.0, eps_end=1.0))(
-        params, torch.tensor(0))
+        params, {}, torch.tensor(0), torch.tensor(0))
     gen = torch.Generator().manual_seed(3)
     state, obs = benv.reset(gen, "cpu")
     _, _, traj = env_mod.rollout(benv, pol, params, state, obs, gen, 4)
