@@ -7,9 +7,9 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds each kernel against its plain PyTorch version on the card (the
-integer GEMMs and the fake quantizer bitwise, the int8-cache attention
-within 1e-5) at the shapes its paths give it and times both, then drives
-the port's three paths:
+integer GEMMs and the fake quantizer bitwise, the int8-cache and the
+flash attention within 1e-5) at the shapes its paths give it and times
+both, then drives the port's four paths:
 
 * serving -- ``PolicyServer`` answering batched AirNav sessions through
   the ActorQ int8 / int4 policy: every request answered, the hot-swap
@@ -27,6 +27,12 @@ the port's three paths:
   ``quarl_ptq`` evaluates the fp32 run at int8 and fp16; the eval
   rewards are held to the bars stated in ``PERF.md``, and one TD update
   of the QAT run is replayed on the CPU (within 1e-5);
+* the LM -- ``transformer.prefill`` of h2o-danube-1.8b at full width and
+  depth over 8,192 prompt tokens (every layer's attention through kernel
+  B4), its 64-token logits held against the port's CPU path and against
+  64 token-by-token decode steps, then greedy decoding through
+  ``repro_torch.launch.serve.main`` with an fp32 cache, an int8 cache
+  (kernel B3) and PTQ int8 weights (kernel B5);
 
 and checks that each path really launched its kernels.  Any failed check
 raises.  The last line of standard output is
@@ -36,7 +42,8 @@ raises.  The last line of standard output is
 the line before it the card's name and power limit, and the one before
 that a JSON object listing every ported kernel with its launches on the
 path it serves (serving for B1 and B2, the sequence-actor rollouts for
-B3, the QAT training run for B5), its largest difference from the plain
+B3, the QAT training run for B5, the LM prefill for B4), its largest
+difference from the plain
 version and its times.  All rows are also written to
 ``chiprun_out/chip_smoke.json``.  Without CUDA, or outside the repository,
 it exits with code 2 and prints no result.
@@ -102,6 +109,34 @@ QAT_DELAY = 200                   # TD updates: iteration 25 of 400
 TRAIN_BARS = {"qat8": 9.0, "actorq_int4": 100.0, "actorq_int8": 100.0,
               "fp32": 100.0}
 TD_ATOL = 1e-5
+# the LM phase: h2o-danube-1.8b (src/repro/configs/h2o_danube_1_8b.py, the
+# serve launcher's default --arch) at full width and depth, random weights
+# from SEED
+LM_ARCH, LM_REDUCED = "h2o-danube-1.8b", False
+LM_PREFILL = (1, 8192)            # batch x prompt: twice the 4096 window
+LM_SHORT = 64                     # the CPU and token-by-token comparisons
+# the card's 64-token prefill logits against the port's CPU path on the
+# same params: cuBLAS and the CPU's BLAS, and B4 against the dense plain
+# version, sum in other orders through 24 layers (PERF.md gives the
+# measured difference)
+LM_CPU_ATOL = 1e-3
+LM_DECODE_ATOL = 2e-2             # tests/test_arch_smoke.py:155-186
+# the reference serve launcher's defaults (src/repro/launch/serve.py:
+# 192-198): batch 4, prompt 32, 32 new tokens, three ways
+LM_SERVE_ARGS = ["--arch", LM_ARCH, "--batch", "4", "--prompt-len", "32",
+                 "--new-tokens", "32", "--seed", str(SEED)]
+LM_SERVE_RUNS = (("fp32 cache", []), ("int8 cache", ["--int8-cache"]),
+                 ("ptq_int8", ["--quant", "ptq_int8"]))
+# B4 at the shapes of its paths: (label, B, H, KV, S, T, D, causal,
+# window, softcap); the gemma2 rows are its attention shape only
+FLASH_ROWS = (
+    ("danube prefill", 1, 32, 8, 8192, 8192, 80, True, 4096, None),
+    ("gemma2 local", 1, 16, 8, 8192, 8192, 256, True, 4096, 50.0),
+    ("gemma2 global", 1, 16, 8, 8192, 8192, 256, True, None, 50.0),
+    ("whisper encoder", 1, 6, 6, 1500, 1500, 64, False, None, None),
+    ("end-aligned", 1, 32, 8, 8, 4096, 80, True, None, None),
+    ("ragged", 1, 32, 8, 1000, 1000, 80, True, None, None))
+FLASH_ATOL = 1e-5                 # docs/contracts.md, "Attention parity"
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float = INT8_OPS_PER_S):
@@ -378,6 +413,227 @@ def train_phase(torch, dev, smi, counters) -> dict:
         r["launches"] for r in rows if r.get("run") == "qat8"))
 
 
+def flash_pairs(s: int, t: int, causal: bool, window) -> int:
+    """Unmasked (query, key) pairs of one head, query positions aligned to
+    the end of the kv axis."""
+    q_pos = np.arange(s) + (t - s)
+    hi = np.minimum(q_pos, t - 1) if causal else np.full(s, t - 1)
+    lo = np.maximum(q_pos - window + 1, 0) if window else np.zeros(s, int)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_rows(torch, dev, gen) -> list:
+    """Kernel B4 against its plain version at ``FLASH_ROWS``, within
+    ``FLASH_ATOL``, timed beside the plain version and, where there is no
+    soft-cap, one ``scaled_dot_product_attention`` call with the same
+    boolean mask (K and V repeated to the query heads beforehand)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention, ref
+    rows = []
+    for label, b, h, kv, s, t, d, causal, window, softcap in FLASH_ROWS:
+        q = torch.randn((b, s, h, d), generator=gen, device=dev)
+        k = torch.randn((b, t, kv, d), generator=gen, device=dev) * 1.5
+        v = torch.randn((b, t, kv, d), generator=gen, device=dev)
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        got = flash_attention.flash_attention_cuda(q, k, v, **kw)
+        want = flash_attention.flash_attention_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(bool(torch.allclose(got, want, rtol=FLASH_ATOL,
+                                  atol=FLASH_ATOL)),
+              f"flash_attention {label} within {FLASH_ATOL} of the plain "
+              f"version (max abs diff {err})")
+        del got, want
+        pairs = b * h * flash_pairs(s, t, causal, window)
+        nbytes = 4 * (2 * b * s * h * d + 2 * b * t * kv * d)
+        b_ms, b_by = bound(nbytes, 4.0 * d * pairs, F32_OPS_PER_S)
+        big = s * t > 2 ** 22
+        reps = dict(reps=5, per_rep=2) if big else {}
+        lib_ms = lib_err = None
+        if softcap is None:
+            g = h // kv
+            qt = q.transpose(1, 2).contiguous()
+            kt = k.transpose(1, 2).repeat_interleave(g, 1).contiguous()
+            vt = v.transpose(1, 2).repeat_interleave(g, 1).contiguous()
+            mask = ref.attention_mask(s, t, causal=causal, window=window,
+                                      device=dev)
+
+            def sdpa(qt=qt, kt=kt, vt=vt, mask=mask, d=d):
+                return F.scaled_dot_product_attention(qt, kt, vt,
+                                                      attn_mask=mask,
+                                                      scale=d ** -0.5)
+            lib_ms = device_ms(torch, sdpa, **reps)
+            lib_err = float((sdpa().transpose(1, 2) - flash_attention.
+                             flash_attention_plain(q, k, v, **kw)).abs()
+                            .max())
+            del qt, kt, vt, mask
+        rows.append(dict(
+            name="flash_attention", label=label,
+            shape=dict(B=b, H=h, KV=kv, S=s, T=t, D=d), causal=causal,
+            window=window, softcap=softcap, unmasked_pairs=pairs,
+            max_abs_err=err,
+            ms=device_ms(torch, lambda: flash_attention.flash_attention_cuda(
+                q, k, v, **kw), **reps),
+            plain_ms=device_ms(torch, lambda: flash_attention.
+                               flash_attention_plain(q, k, v, **kw), **reps),
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+            library=("scaled_dot_product_attention, K/V repeated before"
+                     if softcap is None else None),
+            library_max_abs_diff=lib_err))
+        del q, k, v
+        torch.cuda.empty_cache()
+    return rows
+
+
+def lm_phase(torch, dev, smi, counters) -> dict:
+    """The LM inference path at full width and depth.
+
+    ``transformer.prefill`` of ``LM_PREFILL`` tokens (B4 once per layer;
+    counted, then timed twice and profiled once), the card's 64-token
+    prefill against the port's CPU path on the same params, and against
+    64 token-by-token ``decode_step``s; then ``launch.serve.main`` three
+    ways (fp32 cache, int8 cache through B3, PTQ int8 weights through B5),
+    each with every count set to 0 just before it and read just after."""
+    import contextlib
+    import io
+    import re
+
+    from repro_torch.configs import base as cfgs
+    from repro_torch.core import ptq
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer
+
+    cfg = cfgs.get_reduced(LM_ARCH) if LM_REDUCED else cfgs.get(LM_ARCH)
+    rows = {}
+    t = time.perf_counter()
+    params_cpu = transformer.init_params(
+        cfg, torch.Generator().manual_seed(SEED), "cpu")
+    init_s = time.perf_counter() - t
+    t = time.perf_counter()
+    params = ptq.tree_to(params_cpu, dev)
+    torch.cuda.synchronize()
+    to_card_s = time.perf_counter() - t
+    n_params = sum(x.numel() for _, x in ptq.tree_tensors(params))
+    b, s = LM_PREFILL
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=torch.Generator(
+        ).manual_seed(SEED + 30)).to(dev)
+
+    def prefill():
+        return transformer.prefill(cfg, params, tokens)
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.reset()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits = prefill()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    n = {k: c.value for k, c in counters.items()}
+    want = {k: 0 for k in counters}
+    want["flash_attention"] = cfg.n_layers
+    check(n == want, f"prefill launches {n}, want {want}")
+    check(tuple(logits.shape) == (b, 1, cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"prefill logits {tuple(logits.shape)} finite")
+    walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        prefill()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    prof = profile_calls(torch, prefill, n=1)
+    rows["prefill"] = dict(
+        arch=cfg.name, params=n_params, batch=b, tokens=s,
+        init_cpu_s=init_s, params_to_card_s=to_card_s, first_s=first_s,
+        wall_s=walls, tokens_per_s=[b * s / w for w in walls],
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches=n,
+        profile=prof, card=smi)
+    print("lm prefill " + json.dumps(rows["prefill"]))
+
+    # the card against the port's CPU path, on a LM_SHORT-token prompt
+    short = tokens[:, :LM_SHORT]
+    card = transformer.prefill(cfg, params, short).cpu()
+    t = time.perf_counter()
+    cpu = transformer.prefill(cfg, params_cpu, short.cpu())
+    cpu_s = time.perf_counter() - t
+    diff = float((card - cpu).abs().max())
+    check(diff <= LM_CPU_ATOL, f"card vs CPU prefill logits: max abs diff "
+                               f"{diff} (tolerance {LM_CPU_ATOL})")
+    # ... and against token-by-token decode on the card
+    full = transformer.forward(cfg, params, short)
+    caches = transformer.init_caches(cfg, b, LM_SHORT, device=dev)
+    worst = 0.0
+    for pos in range(LM_SHORT):
+        step, caches = transformer.decode_step(cfg, params,
+                                               short[:, pos:pos + 1], caches,
+                                               pos)
+        worst = max(worst, float((step[:, 0] - full[:, pos]).abs().max()))
+    check(worst <= LM_DECODE_ATOL, f"prefill vs {LM_SHORT} decode steps: "
+                                   f"max abs diff {worst}")
+    # where a decode step's time goes (batch 1, the last slot rewritten)
+    tok, last_pos = short[:, -1:], torch.tensor(LM_SHORT - 1, device=dev)
+    decode_prof = profile_calls(torch, lambda: transformer.decode_step(
+        cfg, params, tok, caches, last_pos), n=5)
+    print("lm decode profile " + json.dumps(decode_prof))
+    last = float((card - full[:, -1:].cpu()).abs().max())
+    rows["parity"] = dict(tokens=LM_SHORT, card_vs_cpu_max_abs_diff=diff,
+                          card_vs_cpu_tolerance=LM_CPU_ATOL,
+                          logits_max_abs=float(cpu.abs().max()),
+                          cpu_prefill_s=cpu_s,
+                          prefill_vs_decode_max_abs_diff=worst,
+                          prefill_vs_forward_last_max_abs_diff=last,
+                          decode_step_profile=decode_prof)
+    print("lm parity " + json.dumps(rows["parity"]))
+    del params, params_cpu, logits, full, caches
+    torch.cuda.empty_cache()
+
+    # decode through the serve launcher, three ways
+    n_weights = _spec_weights(transformer.param_specs(cfg))
+    check(LM_REDUCED or n_weights == 11,
+          f"danube has 11 weight leaves for PTQ, counted {n_weights}")
+    steps = sum(int(LM_SERVE_ARGS[LM_SERVE_ARGS.index(f) + 1])
+                for f in ("--prompt-len", "--new-tokens")) - 1
+    rows["serve"] = []
+    for label, extra in LM_SERVE_RUNS:
+        argv = LM_SERVE_ARGS + (["--reduced"] if LM_REDUCED else []) + extra
+        for c in counters.values():
+            c.reset()
+        buf = io.StringIO()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = serve.main(argv)
+        wall = time.perf_counter() - t
+        out = buf.getvalue()
+        print(out, end="")
+        n = {k: c.value for k, c in counters.items()}
+        want = {k: 0 for k in counters}
+        if "--int8-cache" in extra:
+            want["int8_cache_attention"] = cfg.n_layers * steps
+        if "--quant" in extra:
+            want["fake_quant"] = n_weights
+        check(rc == 0, f"serve {label}: exit {rc}")
+        check(n == want, f"serve {label}: launches {n}, want {want}")
+        m = re.search(r"in ([\d.]+)s \(([\d.]+) tok/s on (.+)\)", out)
+        check(m is not None and m.group(3) == torch.cuda.get_device_name(0),
+              f"serve {label}: printed its rate on the card ({out!r})")
+        first = re.search(r"first sequence: \[(.*)\]", out).group(1)
+        row = dict(run=label, argv=argv, decode_s=float(m.group(1)),
+                   tokens_per_s=float(m.group(2)), main_wall_s=wall,
+                   launches=n, first_sequence=first, card=smi)
+        rows["serve"].append(row)
+        print("lm serve " + json.dumps(row))
+    return rows
+
+
+def _spec_weights(spec) -> int:
+    """Leaves of two dims or more in a spec tree: what PTQ quantizes."""
+    if isinstance(spec, dict):
+        return sum(_spec_weights(v) for v in spec.values())
+    return int(len(spec.shape) >= 2)
+
+
 def check(cond: bool, what: str) -> None:
     """Raise unless ``cond``."""
     if not cond:
@@ -400,8 +656,9 @@ def main() -> int:
     import torch.nn.functional as F
 
     from repro_torch.core import affine, ptq
-    from repro_torch.kernels import (build, fake_quant, fused_qmlp,
-                                     int8_cache_attention, int8_matmul)
+    from repro_torch.kernels import (build, fake_quant, flash_attention,
+                                     fused_qmlp, int8_cache_attention,
+                                     int8_matmul)
     from repro_torch.rl import actorq, dqn, networks
     from repro_torch.rl import env as env_mod
     from repro_torch.rl.env import batched_env
@@ -553,10 +810,15 @@ def main() -> int:
             library_ms=device_ms(torch, sdpa),
             library="scaled_dot_product_attention, K/V dequantized before"))
     rows += fake_quant_rows(torch, dev, gen)
+    t_flash = time.perf_counter()
+    rows += flash_rows(torch, dev,
+                       torch.Generator(device=dev).manual_seed(SEED + 31))
+    flash_s = time.perf_counter() - t_flash
     for r in rows:
         print("kernel " + json.dumps(r))
-    print(f"kernel phase: {len(rows)} rows (B1, B2, B5 bitwise; B3 within "
-          f"1e-5), {time.perf_counter() - t0:.1f}s so far")
+    print(f"kernel phase: {len(rows)} rows (B1, B2, B5 bitwise; B3, B4 "
+          f"within 1e-5; B4 rows {flash_s:.1f}s), "
+          f"{time.perf_counter() - t0:.1f}s so far")
 
     # ---- serve phase (the main path) --------------------------------------
     counters = (int8_matmul.launches, fused_qmlp.launches)
@@ -884,6 +1146,14 @@ def main() -> int:
                             fake_quant.launches)})
     print(f"train phase: {time.perf_counter() - t_train:.1f}s")
 
+    # ---- LM phase (prefill and greedy decode) -----------------------------
+    t_lm = time.perf_counter()
+    lm = lm_phase(torch, dev, smi, {
+        c.name: c for c in (int8_matmul.launches, fused_qmlp.launches,
+                            int8_cache_attention.launches,
+                            fake_quant.launches, flash_attention.launches)})
+    print(f"lm phase: {time.perf_counter() - t_lm:.1f}s")
+
     # ---- report -----------------------------------------------------------
     def head(name, **want):
         """The kernel-phase row that stands for ``name`` in the report."""
@@ -907,7 +1177,12 @@ def main() -> int:
             ("fake_quant", "src/repro_torch/kernels/csrc/fake_quant.cu",
              "src/repro/kernels/fake_quant.py:36",
              train["qat_launches"]["fake_quant"],
-             head("fake_quant", label="td fc/out", bits=8))):
+             head("fake_quant", label="td fc/out", bits=8)),
+            ("flash_attention",
+             "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:91",
+             lm["prefill"]["launches"]["flash_attention"],
+             head("flash_attention", label="danube prefill"))):
         report.append(dict(
             name=name, route="cuda", source=src, replaces=replaces,
             launches=n,
@@ -920,9 +1195,10 @@ def main() -> int:
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         dict(card=smi, kernel_rows=rows, serve_rows=serve_rows,
              rollout_rows=roll_rows, eval_row=eval_row,
-             train_rows=train["rows"],
+             train_rows=train["rows"], lm_rows=lm,
              path_launches=dict(serve=launches, rollout=roll_launches,
-                                train_qat=train["qat_launches"]),
+                                train_qat=train["qat_launches"],
+                                lm_prefill=lm["prefill"]["launches"]),
              kernels=report, seconds=time.perf_counter() - t0), indent=1))
     print(f"total {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": report}))

@@ -6,7 +6,8 @@ Module paths mirror it (``repro_torch.core.affine`` is the counterpart of
 ``jax``, and nothing of ``repro``.
 
 What is ported so far is the serving path of the ActorQ policy, the
-sequence actor's rollout path and the DQN learner with QAT:
+sequence actor's rollout path, the DQN learner with QAT, and LM inference
+(prefill and greedy decode) for the dense-attention configs:
 
 * ``core``       -- the paper's affine quantizer, the int8/int4 pack, the
   symmetric KV-cache token quantizer, PTQ simulation, fake quantization
@@ -14,17 +15,23 @@ sequence actor's rollout path and the DQN learner with QAT:
   quantization config and the study metrics;
 * ``kernels``    -- the W8A8/W4A8 GEMM (``int8_matmul``), the fused
   quantized MLP (``fused_qmlp``), the decode attention over an int8
-  KV cache (``int8_cache_attention``) and the fake quantizer
-  (``fake_quant``), each a hand-written CUDA kernel for ``sm_90a``
+  KV cache (``int8_cache_attention``), the fake quantizer
+  (``fake_quant``) and the flash attention of prefill
+  (``flash_attention``), each a hand-written CUDA kernel for ``sm_90a``
   beside its plain PyTorch version;
-* ``models``     -- the decoder-transformer sequence policy;
+* ``configs``    -- h2o-danube-1.8b and gemma2-9b (and their reduced
+  variants);
+* ``models``     -- the decoder-transformer sequence policy, and the LM
+  (attention with GQA, RoPE, windows, soft-caps and fp / int8 KV caches;
+  the SwiGLU block; ``transformer.prefill`` and ``decode_step``);
 * ``optim``      -- Adam with global-norm clipping (fp32);
 * ``rl``         -- AirNav, CartPole, Catch and the frame-stacking
   wrappers, the QAT-aware MLP and the sequence policy, the packed actor
   (MLP and KV-cache decode), rollouts with auto-reset, evaluation,
   uniform replay, DQN (behaviour policy, TD update, iteration), the
   fused training loop and the QuaRL PTQ/QAT pipelines;
-* ``launch``     -- ``python -m repro_torch.launch.train --mode rl``;
+* ``launch``     -- ``python -m repro_torch.launch.train --mode rl`` and
+  ``python -m repro_torch.launch.serve`` (LM greedy decoding);
 * ``serving``    -- ``PolicyServer``: shape buckets, hot-swap, worker loop;
 * ``resilience`` -- the CRC and structural guards the server uses.
 

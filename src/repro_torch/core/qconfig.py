@@ -1,7 +1,7 @@
 """Quantization configuration shared across the port.
 
-Counterpart of ``repro/core/qconfig.py:20-125``.  The vocabulary follows
-the paper (QuaRL):
+Counterpart of ``repro/core/qconfig.py``.  The vocabulary follows the
+paper (QuaRL):
 
 * ``none``       -- full precision;
 * ``ptq_fp16``   -- post-training quantization to IEEE fp16 (Sec. 3.1);
@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
+from typing import Optional
 
 
 class QuantMode(enum.Enum):
@@ -38,9 +39,10 @@ class QuantConfig:
     quantization turns on.  ``ema_decay`` smooths the observers.
     ``quantize_activations``: QAT quantizes activations as well as
     weights; PTQ weights only.  ``per_axis_conv``: per-output-channel
-    quantization of conv kernels.  The reference's LM-half fields
-    (``quantize_router``, ``int8_kv_cache``) come with the LM half
-    (ROADMAP queue A, item 13).
+    quantization of conv kernels.  ``quantize_router``: whether MoE
+    router layers are quantized (MoE is not ported yet: ROADMAP queue A,
+    item 13).  ``int8_kv_cache``: store the LM decode KV cache as int8
+    codes with per-token scales.
     """
 
     mode: QuantMode = QuantMode.NONE
@@ -49,6 +51,8 @@ class QuantConfig:
     ema_decay: float = 0.999
     quantize_activations: bool = True
     per_axis_conv: bool = True
+    quantize_router: bool = False
+    int8_kv_cache: bool = False
 
     @staticmethod
     def none() -> "QuantConfig":
@@ -123,3 +127,42 @@ class QuantConfig:
         if self.mode == QuantMode.PTQ_INT:
             return f"ptq_int{self.bits}"
         return f"qat{self.bits}"
+
+
+@dataclasses.dataclass(frozen=True)
+class MixedPrecisionConfig:
+    """Mixed/half-precision policy (paper Sec. 5), as data.
+
+    Counterpart of ``repro/core/qconfig.py:129-157``.  ``compute_dtype``
+    is the activations' and matmuls' type, ``param_dtype`` the master
+    weights'; ``loss_scale`` / ``dynamic_loss_scale`` guard fp16
+    gradients.  Nothing in the port casts by it yet: the LM inference path
+    runs in float32, as the reference's serve launcher does (bf16 comes
+    with LM training, ROADMAP queue A, item 13).
+    """
+
+    compute_dtype: str = "float32"   # "bfloat16" | "float16" | "float32"
+    param_dtype: str = "float32"
+    loss_scale: Optional[float] = None
+    dynamic_loss_scale: bool = False
+
+    @property
+    def enabled(self) -> bool:
+        """True when compute and parameter types differ."""
+        return self.compute_dtype != self.param_dtype
+
+    @staticmethod
+    def fp32() -> "MixedPrecisionConfig":
+        """Everything in float32."""
+        return MixedPrecisionConfig()
+
+    @staticmethod
+    def bf16() -> "MixedPrecisionConfig":
+        """bfloat16 compute over float32 master weights."""
+        return MixedPrecisionConfig(compute_dtype="bfloat16")
+
+    @staticmethod
+    def fp16() -> "MixedPrecisionConfig":
+        """float16 compute with dynamic loss scaling."""
+        return MixedPrecisionConfig(compute_dtype="float16",
+                                    dynamic_loss_scale=True)

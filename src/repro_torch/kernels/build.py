@@ -31,7 +31,8 @@ from typing import Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"int8_matmul": "int8_matmul.cu", "fused_qmlp": "fused_qmlp.cu",
            "int8_cache_attention": "int8_cache_attention.cu",
-           "fake_quant": "fake_quant.cu"}
+           "fake_quant": "fake_quant.cu",
+           "flash_attention": "flash_attention.cu"}
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",

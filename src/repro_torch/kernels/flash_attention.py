@@ -1,0 +1,130 @@
+"""Kernel B4: blockwise online-softmax (flash) attention, with GQA.
+
+Replaces ``repro/kernels/flash_attention.py: flash_attention_pallas``
+(Pallas kernel ``_flash_kernel``), which ``repro/kernels/ops.py:
+flash_attention`` vmaps over batch and heads.  The CUDA source is
+``csrc/flash_attention.cu``; its header note says what bounds it on the
+H100 (float32 operations at the prefill shapes) and how the design
+answers (register tiles fed from shared memory, key tiles outside the
+causal / window band skipped).
+
+Both functions take ``q (B, S, H, D)`` and ``k, v (B, T, KV, D)`` with
+``H`` a multiple of ``KV``: query head ``h`` reads KV head ``h // (H //
+KV)``, and K and V are never repeated.  Query positions are aligned to the
+end of the kv axis.  ``flash_attention_cuda`` launches the kernel on the
+current stream (batch, heads and query tiles in one grid) and counts the
+launch in ``launches``; ``flash_attention_plain`` is the same function in
+plain PyTorch (``ref.mha_ref``, a dense softmax, a few heads at a time):
+the CPU path, and what the kernel is held against on the card, within
+1e-5.  A fully masked query row is 0 in both, as in ``ref.mha_ref``.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+launches = build.LaunchCounter("flash_attention")
+MAX_D = 256                     # csrc/flash_attention.cu: MAX_D
+PLAIN_LOGITS = 1 << 28          # floats of dense logits per plain call
+_VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = build.load("flash_attention")
+    fn = lib.repro_flash_attention
+    fn.argtypes = [_VP] * 4 + [_I] * 8 + [_F, _F, _VP]
+    fn.restype = _I
+    return lib
+
+
+def _scale(d: int, scale: Optional[float]) -> float:
+    return 1.0 / math.sqrt(d) if scale is None else float(scale)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = True,
+                          window: Optional[int] = None,
+                          softcap: Optional[float] = None,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """Plain PyTorch version of the kernel, on any device.
+
+    ``ref.mha_ref`` over the heads, a few at a time so the dense logits
+    stay under ``PLAIN_LOGITS`` floats; each head reads its KV head by
+    index.  Returns ``(B, S, H, D)`` float32.
+    """
+    b, s, h, d = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    g = h // kv
+    scale = _scale(d, scale)
+    qh = q.permute(0, 2, 1, 3)                     # (B, H, S, D)
+    kh, vh = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+    out = torch.empty((b, h, s, d), dtype=torch.float32, device=q.device)
+    step = max(1, min(h, PLAIN_LOGITS // max(b * s * t, 1)))
+    for h0 in range(0, h, step):
+        heads = torch.arange(h0, min(h0 + step, h), device=q.device)
+        out[:, h0:h0 + step] = ref.mha_ref(
+            qh[:, heads], kh[:, heads // g], vh[:, heads // g],
+            causal=causal, window=window, softcap=softcap,
+            scale=scale).to(torch.float32)
+    return out.permute(0, 2, 1, 3)
+
+
+def _check(t: torch.Tensor, name: str, shape: tuple,
+           device: torch.device) -> None:
+    if t.device != device or t.dtype != torch.float32 \
+            or not t.is_contiguous() or tuple(t.shape) != shape:
+        raise ValueError(f"{name}: need a contiguous float32 tensor of "
+                         f"shape {shape} on {device}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device} (contiguous: "
+                         f"{t.is_contiguous()})")
+
+
+def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True,
+                         window: Optional[int] = None,
+                         softcap: Optional[float] = None,
+                         scale: Optional[float] = None) -> torch.Tensor:
+    """Launch the CUDA kernel: ``(B, S, H, D)`` queries -> ``(B, S, H, D)``
+    float32.
+
+    Raises ``ValueError`` on what the kernel does not take (``D > 256``,
+    ``H`` not a multiple of ``KV``, a window below 1, a soft-cap not above
+    0, a type other than float32, a non-contiguous layout) and
+    ``RuntimeError`` if the launch fails.
+    """
+    dev = q.device
+    if dev.type != "cuda" or q.dim() != 4 or k.dim() != 4:
+        raise ValueError("flash_attention_cuda takes (B, S, H, D) CUDA "
+                         "queries and (B, T, KV, D) keys and values")
+    b, s, h, d = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    if min(b, s, h, t, kv) < 1 or h % kv or not 1 <= d <= MAX_D:
+        raise ValueError(f"bad shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)} (D <= {MAX_D}, H a multiple "
+                         f"of KV)")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be None or >= 1, got {window}")
+    if softcap is not None and not softcap > 0:
+        raise ValueError(f"softcap must be None or > 0, got {softcap}")
+    _check(q, "q", (b, s, h, d), dev)
+    _check(k, "k", (b, t, kv, d), dev)
+    _check(v, "v", (b, t, kv, d), dev)
+    lib = _lib()
+    out = torch.empty((b, s, h, d), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.repro_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
+            t, h, kv, d, int(causal), 0 if window is None else window,
+            0.0 if softcap is None else softcap, _scale(d, scale), stream)
+    if err:
+        raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
+    launches.add()
+    return out

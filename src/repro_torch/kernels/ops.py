@@ -1,7 +1,7 @@
 """Public quantized ops: a CUDA tensor goes to the kernel, a CPU tensor to
 the plain PyTorch version.
 
-Counterpart of ``repro/kernels/ops.py:58-151, 191-230``.  There is no
+Counterpart of ``repro/kernels/ops.py:58-230``.  There is no
 backend knob and no environment override: where the data lies decides, so
 the card's path always runs the hand-written kernel (or raises) and the CPU
 tests run the plain versions.
@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.core import affine
 from repro_torch.kernels import fake_quant as _fk
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import fused_qmlp as _fq
 from repro_torch.kernels import int8_cache_attention as _ca
 from repro_torch.kernels import int8_matmul as _mm
@@ -99,6 +100,28 @@ def fused_qmlp(x: torch.Tensor, layers: Sequence[_fq.QMLPLayer]
     else:
         y = _fq.fused_qmlp_plain(x_q, layers)
     return y.reshape(lead + y.shape[-1:])
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: Optional[int] = None,
+                    softcap: Optional[float] = None,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Multi-head attention with GQA (kernel B4 on the card).
+
+    ``q (B, S, H, D)``, ``k/v (B, T, KV, D)`` with ``H`` a multiple of
+    ``KV``; query head ``h`` attends with KV head ``h // (H // KV)``
+    (the reference's caller repeats K and V instead).  Query positions are
+    aligned to the end of the kv axis; ``window`` keeps keys in ``(p -
+    window, p]``; ``softcap`` is gemma2's tanh soft-cap; ``scale``
+    defaults to ``1 / sqrt(D)``.  Returns ``(B, S, H, D)`` float32, with
+    a fully masked row 0.
+    """
+    if _device_type(q) == "cuda":
+        return _fa.flash_attention_cuda(
+            q.contiguous(), k.contiguous(), v.contiguous(), causal=causal,
+            window=window, softcap=softcap, scale=scale)
+    return _fa.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     softcap=softcap, scale=scale)
 
 
 def int8_cache_attention(q: torch.Tensor, k_codes: torch.Tensor,

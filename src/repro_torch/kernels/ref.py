@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the port's kernels, op for op.
 
-Counterpart of ``repro/kernels/ref.py:23-90, 136-149``.  These are the
+Counterpart of ``repro/kernels/ref.py:23-90, 105-149``.  These are the
 reference each CUDA kernel is held against (bitwise for the integer
 GEMMs and the fake quantizer, within 1e-5 for the float attention), and
 the path a CPU tensor takes.  CUDA has no integer ``matmul``, so the int32 accumulator is taken
@@ -11,6 +11,7 @@ into an FMA: ``(x_scale * w_scale) * corr``, then ``+ bias``.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional, Sequence
 
 import torch
@@ -111,3 +112,44 @@ def int8_cache_decode_ref(q: torch.Tensor, k_codes: torch.Tensor,
         valid = valid & (idx > p - window)
     s = torch.where(valid, s, torch.full_like(s, NEG_INF))
     return torch.matmul(torch.softmax(s, dim=-1), v).to(q.dtype)
+
+
+def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+            causal: bool = True, window: Optional[int] = None,
+            softcap: Optional[float] = None,
+            scale: Optional[float] = None) -> torch.Tensor:
+    """Dense reference attention, one head: ``q (S, D)``, ``k/v (T, D)``.
+
+    Leading dims broadcast (a batch of heads).  Query positions are
+    aligned to the end of the kv axis (``q_pos = i + T - S``); ``window``
+    keeps keys in ``(q_pos - window, q_pos]``; ``softcap`` is gemma2's
+    ``softcap * tanh(s / softcap)``.  Masked logits are ``-inf``, and a
+    fully masked row gives 0, as the reference's ``mha_ref`` does.  The
+    default scale is ``1 / sqrt(D)``.
+    """
+    s, d = q.shape[-2:]
+    t = k.shape[-2]
+    scale = scale if scale is not None else 1.0 / math.sqrt(d)
+    logits = torch.matmul(q.to(torch.float32),
+                          k.to(torch.float32).transpose(-1, -2)) * scale
+    if softcap is not None:
+        logits = softcap * torch.tanh(logits / softcap)
+    mask = attention_mask(s, t, causal=causal, window=window,
+                          device=q.device)
+    logits = logits.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    probs = torch.where(torch.isnan(probs), 0.0, probs)  # fully masked rows
+    return torch.matmul(probs, v.to(torch.float32)).to(q.dtype)
+
+
+def attention_mask(s: int, t: int, *, causal: bool, window: Optional[int],
+                   device=None) -> torch.Tensor:
+    """``(S, T)`` boolean: which keys each query sees, with the query
+    positions aligned to the end of the kv axis."""
+    q_pos = torch.arange(s, device=device)[:, None] + (t - s)
+    k_pos = torch.arange(t, device=device)[None, :]
+    mask = (k_pos <= q_pos) if causal else torch.ones(
+        (s, t), dtype=torch.bool, device=device)
+    if window is not None:
+        mask = mask & (k_pos > q_pos - window)
+    return mask

@@ -1,10 +1,12 @@
 """On the card: each CUDA kernel against its plain PyTorch version.
 
 The integer GEMMs (B1, B2) and the fake quantizer (B5) are bitwise equal
-to theirs; the int8-cache decode attention (B3) is float attention summed
-in another order, so it agrees within rtol = atol = 1e-5, the
-reference's attention contract.  A short QAT training run shows the
-learner's path through B5.
+to theirs; the int8-cache decode attention (B3) and the flash attention
+(B4) are float attention summed in another order, so they agree within
+rtol = atol = 1e-5, the reference's attention contract.  A short QAT
+training run shows the learner's path through B5, a reduced-danube
+prefill the LM's through B4, and a reduced serve run decode through B3
+and PTQ through B5.
 
 The kernels have no CPU mode, so every test here takes the ``cuda``
 fixture, which skips on a machine without a card.  The file imports no
@@ -16,10 +18,13 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import affine
+from repro_torch.configs import base as cfgs
+from repro_torch.core import affine, ptq
 from repro_torch.core.qconfig import QuantConfig
-from repro_torch.kernels import (fake_quant, fused_qmlp, int8_cache_attention,
-                                 int8_matmul, ops)
+from repro_torch.kernels import (fake_quant, flash_attention, fused_qmlp,
+                                 int8_cache_attention, int8_matmul, ops)
+from repro_torch.launch import serve
+from repro_torch.models import transformer
 from repro_torch.rl import actorq, dqn, loops, networks
 from repro_torch.rl import env as env_mod
 from repro_torch.rl.env import batched_env
@@ -226,3 +231,93 @@ def test_qat_train_on_card_launches_b5(cuda):
     assert fake_quant.launches.value - before == want
     assert res.device.type == "cuda" and all(np.isfinite(res.rewards))
     assert all(bool(o.initialized) for o in res.state.observers.values())
+
+
+@pytest.mark.parametrize("shape", [
+    # (B, H, KV, S, T, D, causal, window, softcap): the chip_smoke rows at
+    # reduced sizes (danube prefill, gemma2 local and global, whisper's
+    # encoder, end-aligned, ragged), fully masked rows, odd head dims
+    (1, 8, 2, 512, 512, 80, True, 128, None),
+    (1, 4, 2, 512, 512, 256, True, 128, 50.0),
+    (1, 4, 2, 384, 384, 256, True, None, 50.0),
+    (1, 6, 6, 300, 300, 64, False, None, None),
+    (1, 8, 2, 8, 1024, 80, True, None, None),
+    (2, 4, 4, 1000, 1000, 32, True, None, None),
+    (1, 2, 1, 16, 8, 32, True, None, None),
+    (1, 2, 1, 70, 90, 40, True, 20, None),
+    (1, 2, 2, 65, 65, 200, False, 30, 30.0),
+    (3, 3, 1, 1, 77, 16, True, 5, None)])
+def test_flash_attention_kernel_vs_plain_on_card(cuda, shape):
+    b, h, kv, s, t, d, causal, window, softcap = shape
+    rng = np.random.default_rng(s + t + d)
+    q, k, v = (torch.from_numpy(rng.normal(size=sh).astype(np.float32)
+                                ).to(cuda)
+               for sh in ((b, s, h, d), (b, t, kv, d), (b, t, kv, d)))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    before = flash_attention.launches.value
+    got = flash_attention.flash_attention_cuda(q, k, v, **kw)
+    want = flash_attention.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert flash_attention.launches.value == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    if causal and s > t:                    # rows before every key: 0
+        assert not got[:, :s - t].any()
+
+
+def test_flash_attention_op_on_card_and_refusals(cuda):
+    rng = np.random.default_rng(0)
+    q = torch.from_numpy(rng.normal(size=(2, 40, 4, 32)).astype(np.float32))
+    k = torch.from_numpy(rng.normal(size=(2, 40, 2, 32)).astype(np.float32))
+    want = ops.flash_attention(q, k, k, window=9)             # CPU: plain
+    before = flash_attention.launches.value
+    got = ops.flash_attention(q.to(cuda).transpose(1, 2).contiguous()
+                              .transpose(1, 2), k.to(cuda), k.to(cuda),
+                              window=9)                  # a strided view
+    assert flash_attention.launches.value == before + 1
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    big = torch.zeros(1, 4, 1, 300, device=cuda)
+    with pytest.raises(ValueError, match="D <= 256"):
+        flash_attention.flash_attention_cuda(big, big, big)
+    half = torch.zeros(1, 4, 1, 32, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="float32"):
+        flash_attention.flash_attention_cuda(half, half, half)
+    x = torch.zeros(1, 4, 3, 32, device=cuda)
+    with pytest.raises(ValueError, match="multiple"):
+        flash_attention.flash_attention_cuda(x, x[:, :, :2].contiguous(),
+                                             x[:, :, :2].contiguous())
+    assert flash_attention.launches.value == before + 1
+
+
+def test_reduced_danube_prefill_on_card_launches_b4_per_layer(cuda):
+    """A reduced-danube prefill of 300 tokens (ring window 32): one B4
+    launch per layer, and the CPU path's logits within 1e-4 (cuBLAS and
+    the CPU's BLAS sum in other orders)."""
+    cfg = cfgs.get_reduced("h2o-danube-1.8b")
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                     "cpu")
+    tokens = torch.randint(0, cfg.vocab, (2, 300),
+                           generator=torch.Generator().manual_seed(1))
+    want = transformer.prefill(cfg, params, tokens)
+    before = flash_attention.launches.value
+    got = transformer.prefill(cfg, ptq.tree_to(params, cuda), tokens.to(cuda))
+    torch.cuda.synchronize()
+    assert flash_attention.launches.value - before == cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+def test_reduced_serve_on_card_launches_b3_and_b5(cuda, capsys):
+    """``launch.serve`` on the card with an int8 cache and PTQ int8
+    weights: B3 once per layer and decode step, B5 once per weight leaf
+    (11 for danube), and the tokens of the same run on the CPU."""
+    argv = ["--arch", "h2o-danube-1.8b", "--reduced", "--batch", "2",
+            "--prompt-len", "8", "--new-tokens", "4", "--int8-cache",
+            "--quant", "ptq_int8"]
+    b3, b5 = int8_cache_attention.launches.value, fake_quant.launches.value
+    assert serve.main(argv) == 0
+    card = capsys.readouterr().out
+    assert int8_cache_attention.launches.value - b3 == 2 * 11
+    assert fake_quant.launches.value - b5 == 11
+    assert torch.cuda.get_device_name(0) in card
+    assert serve.main(argv + ["--device", "cpu"]) == 0
+    host = capsys.readouterr().out
+    assert card.splitlines()[-1] == host.splitlines()[-1]

@@ -32,7 +32,10 @@ def test_scan_sees_the_port():
     assert {"server.py", "actorq.py", "ops.py", "chip_smoke.py",
             "seq_policy.py", "int8_cache_attention.py", "dqn.py",
             "wrappers.py", "fake_quant.py", "metrics.py", "cartpole.py",
-            "adam.py", "buffer.py", "loops.py", "train.py"} <= names
+            "adam.py", "buffer.py", "loops.py", "train.py",
+            "flash_attention.py", "attention.py", "blocks.py",
+            "transformer.py", "serve.py", "base.py", "h2o_danube_1_8b.py",
+            "gemma2_9b.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -49,7 +52,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.rl.envs, repro_torch.resilience.guards, "
             "repro_torch.rl.dqn, repro_torch.models.seq_policy, "
             "repro_torch.rl.loops, repro_torch.launch.train, "
-            "repro_torch.core.fake_quant, repro_torch.core.metrics\n"
+            "repro_torch.core.fake_quant, repro_torch.core.metrics, "
+            "repro_torch.kernels.flash_attention, repro_torch.configs.base, "
+            "repro_torch.models.transformer, repro_torch.launch.serve\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
@@ -62,7 +67,10 @@ def _entry_points():
     import numpy as np
     import torch
 
+    from repro_torch.configs import base as cfgs
+    from repro_torch.launch import serve as launch_serve
     from repro_torch.launch import train as launch_train
+    from repro_torch.models import transformer
     from repro_torch.rl import actorq, buffer, dqn, loops, networks
     from repro_torch.rl.env import batched_env
     from repro_torch.rl.envs import make
@@ -99,6 +107,14 @@ def _entry_points():
                                            iterations=1).device,
         "launch_train": lambda: launch_train.main(
             ["--algo", "dqn", "--iterations", "1"]),
+        "transformer_init_params": lambda: transformer.init_params(
+            cfgs.get_reduced("h2o-danube-1.8b"), gen)["embed"]["w"],
+        "transformer_init_caches": lambda: transformer.init_caches(
+            cfgs.get_reduced("h2o-danube-1.8b"), 1, 4)["stacked"][
+                "b0_attn_local"]["kv"].k,
+        "launch_serve": lambda: launch_serve.main(
+            ["--reduced", "--batch", "1", "--prompt-len", "2",
+             "--new-tokens", "1"]),
     }
 
 
@@ -108,7 +124,10 @@ def _entry_points():
                                   "wrapper_reset", "make_network_init",
                                   "seq_cache_zeros", "cartpole_reset",
                                   "replay_init", "make_iteration",
-                                  "loops_train", "launch_train"])
+                                  "loops_train", "launch_train",
+                                  "transformer_init_params",
+                                  "transformer_init_caches",
+                                  "launch_serve"])
 def test_entry_points_default_to_the_card(name):
     """``device=None`` means ``cuda``: it lands there with a card and
     raises without one, never falling back to the CPU."""
@@ -116,7 +135,7 @@ def test_entry_points_default_to_the_card(name):
     call = _entry_points()[name]
     if torch.cuda.is_available():
         out = call()
-        if name == "launch_train":          # an exit code; it printed cuda
+        if name in ("launch_train", "launch_serve"):  # an exit code
             assert out == 0
             return
         assert (out if isinstance(out, torch.device) else out.device

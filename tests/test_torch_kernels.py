@@ -121,7 +121,8 @@ def test_launch_counter_counts_and_resets():
 
 def test_build_names_every_source_and_hashes_flags():
     assert set(build.SOURCES) == {"int8_matmul", "fused_qmlp",
-                                  "int8_cache_attention", "fake_quant"}
+                                  "int8_cache_attention", "fake_quant",
+                                  "flash_attention"}
     assert sorted(build.SOURCES.values()) == sorted(
         p.name for p in build.CSRC.glob("*.cu"))
     for name, src in build.SOURCES.items():
