@@ -7,9 +7,10 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds each kernel against its plain PyTorch version on the card (the
-integer GEMMs and the fake quantizer bitwise, the int8-cache and the
-flash attention within 1e-5) at the shapes its paths give it and times
-both, then drives the port's four paths:
+integer GEMMs, the fake quantizer and its QAT site kernel bitwise, the
+int8-cache and the flash attention within 1e-5) at the shapes its paths
+give it (B1's rollout and calibration shapes recorded from the paths
+themselves) and times both, then drives the port's four paths:
 
 * serving -- ``PolicyServer`` answering batched AirNav sessions through
   the ActorQ int8 / int4 policy: every request answered, the hot-swap
@@ -22,11 +23,13 @@ both, then drives the port's four paths:
   contract on a catch_seq episode (and compared on an airnav_seq one);
 * training -- ``loops.train`` runs DQN on CartPole (MLP 4-64-64-2, the
   reference's defaults, 400 iterations): QAT int8 (every fake-quant site
-  through kernel B5), the ActorQ int4 and int8 actors with calibrated
+  one launch of kernel B5's site kernel), the ActorQ int4 and int8 actors with calibrated
   caches (rollouts through kernel B2) and the fp32 baseline, then
   ``quarl_ptq`` evaluates the fp32 run at int8 and fp16; the eval
-  rewards are held to the bars stated in ``PERF.md``, and one TD update
-  of the QAT run is replayed on the CPU (within 1e-5);
+  rewards are held to the bars stated in ``PERF.md``, one TD update of
+  the QAT run is replayed on the CPU (within 1e-5), and a profiled QAT
+  iteration launches at most ``QAT_KERNEL_RATIO`` times the kernels of
+  an fp32 one;
 * the LM -- ``transformer.prefill`` of h2o-danube-1.8b at full width and
   depth over 8,192 prompt tokens (every layer's attention through kernel
   B4), its 64-token logits held against the port's CPU path and against
@@ -98,6 +101,22 @@ FQ_ROWS = (("cartpole fc0/w", (4, 64)), ("cartpole fc1/w", (64, 64)),
            ("Policy II", (512, 256)), ("Policy III", (4096, 512)),
            ("odd", (1,)), ("odd", (7, 13)), ("odd", (2 ** 20 + 3,)),
            ("zeros", (8, 64)), ("positive", (64, 2)), ("ties", (4, 64)))
+# B5's QAT site kernel at the CartPole net's sites (its weights, its
+# activations at the TD batch of 64 and the rollout batch of 8 envs) and
+# at Policy II's width: (label, site, shape)
+SITE_ROWS = (("cartpole fc0/w", "weight", (4, 64)),
+             ("cartpole fc1/w", "weight", (64, 64)),
+             ("cartpole out/w", "weight", (64, 2)),
+             ("td fc/out", "activation", (64, 64)),
+             ("td out/out", "activation", (64, 2)),
+             ("rollout fc/out", "activation", (8, 64)),
+             ("rollout out/out", "activation", (8, 2)),
+             ("Policy II", "activation", (512, 256)),
+             ("Policy II", "weight", (512, 256)))
+SITE_DELAY = 6                    # steps 5, 6, 9: before, at, after it
+# kernels a profiled QAT iteration may launch per fp32 iteration: fp32's
+# plus 6 site launches a forward (PERF.md, sections 2 and 5)
+QAT_KERNEL_RATIO = 1.15
 # the training phase: DQN on CartPole with the reference's defaults and
 # the bar run of tests/test_fused_qmlp.py:300-307
 TRAIN_ITERS, TRAIN_RECORD, TRAIN_SPC = 400, 50, 5
@@ -280,6 +299,124 @@ def fake_quant_rows(torch, dev, gen) -> list:
     return rows
 
 
+def site_rows(torch, dev, gen) -> list:
+    """B5's QAT site kernel against its plain version (the composition
+    the context ran before: observe, fake quantizer, ``torch.where``) at
+    ``SITE_ROWS``, 8 bits: bitwise in every phase (steps before, at and
+    after the delay; a fresh and a stored observer), one launch a site up
+    to 4,096 elements and two above, timed in the frozen phase beside the
+    plain composition and ``torch.fused_moving_avg_obs_fake_quant`` (a
+    batch min / max, a moving-average observer gated by device flags, then
+    per-tensor fake quantization; it rounds ``x * (1 / scale)`` and leaves
+    its range unextended: a yardstick of time only)."""
+    from repro_torch.kernels import fake_quant
+    rows = []
+    for label, site, shape in SITE_ROWS:
+        scale = 1.7 if site == "activation" else 0.2
+        x = (torch.randn(shape, generator=gen) * scale).to(dev)
+        per_site = 1 if x.numel() <= 4096 else 2
+        worst, same = 0.0, True
+        for step in (SITE_DELAY - 1, SITE_DELAY, SITE_DELAY + 3):
+            st = torch.tensor(step, dtype=torch.int32, device=dev)
+            for stored in ((False, True) if site == "activation"
+                           else (False,)):
+                state = ((torch.tensor(-1.25, device=dev),
+                          torch.tensor(2.5, device=dev),
+                          torch.tensor(True, device=dev)) if stored else
+                         (torch.zeros((), device=dev),
+                          torch.zeros((), device=dev),
+                          torch.zeros((), dtype=torch.bool, device=dev)))
+                n0 = fake_quant.launches.value
+                if site == "activation":
+                    got = fake_quant.activation_site_cuda(
+                        x, *state, st, SITE_DELAY, 0.999, 8)
+                    want = fake_quant.activation_site_plain(
+                        x, *state, st, SITE_DELAY, 0.999, 8)
+                else:
+                    got = (fake_quant.weight_site_cuda(x, st, SITE_DELAY,
+                                                       8),)
+                    want = (fake_quant.weight_site_plain(x, st, SITE_DELAY,
+                                                         8),)
+                got_n = fake_quant.launches.value - n0
+                check(got_n == per_site,
+                      f"site {label} {list(shape)}: {got_n} launches a "
+                      f"site (want {per_site})")
+                torch.cuda.synchronize()
+                for g, w in zip(got, want):
+                    same &= bool(torch.equal(g, w))
+                    worst = max(worst, float((g.to(torch.float32) - w.to(
+                        torch.float32)).abs().max()))
+                check(same, f"site {label} {site} {list(shape)} step {step} "
+                            f"stored {stored}: bitwise (max abs diff "
+                            f"{worst})")
+        # timed in the frozen phase: a stored observer past the delay
+        st = torch.tensor(SITE_DELAY + 3, dtype=torch.int32, device=dev)
+        state = (torch.tensor(-1.25, device=dev),
+                 torch.tensor(2.5, device=dev),
+                 torch.tensor(True, device=dev))
+        if site == "activation":
+            def kern(x=x, st=st, state=state):
+                return fake_quant.activation_site_cuda(
+                    x, *state, st, SITE_DELAY, 0.999, 8)
+
+            def plain(x=x, st=st, state=state):
+                return fake_quant.activation_site_plain(
+                    x, *state, st, SITE_DELAY, 0.999, 8)
+        else:
+            def kern(x=x, st=st):
+                return fake_quant.weight_site_cuda(x, st, SITE_DELAY, 8)
+
+            def plain(x=x, st=st):
+                return fake_quant.weight_site_plain(x, st, SITE_DELAY, 8)
+        # the library's observer: off for the frozen activation site, on
+        # with averaging constant 1 (the batch range) for a weight site
+        on = torch.ones(1, dtype=torch.long, device=dev)
+        observer = (torch.zeros(1, dtype=torch.long, device=dev)
+                    if site == "activation" else on)
+        lib_state = (torch.tensor([-1.25], device=dev),
+                     torch.tensor([2.5], device=dev),
+                     torch.ones(1, device=dev),
+                     torch.zeros(1, dtype=torch.int32, device=dev))
+        averaging = 1.0 - 0.999 if site == "activation" else 1.0
+
+        def lib(x=x, observer=observer, on=on, lib_state=lib_state,
+                averaging=averaging):
+            return torch.fused_moving_avg_obs_fake_quant(
+                x, observer, on, *lib_state, averaging, 0, 255, 0)
+        n = x.numel()
+        # x read once, out written once, the step and the state
+        b_ms, b_by = bound(8.0 * n + 32, 10.0 * n, F32_OPS_PER_S)
+        rows.append(dict(
+            name="fake_quant", kernel="site", label="site " + label,
+            site=site, shape=list(shape), bits=8, bitwise=same,
+            max_abs_err=worst, launches_per_site=per_site,
+            ms=device_ms(torch, kern), plain_ms=device_ms(torch, plain),
+            bound_ms=b_ms, bound_by=b_by, library_ms=device_ms(torch, lib),
+            library="fused_moving_avg_obs_fake_quant"))
+    return rows
+
+
+def b1_path_shapes(torch, dev, fn) -> list:
+    """The ``(M, K, N, bits)`` of every B1 launch ``fn()`` makes (each
+    launched and counted as usual), in order of first launch."""
+    from repro_torch.kernels import int8_matmul
+    seen, orig = [], int8_matmul.int8_matmul_cuda
+
+    def record(x_q, w_q, *args, w_bits=8):
+        key = (int(x_q.shape[0]), int(x_q.shape[1]), int(w_q.shape[1]),
+               4 if w_bits <= 4 else 8)
+        if key not in seen:
+            seen.append(key)
+        return orig(x_q, w_q, *args, w_bits=w_bits)
+    int8_matmul.int8_matmul_cuda = record
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        int8_matmul.int8_matmul_cuda = orig
+    return seen
+
+
 def train_phase(torch, dev, smi, counters) -> dict:
     """The training path, through ``loops.train`` and ``quarl_ptq``.
 
@@ -409,6 +546,16 @@ def train_phase(torch, dev, smi, counters) -> dict:
         prof = dict(run=name, **profile_calls(torch, one, n=2))
         rows.append(dict(profile=prof))
         print("train profile " + json.dumps(prof))
+    per_iter = {r["profile"]["run"]: r["profile"]["kernels_per_call"]
+                for r in rows if "profile" in r}
+    side = dict(qat8=per_iter["qat8"], fp32=per_iter["fp32"],
+                ratio=per_iter["qat8"] / per_iter["fp32"],
+                bound=QAT_KERNEL_RATIO, card=smi)
+    print("train kernels per iteration " + json.dumps(side))
+    check(side["ratio"] <= QAT_KERNEL_RATIO,
+          f"a QAT iteration launches {side['qat8']} kernels, fp32 "
+          f"{side['fp32']}: more than {QAT_KERNEL_RATIO}x")
+    rows.append(dict(kernels_per_iteration=side))
     return dict(rows=rows, qat_launches=next(
         r["launches"] for r in rows if r.get("run") == "qat8"))
 
@@ -696,37 +843,72 @@ def main() -> int:
 
     # ---- kernel phase -----------------------------------------------------
     rows = []
-    b1_shapes = [(512, obs_dim, 256), (512, 256, 256), (512, 256, 256),
-                 (512, 256, n_act), (512, 4096, 512), (37, obs_dim, 256)]
-    for bits in (8, 4):
-        for m, k, n in b1_shapes:
-            x = torch.randn((m, k), generator=gen).to(dev) * 1.5
-            w = (torch.randn((k, n), generator=gen) / k ** 0.5).to(dev)
-            xq, xp = affine.quantize_to_int(x, 8)
-            pw = ptq._pack_leaf(w, bits)
-            args = (xq, pw.codes, xp.delta, xp.zero_point, pw.col_scale,
-                    pw.col_zero)
-            got = int8_matmul.int8_matmul_cuda(*args, w_bits=bits)
-            want = int8_matmul.int8_matmul_plain(*args, w_bits=bits)
-            torch.cuda.synchronize()
-            same = torch.equal(got, want)
-            err = float((got - want).abs().max())
-            check(same, f"int8_matmul bits={bits} {m}x{k}x{n} bitwise "
-                        f"(max abs diff {err})")
-            lib_ms = None
-            if bits == 8 and m > 16 and k % 8 == 0 and n % 8 == 0:
-                wq = pw.codes
-                lib_ms = device_ms(torch, lambda: torch._int_mm(xq, wq))
-            nbytes = m * k + pw.codes.numel() + 8 * n + 8 + 4 * m * n
-            b_ms, b_by = bound(nbytes, 2.0 * m * k * n)
-            rows.append(dict(
-                name="int8_matmul", bits=bits, shape=[m, k, n],
-                bitwise=same, max_abs_err=err,
-                ms=device_ms(torch, lambda: int8_matmul.int8_matmul_cuda(
-                    *args, w_bits=bits)),
-                plain_ms=device_ms(torch, lambda: int8_matmul.
-                                   int8_matmul_plain(*args, w_bits=bits)),
-                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+    # B1 at the serving shapes (Policy II's layers, Policy III's widest,
+    # a partial bucket), then at the shapes the sequence-actor rollout
+    # and the CartPole cache calibration give it, recorded from one
+    # rollout step and one calibration of each width
+    b1_rows = [(label, m, k, n, bits) for bits in (8, 4)
+               for label, (m, k, n) in (
+                   ("serving", (512, obs_dim, 256)),
+                   ("serving", (512, 256, 256)),
+                   ("serving", (512, 256, n_act)),
+                   ("Policy III", (512, 4096, 512)),
+                   ("serving", (37, obs_dim, 256)))]
+    seq_env = make("airnav_seq")
+    seq_net = networks.make_network(seq_env.spec.obs_shape,
+                                    seq_env.spec.n_actions,
+                                    transformer=dict(SEQ_NET), device=dev)
+    seq_p = seq_net.init(torch.Generator().manual_seed(SEED + 20))
+    cp_params = networks.init_mlp(networks.mlp_spec(4, (64, 64), 2),
+                                  torch.Generator().manual_seed(SEED + 7),
+                                  dev)
+    for bits, backend in ((8, "int8"), (4, "int4")):
+        benv = actorq.maybe_attach_seq_state(
+            batched_env(seq_env, ROLL_ENVS), seq_net, backend, ROLL_ENVS)
+        pol = dqn.make_behaviour_policy(benv, seq_net, dqn.DQNConfig(
+            actor_backend=backend))(seq_p, {}, torch.tensor(0, device=dev),
+                                    torch.tensor(0, device=dev),
+                                    qparams=actorq.pack_actor_params(
+                                        seq_p, bits))
+        rgen = torch.Generator(device=dev).manual_seed(SEED + 25)
+        st0, ob0 = benv.reset(rgen)
+        for m, k, n, b in b1_path_shapes(torch, dev, lambda: env_mod.rollout(
+                benv, pol, seq_p, st0, ob0, rgen, 1)):
+            b1_rows.append(("rollout", m, k, n, b))
+        calib = (torch.randn((32, 4), generator=gen) * 0.5).to(dev)
+        qp = actorq.pack_actor_params(cp_params, bits)
+        for m, k, n, b in b1_path_shapes(torch, dev, lambda: actorq.
+                                         calibrate_actor_cache(qp, calib)):
+            b1_rows.append(("cartpole calibration", m, k, n, b))
+    for label, m, k, n, bits in b1_rows:
+        x = torch.randn((m, k), generator=gen).to(dev) * 1.5
+        w = (torch.randn((k, n), generator=gen) / k ** 0.5).to(dev)
+        xq, xp = affine.quantize_to_int(x, 8)
+        pw = ptq._pack_leaf(w, bits)
+        args = (xq, pw.codes, xp.delta, xp.zero_point, pw.col_scale,
+                pw.col_zero)
+        got = int8_matmul.int8_matmul_cuda(*args, w_bits=bits)
+        want = int8_matmul.int8_matmul_plain(*args, w_bits=bits)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        err = float((got - want).abs().max())
+        check(same, f"int8_matmul bits={bits} {m}x{k}x{n} bitwise "
+                    f"(max abs diff {err})")
+        lib_ms = None
+        if bits == 8 and m > 16 and k % 8 == 0 and n % 8 == 0:
+            wq = pw.codes
+            lib_ms = device_ms(torch, lambda: torch._int_mm(xq, wq))
+        nbytes = m * k + pw.codes.numel() + 8 * n + 8 + 4 * m * n
+        b_ms, b_by = bound(nbytes, 2.0 * m * k * n)
+        rows.append(dict(
+            name="int8_matmul", label=label, bits=bits, shape=[m, k, n],
+            plan=int8_matmul.plan(m, k, n), bitwise=same,
+            max_abs_err=err,
+            ms=device_ms(torch, lambda: int8_matmul.int8_matmul_cuda(
+                *args, w_bits=bits)),
+            plain_ms=device_ms(torch, lambda: int8_matmul.
+                               int8_matmul_plain(*args, w_bits=bits)),
+            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
     for bits in (8, 4):
         for pname, widths in (("II", POLICY_II), ("III", POLICY_III)):
             qp = actorq.pack_actor_params(
@@ -758,6 +940,35 @@ def main() -> int:
                     plain_ms=device_ms(torch, lambda: fused_qmlp.
                                        fused_qmlp_plain(xq, layers)),
                     bound_ms=b_ms, bound_by=b_by, library_ms=None))
+    # B2 at the int4 training run's shape: the CartPole net 4-64-64-2 at
+    # the behaviour batch (8 envs), calibrated on 32 observations
+    for bits in (4, 8):
+        cache = actorq.calibrate_actor_cache(
+            actorq.pack_actor_params(cp_params, bits),
+            (torch.randn((32, 4), generator=gen) * 0.5).to(dev))
+        layers = actorq._fused_layers(cache, 2)
+        obs = (torch.randn((8, 4), generator=gen) * 0.5).to(dev)
+        xq = affine.quantize_with_params(
+            obs, affine.AffineParams(layers[0].x_delta, layers[0].x_zero, 8))
+        got = fused_qmlp.fused_qmlp_cuda(xq, layers)
+        want = fused_qmlp.fused_qmlp_plain(xq, layers)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        err = float((got - want).abs().max())
+        check(same, f"fused_qmlp bits={bits} CartPole M=8 bitwise (max abs "
+                    f"diff {err})")
+        nbytes = 8 * 4 + 4 * 8 * 2 + sum(la.codes.numel() + 12 * la.n + 8
+                                          for la in layers)
+        b_ms, b_by = bound(nbytes, 2.0 * 8 * sum(la.k * la.n
+                                                  for la in layers))
+        rows.append(dict(
+            name="fused_qmlp", bits=bits, policy="cartpole train",
+            shape=[8], bitwise=same, max_abs_err=err,
+            ms=device_ms(torch, lambda: fused_qmlp.fused_qmlp_cuda(
+                xq, layers)),
+            plain_ms=device_ms(torch, lambda: fused_qmlp.fused_qmlp_plain(
+                xq, layers)),
+            bound_ms=b_ms, bound_by=b_by, library_ms=None))
     # B3 at the sequence actor's shapes: (label, R, G, T, Dh, window, pos)
     for label, r, g, t, dh, window, how in (
             ("airnav_seq", ROLL_ENVS, 1, 121, 32, 8, "ragged"),
@@ -810,13 +1021,15 @@ def main() -> int:
             library_ms=device_ms(torch, sdpa),
             library="scaled_dot_product_attention, K/V dequantized before"))
     rows += fake_quant_rows(torch, dev, gen)
+    rows += site_rows(torch, dev, gen)
     t_flash = time.perf_counter()
     rows += flash_rows(torch, dev,
                        torch.Generator(device=dev).manual_seed(SEED + 31))
     flash_s = time.perf_counter() - t_flash
     for r in rows:
         print("kernel " + json.dumps(r))
-    print(f"kernel phase: {len(rows)} rows (B1, B2, B5 bitwise; B3, B4 "
+    print(f"kernel phase: {len(rows)} rows (B1, B2, B5 and its site kernel "
+          f"bitwise; B3, B4 "
           f"within 1e-5; B4 rows {flash_s:.1f}s), "
           f"{time.perf_counter() - t0:.1f}s so far")
 
@@ -1177,7 +1390,7 @@ def main() -> int:
             ("fake_quant", "src/repro_torch/kernels/csrc/fake_quant.cu",
              "src/repro/kernels/fake_quant.py:36",
              train["qat_launches"]["fake_quant"],
-             head("fake_quant", label="td fc/out", bits=8)),
+             head("fake_quant", label="site td fc/out")),
             ("flash_attention",
              "src/repro_torch/kernels/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention.py:91",

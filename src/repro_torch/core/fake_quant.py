@@ -1,12 +1,8 @@
-"""Fake quantization with the straight-through estimator, and the range
-observers of quantization-aware training (QuaRL Sec. 3.2, Algorithm 2).
+"""The range observers and the sites of quantization-aware training
+(QuaRL Sec. 3.2, Algorithm 2).
 
 Counterpart of ``repro/core/fake_quant.py``:
 
-* ``fake_quant(w, vmin, vmax, bits)`` -- quantize-dequantize in the
-  forward pass (``kernels.ops.fake_quant_with_range``, kernel B5 on the
-  card), identity gradient to ``w`` and none to the range in the backward
-  pass (``_STE``, the straight-through estimator);
 * ``ObserverState`` / ``observe`` -- a tensor's running min/max (an EMA
   of the batch min/max), monitored for the first ``quant_delay`` updates
   and frozen after;
@@ -14,11 +10,15 @@ Counterpart of ``repro/core/fake_quant.py``:
   ``weight(name, w)`` and ``activation(name, x)``.  It reads observer
   slots from ``collection`` and records their updates in ``updates``.
 
-The delay is a pair of 0-d bool tensors computed from the device step
-(``monitoring = step < quant_delay``, ``enabled = not monitoring``), and
-every site fake-quantizes and then selects with ``torch.where``, as the
-reference does: both phases run the same ops, B5 launches at every site
-of every forward, and nothing waits on the host.
+Each site is one ``torch.autograd.Function`` over ``ops.qat_weight_site``
+/ ``ops.qat_activation_site``: on the card one launch of B5's site
+kernel, which reads the device step and takes the delay's gates
+(``monitoring = step < quant_delay``, ``enabled = not monitoring``)
+itself, so both phases run the same launch and nothing waits on the
+host; on the CPU the composition the reference runs (``observe``, the
+fake quantizer, ``torch.where``; ``kernels.fake_quant`` holds it).  The
+gradient is the reference's straight-through estimator: ``g`` to the
+site's input, nothing to the ranges.
 """
 from __future__ import annotations
 
@@ -29,6 +29,7 @@ from typing import Dict, NamedTuple, Optional
 import torch
 
 from repro_torch.core.qconfig import QuantConfig
+from repro_torch.kernels import fake_quant as _fk
 from repro_torch.kernels import ops
 
 
@@ -55,48 +56,43 @@ def observe(state: ObserverState, x: torch.Tensor, ema_decay: float,
     The batch range is extended to 0; the first batch sets it directly,
     later ones move an EMA with decay ``ema_decay``.  Once monitoring
     ends the state comes back as it was.  ``x`` is read, never
-    differentiated.
+    differentiated.  (The QAT sites run this inside the site kernel on the
+    card; ``kernels.fake_quant.observe_plain`` is the composition.)
     """
-    lo, hi = torch.aminmax(x.detach())
-    bmin = torch.clamp(lo, max=0.0).to(torch.float32)
-    bmax = torch.clamp(hi, min=0.0).to(torch.float32)
-    d = ema_decay
-    new_min = torch.where(state.initialized,
-                          d * state.vmin + (1 - d) * bmin, bmin)
-    new_max = torch.where(state.initialized,
-                          d * state.vmax + (1 - d) * bmax, bmax)
-    return ObserverState(torch.where(monitoring, new_min, state.vmin),
-                         torch.where(monitoring, new_max, state.vmax),
-                         state.initialized | monitoring)
+    return ObserverState(*_fk.observe_plain(
+        state.vmin, state.vmax, state.initialized, x, ema_decay, monitoring))
 
 
-class _STE(torch.autograd.Function):
-    """Quantize-dequantize forward; identity gradient to ``w``, none to
-    the range (the reference's ``custom_vjp``)."""
+class _ActivationSite(torch.autograd.Function):
+    """One activation site (``ops.qat_activation_site``): the observer
+    update and the gated fake quantization forward; the gradient to ``x``
+    is ``g`` itself (the straight-through estimator through either branch
+    of the gate), and the state and the step get none."""
 
     @staticmethod
-    def forward(ctx, w, vmin, vmax, bits):
-        return ops.fake_quant_with_range(w, vmin, vmax, bits)
+    def forward(ctx, x, vmin, vmax, initialized, step, quant_delay,
+                ema_decay, bits):
+        out, nmin, nmax, ninit = ops.qat_activation_site(
+            x, vmin, vmax, initialized, step, quant_delay, ema_decay, bits)
+        ctx.mark_non_differentiable(nmin, nmax, ninit)
+        return out, nmin, nmax, ninit
+
+    @staticmethod
+    def backward(ctx, g, *_):
+        return g, None, None, None, None, None, None, None
+
+
+class _WeightSite(torch.autograd.Function):
+    """One weight site (``ops.qat_weight_site``): the gated fake
+    quantization over the weight's own range; identity gradient."""
+
+    @staticmethod
+    def forward(ctx, w, step, quant_delay, bits):
+        return ops.qat_weight_site(w, step, quant_delay, bits)
 
     @staticmethod
     def backward(ctx, g):
         return g, None, None, None
-
-
-def fake_quant(w: torch.Tensor, vmin: torch.Tensor, vmax: torch.Tensor,
-               bits: int) -> torch.Tensor:
-    """The paper's Q_n^train with the straight-through estimator, over the
-    range ``(vmin, vmax)`` (0-d tensors on ``w``'s device)."""
-    return _STE.apply(w.to(torch.float32), vmin.detach().to(torch.float32),
-                      vmax.detach().to(torch.float32), bits).to(w.dtype)
-
-
-def fake_quant_self_range(w: torch.Tensor, bits: int) -> torch.Tensor:
-    """STE fake quantization over the tensor's own current range (the
-    weights' quantizer: their range is read from the live weights)."""
-    lo, hi = torch.aminmax(w.detach())
-    return fake_quant(w, torch.clamp(lo, max=0.0), torch.clamp(hi, min=0.0),
-                      bits)
 
 
 @dataclasses.dataclass
@@ -115,11 +111,6 @@ class QATContext:
         default_factory=dict)
 
     @functools.cached_property
-    def monitoring(self) -> torch.Tensor:
-        """True while the observers still learn their ranges."""
-        return self.step < self.config.quant_delay
-
-    @functools.cached_property
     def enabled(self) -> torch.Tensor:
         """True once fake quantization is on."""
         return self.step >= self.config.quant_delay
@@ -132,21 +123,26 @@ class QATContext:
         return ObserverState.init(self.step.device)
 
     def weight(self, name: str, w: torch.Tensor) -> torch.Tensor:
-        """Fake-quantize a weight (per tensor, its own range)."""
+        """Fake-quantize a weight (per tensor, its own range) from the
+        delay on: one site-kernel launch on the card."""
         if not self.config.is_qat:
             return w
-        fq = fake_quant_self_range(w, self.config.bits)
-        return torch.where(self.enabled, fq, w)
+        out = _WeightSite.apply(w.to(torch.float32), self.step,
+                                self.config.quant_delay, self.config.bits)
+        return out.to(w.dtype)
 
     def activation(self, name: str, x: torch.Tensor) -> torch.Tensor:
-        """Observe, then fake-quantize an activation (monitored range)."""
+        """Observe, then fake-quantize an activation (monitored range):
+        one site-kernel launch on the card."""
         if not (self.config.is_qat and self.config.quantize_activations):
             return x
-        st = observe(self._slot(name), x, self.config.ema_decay,
-                     self.monitoring)
-        self.updates[name] = st
-        fq = fake_quant(x, st.vmin, st.vmax, self.config.bits)
-        return torch.where(self.enabled & st.initialized, fq, x)
+        st = self._slot(name)
+        out, *new = _ActivationSite.apply(
+            x.to(torch.float32), st.vmin, st.vmax, st.initialized,
+            self.step, self.config.quant_delay, self.config.ema_decay,
+            self.config.bits)
+        self.updates[name] = ObserverState(*new)
+        return out.to(x.dtype)
 
     def merged_collection(self) -> Dict[str, ObserverState]:
         """The collection with this forward's updates applied."""

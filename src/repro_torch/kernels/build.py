@@ -28,6 +28,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {"int8_matmul": "int8_matmul.cu", "fused_qmlp": "fused_qmlp.cu",
            "int8_cache_attention": "int8_cache_attention.cu",
@@ -56,10 +58,10 @@ class LaunchCounter:
         self._mu = threading.Lock()
         self._n = 0
 
-    def add(self) -> None:
-        """Count one launch."""
+    def add(self, n: int = 1) -> None:
+        """Count ``n`` launches (one call that launches ``n`` kernels)."""
         with self._mu:
-            self._n += 1
+            self._n += n
 
     def reset(self) -> None:
         """Set the count back to 0."""
@@ -71,6 +73,34 @@ class LaunchCounter:
         """Launches since the last ``reset``."""
         with self._mu:
             return self._n
+
+
+class on_device:
+    """``with on_device(dev) as stream``: inside, ``dev`` is the current
+    device (a kernel launches on the current device) and ``stream`` is the
+    raw handle of its current stream, the one PyTorch's own work on
+    ``dev`` is queued on.  It switches devices only when ``dev`` is not
+    current already and builds no ``torch.cuda.Stream`` object, host work
+    that ``torch.cuda.device`` plus ``torch.cuda.current_stream`` pay at
+    each of the thousands of launches an iteration makes.
+    """
+
+    __slots__ = ("_idx", "_prev")
+
+    def __init__(self, dev: torch.device):
+        self._idx = (dev.index if dev.index is not None
+                     else torch.cuda.current_device())
+
+    def __enter__(self) -> int:
+        self._prev = torch.cuda.current_device()
+        if self._prev != self._idx:
+            torch.cuda.set_device(self._idx)
+        return torch._C._cuda_getCurrentRawStream(self._idx)
+
+    def __exit__(self, *exc) -> bool:
+        if self._prev != self._idx:
+            torch.cuda.set_device(self._prev)
+        return False
 
 
 def nvcc() -> str:

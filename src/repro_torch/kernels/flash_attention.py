@@ -118,8 +118,7 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(v, "v", (b, t, kv, d), dev)
     lib = _lib()
     out = torch.empty((b, s, h, d), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with build.on_device(dev) as stream:
         err = lib.repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
             t, h, kv, d, int(causal), 0 if window is None else window,

@@ -131,8 +131,7 @@ def fused_qmlp_cuda(x_q: torch.Tensor, layers: Sequence[QMLPLayer]
                                 "x_delta", "x_zero")]
     arrays += [ints([la.k for la in layers]), ints([la.n for la in layers]),
                ints([4 if la.bits <= 4 else 8 for la in layers])]
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with build.on_device(dev) as stream:
         err = lib.repro_fused_qmlp(
             x_q.data_ptr(), m, k0, n_l,
             *[ctypes.addressof(a) for a in arrays],

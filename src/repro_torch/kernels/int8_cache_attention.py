@@ -87,8 +87,7 @@ def int8_cache_attention_cuda(q: torch.Tensor, k_codes: torch.Tensor,
     _check(pos, "pos", torch.int32, (r,), dev)
     lib = _lib()
     out = torch.empty((r, g, dh), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with build.on_device(dev) as stream:
         err = lib.repro_int8_cache_attention(
             q.data_ptr(), k_codes.data_ptr(), k_scale.data_ptr(),
             v_codes.data_ptr(), v_scale.data_ptr(), pos.data_ptr(),

@@ -3,9 +3,11 @@
 Replaces ``repro/kernels/int8_matmul.py: int8_matmul_pallas`` (Pallas
 kernel ``_int8_matmul_kernel``).  The CUDA source is
 ``csrc/int8_matmul.cu``; its header note says what bounds it on the H100
-(the bytes: at the serving shapes the f32 output outweighs the codes) and
-how the design answers (one pass over each operand per output tile, the K
-loop inside the block).
+(the bytes at the serving shapes, and in practice latency) and how the
+design answers: ``wgmma`` on int8 tensor cores fed through an mbarrier
+ring of shared-memory stages, N tiles narrow enough to give every SM a
+block, and long K split over a thread block cluster whose partials are
+added through distributed shared memory in the same launch.
 
 ``int8_matmul_cuda`` launches the kernel on the current stream and counts
 the launch in ``launches``.  ``int8_matmul_plain`` is the same function in
@@ -32,7 +34,17 @@ def _lib() -> ctypes.CDLL:
     fn = lib.repro_int8_matmul
     fn.argtypes = [_VP] * 7 + [_I] * 4 + [_VP]
     fn.restype = _I
+    lib.repro_int8_matmul_plan.argtypes = [_I, _I, _I, _VP]
+    lib.repro_int8_matmul_plan.restype = None
     return lib
+
+
+def plan(m: int, k: int, n: int) -> dict:
+    """The kernel's tile plan for an ``(m, k, n)`` product: the N tile,
+    the cluster's K split and the blocks launched (built on first use)."""
+    out = (ctypes.c_int * 3)()
+    _lib().repro_int8_matmul_plan(m, k, n, ctypes.addressof(out))
+    return dict(bn=out[0], k_split=out[1], blocks=out[2])
 
 
 def int8_matmul_plain(x_q: torch.Tensor, w_q: torch.Tensor,
@@ -83,8 +95,7 @@ def int8_matmul_cuda(x_q: torch.Tensor, w_q: torch.Tensor,
     _check(w_zero, "w_zero", torch.float32, dev, n)
     lib = _lib()
     out = torch.empty((m, n), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    with build.on_device(dev) as stream:
         err = lib.repro_int8_matmul(
             x_q.data_ptr(), w_q.data_ptr(), x_scale.data_ptr(),
             x_zero.data_ptr(), w_scale.data_ptr(), w_zero.data_ptr(),

@@ -8,7 +8,7 @@ tests run the plain versions.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -34,6 +34,36 @@ def fake_quant_with_range(x: torch.Tensor, vmin: torch.Tensor,
     if _device_type(x) == "cuda":
         return _fk.fake_quant_cuda(x.contiguous(), vmin, vmax, bits)
     return _fk.fake_quant_plain(x, vmin, vmax, bits)
+
+
+def qat_activation_site(x: torch.Tensor, vmin: torch.Tensor,
+                        vmax: torch.Tensor, initialized: torch.Tensor,
+                        step: torch.Tensor, quant_delay: int,
+                        ema_decay: float, bits: int
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                   torch.Tensor]:
+    """One QAT activation site (``QATContext.activation``): observe ``x``
+    into the state ``(vmin, vmax, initialized)`` while ``step <
+    quant_delay``, then fake-quantize over the new range where ``step >=
+    quant_delay`` and the state is initialized.  Returns ``(out, vmin',
+    vmax', initialized')``; the state comes back in new tensors.  One
+    launch of the site kernel on the card; the composition on the CPU."""
+    if _device_type(x) == "cuda":
+        return _fk.activation_site_cuda(x.contiguous(), vmin, vmax,
+                                        initialized, step, quant_delay,
+                                        ema_decay, bits)
+    return _fk.activation_site_plain(x, vmin, vmax, initialized, step,
+                                     quant_delay, ema_decay, bits)
+
+
+def qat_weight_site(w: torch.Tensor, step: torch.Tensor, quant_delay: int,
+                    bits: int) -> torch.Tensor:
+    """One QAT weight site (``QATContext.weight``): ``w`` fake-quantized
+    over its own range where ``step >= quant_delay``, else ``w``.  One
+    launch of the site kernel on the card; the composition on the CPU."""
+    if _device_type(w) == "cuda":
+        return _fk.weight_site_cuda(w.contiguous(), step, quant_delay, bits)
+    return _fk.weight_site_plain(w, step, quant_delay, bits)
 
 
 def fake_quant(x: torch.Tensor, bits: int = 8) -> torch.Tensor:

@@ -1,7 +1,7 @@
 """On the card: each CUDA kernel against its plain PyTorch version.
 
-The integer GEMMs (B1, B2) and the fake quantizer (B5) are bitwise equal
-to theirs; the int8-cache decode attention (B3) and the flash attention
+The integer GEMMs (B1, B2), the fake quantizer (B5) and its QAT site
+kernel are bitwise equal to theirs; the int8-cache decode attention (B3) and the flash attention
 (B4) are float attention summed in another order, so they agree within
 rtol = atol = 1e-5, the reference's attention contract.  A short QAT
 training run shows the learner's path through B5, a reduced-danube
@@ -56,10 +56,18 @@ def _gemm_inputs(m, k, n, bits, seed):
                              .astype(np.float32)))
 
 
+# the wgmma kernel's edges: one row and two row tiles, K below, at and past
+# a 32-deep slice and long enough for a cluster's K split, N below one
+# 8-wide tile and ragged; then the sequence actor's projections
+B1_EDGE_ROWS = [(m, k, n) for m in (1, 8, 64, 65) for k in (4, 31, 32, 33, 4096)
+                for n in (2, 8, 25)] + [(512, 32, 32), (512, 32, 64),
+                                        (512, 32, 96), (512, 64, 32)]
+
+
 @pytest.mark.parametrize("bits", [4, 8])
 @pytest.mark.parametrize("mkn", [(512, 9, 256), (512, 256, 256),
                                  (512, 256, 25), (37, 9, 256),
-                                 (64, 4096, 512)])
+                                 (64, 4096, 512)] + B1_EDGE_ROWS)
 def test_int8_matmul_kernel_equals_plain_on_card(cuda, bits, mkn):
     m, k, n = mkn
     args = [a.to(cuda) for a in _gemm_inputs(m, k, n, bits, seed=m + k + n)]
@@ -216,6 +224,97 @@ def test_fake_quant_kernel_equals_plain_on_card(cuda, bits, kind, shape):
                            fake_quant.fake_quant_plain(xs, lo, hi, bits))
     assert torch.equal(ops.fake_quant(x, bits).cpu(),
                        ops.fake_quant(x.cpu(), bits))
+
+
+SITE_DELAY = 6
+SITE_STEPS = {"before": SITE_DELAY - 1, "at": SITE_DELAY,
+              "after": SITE_DELAY + 3}
+
+
+def _site_state(initialized, dev):
+    if initialized:
+        return (torch.tensor(-1.25, device=dev), torch.tensor(2.5, device=dev),
+                torch.tensor(True, device=dev))
+    return (torch.zeros((), device=dev), torch.zeros((), device=dev),
+            torch.zeros((), dtype=torch.bool, device=dev))
+
+
+def _same(got, want):
+    """Equal values, NaN where NaN (-0.0 equals 0.0)."""
+    got, want = got.cpu(), want.cpu()
+    nan = torch.isnan(want)
+    return bool(torch.equal(torch.isnan(got), nan)
+                and torch.equal(got[~nan], want[~nan]))
+
+
+@pytest.mark.parametrize("bits", [2, 4, 8])
+@pytest.mark.parametrize("kind,shape", [
+    # the CartPole sites (weights, TD batch 64, rollout batch 8), then the
+    # sizes past one block (a range pass and a quantize pass)
+    ("normal", (4, 64)), ("normal", (64, 64)), ("normal", (64, 2)),
+    ("normal", (8, 64)), ("zeros", (8, 64)), ("positive", (64, 2)),
+    ("ties", (4, 64)), ("nan", (64, 64)), ("normal", (512, 256)),
+    ("normal", (4096, 512)), ("normal", (2 ** 20 + 3,))])
+@pytest.mark.parametrize("initialized", [False, True],
+                         ids=["fresh", "initialized"])
+@pytest.mark.parametrize("when", list(SITE_STEPS))
+def test_site_kernel_equals_plain_on_card(cuda, when, initialized, kind,
+                                          shape, bits):
+    """One launch per site up to 4,096 elements and two above (a range
+    pass and a quantize pass), output and new state bitwise (NaN for
+    NaN)."""
+    step = torch.tensor(SITE_STEPS[when], dtype=torch.int32, device=cuda)
+    if kind == "nan":
+        x_np = _fq_input("normal", shape, bits, sum(shape))
+        x_np.flat[len(shape) * 17] = np.nan
+    else:
+        x_np = _fq_input(kind, shape, bits, sum(shape) + bits)
+    x = torch.from_numpy(x_np).to(cuda)
+    state = _site_state(initialized, cuda)
+    per_site = 1 if x.numel() <= 4096 else 2
+    before = fake_quant.launches.value
+    got = fake_quant.activation_site_cuda(x, *state, step, SITE_DELAY,
+                                          0.999, bits)
+    assert fake_quant.launches.value == before + per_site
+    want = fake_quant.activation_site_plain(x, *state, step, SITE_DELAY,
+                                            0.999, bits)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert _same(g, w)
+    assert _same(state[0], _site_state(initialized, cuda)[0])  # functional
+    w_got = fake_quant.weight_site_cuda(x, step.to(torch.int64), SITE_DELAY,
+                                        bits)
+    assert fake_quant.launches.value == before + 2 * per_site
+    assert _same(w_got, fake_quant.weight_site_plain(x, step, SITE_DELAY,
+                                                     bits))
+
+
+def test_site_ops_on_card_through_the_context(cuda):
+    """The context's sites on the card: one launch each, equal to the CPU
+    composition, and the state kept on the card."""
+    from repro_torch.core import fake_quant as core_fq
+    rng = np.random.default_rng(0)
+    coll = {}
+    cfg = QuantConfig.qat(8, quant_delay=2)
+    for step in (0, 1, 2, 3):
+        x = torch.from_numpy((rng.normal(size=(64, 64)) * (1 + step))
+                             .astype(np.float32))
+        ctx = core_fq.make_context(cfg, coll, torch.tensor(step, device=cuda))
+        cpu = core_fq.make_context(
+            cfg, {k: core_fq.ObserverState(*(t.cpu() for t in v))
+                  for k, v in coll.items()}, torch.tensor(step))
+        before = fake_quant.launches.value
+        got = (ctx.activation("a/out", x.to(cuda)),
+               ctx.weight("a/w", x.to(cuda)))
+        assert fake_quant.launches.value == before + 2
+        want = (cpu.activation("a/out", x), cpu.weight("a/w", x))
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+        coll = ctx.merged_collection()
+        assert coll["a/out"].vmin.device.type == "cuda"
+        for g, w in zip(coll["a/out"], cpu.merged_collection()["a/out"]):
+            assert torch.equal(g.cpu(), w)
 
 
 def test_qat_train_on_card_launches_b5(cuda):

@@ -249,7 +249,11 @@ def test_ste_gradient_bitwise_vs_jax():
     # no gradient reaches an observed range
     lo, hi = torch.tensor(-1.0, requires_grad=True), torch.tensor(
         2.0, requires_grad=True)
-    out = fake_quant.fake_quant(tx, lo, hi, 8)
+    ctx = fake_quant.make_context(
+        QuantConfig.qat(8, quant_delay=1),
+        {"s/out": fake_quant.ObserverState(lo, hi, torch.tensor(True))},
+        torch.tensor(3))
+    out = ctx.activation("s/out", tx)
     assert out.grad_fn is not None and lo.grad is None
     torch.sum(out).backward()
     assert lo.grad is None and hi.grad is None

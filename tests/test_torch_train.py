@@ -334,16 +334,20 @@ def test_qat_train_20_iterations_on_cpu():
 
 
 def test_b5_call_count_matches_the_config(monkeypatch):
-    """Six fake-quant sites a forward: one forward per behaviour step,
-    two (online, target) per TD update, one per eval step -- the count
-    ``chip_smoke.py`` holds kernel B5's launches to."""
+    """Six fake-quant sites a forward, each one call of a site op (one
+    launch of B5's site kernel on the card): one forward per behaviour
+    step, two (online, target) per TD update, one per eval step -- the
+    count ``chip_smoke.py`` holds kernel B5's launches to."""
     from repro_torch.kernels import ops
-    calls, real_fq = [0], ops.fake_quant_with_range
+    calls = [0]
 
-    def counting_fq(*a, **k):
-        calls[0] += 1
-        return real_fq(*a, **k)
-    monkeypatch.setattr(ops, "fake_quant_with_range", counting_fq)
+    def counting(real):
+        def site(*a, **k):
+            calls[0] += 1
+            return real(*a, **k)
+        return site
+    for name in ("qat_activation_site", "qat_weight_site"):
+        monkeypatch.setattr(ops, name, counting(getattr(ops, name)))
     it = 3
     res = loops.train("dqn", "cartpole", iterations=it, record_every=3,
                       eval_episodes=2, quant=QuantConfig.qat(8, quant_delay=4),
