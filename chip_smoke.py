@@ -66,10 +66,11 @@ ROOT = Path(__file__).resolve().parent
 OUT_DIR = ROOT / "chiprun_out"
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, int8 ops/s,
-# float32 flop/s outside the tensor cores
+# float32 flop/s outside the tensor cores, TF32 flop/s on them
 HBM_BYTES_PER_S = 3.35e12
 INT8_OPS_PER_S = 1979e12
 F32_OPS_PER_S = 67e12
+TF32_OPS_PER_S = 495e12
 
 POLICY_II = (256, 256, 256)       # paper Table 5 deployment MLPs
 POLICY_III = (4096, 512, 1024)
@@ -594,7 +595,13 @@ def flash_rows(torch, dev, gen) -> list:
         del got, want
         pairs = b * h * flash_pairs(s, t, causal, window)
         nbytes = 4 * (2 * b * s * h * d + 2 * b * t * kv * d)
-        b_ms, b_by = bound(nbytes, 4.0 * d * pairs, F32_OPS_PER_S)
+        # the float32 work on the FMA pipes, or three times it on the TF32
+        # tensor cores (3xTF32 holds float32 accuracy): the faster binds
+        fma_ms, fma_by = bound(nbytes, 4.0 * d * pairs, F32_OPS_PER_S)
+        b_ms, b_by = bound(nbytes, 3 * 4.0 * d * pairs, TF32_OPS_PER_S)
+        kind = "3xTF32 tensor cores"
+        if fma_ms < b_ms:
+            b_ms, b_by, kind = fma_ms, fma_by, "float32 FMA"
         big = s * t > 2 ** 22
         reps = dict(reps=5, per_rep=2) if big else {}
         lib_ms = lib_err = None
@@ -619,12 +626,15 @@ def flash_rows(torch, dev, gen) -> list:
             name="flash_attention", label=label,
             shape=dict(B=b, H=h, KV=kv, S=s, T=t, D=d), causal=causal,
             window=window, softcap=softcap, unmasked_pairs=pairs,
+            plan=flash_attention.plan(b, s, t, h, kv, d, causal=causal,
+                                      window=window),
             max_abs_err=err,
             ms=device_ms(torch, lambda: flash_attention.flash_attention_cuda(
                 q, k, v, **kw), **reps),
             plain_ms=device_ms(torch, lambda: flash_attention.
                                flash_attention_plain(q, k, v, **kw), **reps),
-            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms,
+            bound_ms=b_ms, bound_by=b_by, bound_kind=kind,
+            fma_bound_ms=fma_ms, library_ms=lib_ms,
             library=("scaled_dot_product_attention, K/V repeated before"
                      if softcap is None else None),
             library_max_abs_diff=lib_err))
@@ -934,6 +944,7 @@ def main() -> int:
                 b_ms, b_by = bound(nbytes, ops)
                 rows.append(dict(
                     name="fused_qmlp", bits=bits, policy=pname, shape=[m],
+                    plan=fused_qmlp.plan(m, obs_dim, layers),
                     bitwise=same, max_abs_err=err,
                     ms=device_ms(torch, lambda: fused_qmlp.fused_qmlp_cuda(
                         xq, layers)),
@@ -963,7 +974,8 @@ def main() -> int:
                                                   for la in layers))
         rows.append(dict(
             name="fused_qmlp", bits=bits, policy="cartpole train",
-            shape=[8], bitwise=same, max_abs_err=err,
+            shape=[8], plan=fused_qmlp.plan(8, 4, layers), bitwise=same,
+            max_abs_err=err,
             ms=device_ms(torch, lambda: fused_qmlp.fused_qmlp_cuda(
                 xq, layers)),
             plain_ms=device_ms(torch, lambda: fused_qmlp.fused_qmlp_plain(

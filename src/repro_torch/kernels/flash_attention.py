@@ -4,19 +4,24 @@ Replaces ``repro/kernels/flash_attention.py: flash_attention_pallas``
 (Pallas kernel ``_flash_kernel``), which ``repro/kernels/ops.py:
 flash_attention`` vmaps over batch and heads.  The CUDA source is
 ``csrc/flash_attention.cu``; its header note says what bounds it on the
-H100 (float32 operations at the prefill shapes) and how the design
-answers (register tiles fed from shared memory, key tiles outside the
-causal / window band skipped).
+H100 (operations at the prefill shapes: tensor-core operations, since
+both products run on the TF32 tensor cores in 3xTF32 to hold the 1e-5
+contract) and how the design answers (``wgmma`` fed by a producer
+warpgroup through an mbarrier ring, the G query heads of a KV head in
+one tile, key tiles outside the causal / window band skipped, and the key
+axis split over a thread block cluster where the tiles cannot fill the
+card).  ``plan`` gives the launch's shape as plain arithmetic.
 
 Both functions take ``q (B, S, H, D)`` and ``k, v (B, T, KV, D)`` with
 ``H`` a multiple of ``KV``: query head ``h`` reads KV head ``h // (H //
 KV)``, and K and V are never repeated.  Query positions are aligned to the
 end of the kv axis.  ``flash_attention_cuda`` launches the kernel on the
-current stream (batch, heads and query tiles in one grid) and counts the
-launch in ``launches``; ``flash_attention_plain`` is the same function in
-plain PyTorch (``ref.mha_ref``, a dense softmax, a few heads at a time):
-the CPU path, and what the kernel is held against on the card, within
-1e-5.  A fully masked query row is 0 in both, as in ``ref.mha_ref``.
+current stream (query tiles x key splits, KV heads and batch in one
+grid) and counts the launch in ``launches``; ``flash_attention_plain``
+is the same function in plain PyTorch (``ref.mha_ref``, a dense
+softmax, a few heads at a time): the CPU path, and what the kernel is
+held against on the card, within 1e-5.  A fully masked query row is 0
+in both, as in ``ref.mha_ref``.
 """
 from __future__ import annotations
 
@@ -32,16 +37,72 @@ from repro_torch.kernels import build, ref
 launches = build.LaunchCounter("flash_attention")
 MAX_D = 256                     # csrc/flash_attention.cu: MAX_D
 PLAIN_LOGITS = 1 << 28          # floats of dense logits per plain call
+SMS = 132                       # H100 SXM streaming multiprocessors
+SMEM_LIMIT = 232448             # H100: dynamic shared memory per block
+MAX_CLUSTER = 8                 # the portable cluster size
+MERGE_TILES = 4                 # a cluster merge costs about 4 key tiles
 _VP, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+def _padded_d(d: int) -> int:
+    """csrc/flash_attention.cu: padded_d."""
+    return next((p for p in (16, 32, 48, 64, 80) if d <= p), 256)
+
+
+def plan(b: int, s: int, t: int, h: int, kv: int, d: int, *,
+         causal: bool = True, window: Optional[int] = None) -> dict:
+    """The kernel's launch shape for ``q (b, s, h, d)``, ``k/v (b, t, kv,
+    d)``, mirroring ``csrc/flash_attention.cu: Shape``.
+
+    Rows of a KV head are its ``s * G`` (query, head) pairs; a block takes
+    ``bq`` of them.  Where the (tile, KV head, batch) blocks number fewer
+    than the card's SMs, the key axis is split over a cluster of
+    ``cluster`` blocks: the size in 1, 2, 4, 8 that minimises waves x (key
+    tiles a block + ``MERGE_TILES``), with at least two key tiles a block.
+    """
+    dp = _padded_d(d)
+    wide = dp > 80
+    nwg, bk, stages = (1, 16, 2) if wide else (2, 32, 3)
+    bq = 64 * nwg
+    g = h // kv
+    tiles = -(-(s * g) // bq)
+    items = b * kv * tiles
+    # the key tiles of the last query tile, the longest under a causal mask
+    p_lo, p_hi = ((tiles - 1) * bq) // g + t - s, s - 1 + t - s
+    k_hi = min(t - 1, p_hi) if causal else t - 1
+    k_lo = max(0, p_lo - window + 1) if window else 0
+    key_tiles = k_hi // bk - k_lo // bk + 1 if k_hi >= k_lo else 0
+    cluster = 1
+    if items < SMS:
+        def cost(c):
+            return -(-items * c // SMS) * (-(-key_tiles // c) + MERGE_TILES)
+        sizes = [c for c in (1, 2, 4, MAX_CLUSTER)
+                 if c == 1 or key_tiles >= 2 * c]
+        cluster = min(sizes, key=cost)
+    q_floats = bq * (dp + 4) if wide else 2 * bq * dp
+    smem = 4 * (stages * 4 * bk * dp + q_floats + 2 * bq) + 16 * stages
+    return dict(d_padded=dp, consumers=nwg, bq=bq, bk=bk, stages=stages,
+                tiles=tiles, key_tiles=key_tiles, cluster=cluster,
+                blocks=items * cluster, smem=smem)
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention")
     fn = lib.repro_flash_attention
-    fn.argtypes = [_VP] * 4 + [_I] * 8 + [_F, _F, _VP]
+    fn.argtypes = [_VP] * 4 + [_I] * 8 + [_F, _F, _I, _VP]
     fn.restype = _I
+    lib.repro_flash_attention_shape.argtypes = [_I, _VP]
+    lib.repro_flash_attention_shape.restype = None
     return lib
+
+
+def kernel_shape(d: int) -> dict:
+    """The built kernel's shared-memory bytes and query rows a block for
+    head dim ``d`` (what ``plan`` mirrors; built on first use)."""
+    out = (ctypes.c_int * 2)()
+    _lib().repro_flash_attention_shape(d, ctypes.addressof(out))
+    return dict(smem=out[0], bq=out[1])
 
 
 def _scale(d: int, scale: Optional[float]) -> float:
@@ -117,12 +178,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(k, "k", (b, t, kv, d), dev)
     _check(v, "v", (b, t, kv, d), dev)
     lib = _lib()
+    cluster = plan(b, s, t, h, kv, d, causal=causal,
+                   window=window)["cluster"]
     out = torch.empty((b, s, h, d), dtype=torch.float32, device=dev)
     with build.on_device(dev) as stream:
         err = lib.repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
             t, h, kv, d, int(causal), 0 if window is None else window,
-            0.0 if softcap is None else softcap, _scale(d, scale), stream)
+            0.0 if softcap is None else softcap, _scale(d, scale), cluster,
+            stream)
     if err:
         raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
     launches.add()

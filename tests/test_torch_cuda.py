@@ -98,6 +98,51 @@ def test_fused_qmlp_kernel_equals_plain_on_card(cuda, bits, widths, m):
     assert torch.equal(got, want)
 
 
+def _fused_case(cuda, k0, widths, n_out, bits, m, seed):
+    """A calibrated MLP k0 -> widths -> n_out and m observations on the
+    card: (input codes, kernel layers)."""
+    gen = torch.Generator().manual_seed(seed)
+    params = networks.init_mlp(networks.mlp_spec(k0, widths, n_out), gen,
+                               cuda)
+    calib = (torch.randn(32, k0, generator=gen) * 0.5).to(cuda)
+    cache = actorq.calibrate_actor_cache(
+        actorq.pack_actor_params(params, bits), calib)
+    layers = actorq._fused_layers(cache, len(widths))
+    obs = (torch.randn(m, k0, generator=gen) * 0.5).to(cuda)
+    x_q = affine.quantize_with_params(
+        obs, affine.AffineParams(layers[0].x_delta, layers[0].x_zero, 8))
+    return x_q, layers
+
+
+def _fused_one_launch(x_q, layers):
+    before = fused_qmlp.launches.value
+    got = fused_qmlp.fused_qmlp_cuda(x_q, layers)
+    want = fused_qmlp.fused_qmlp_plain(x_q, layers)
+    torch.cuda.synchronize()
+    assert fused_qmlp.launches.value == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("m", [1, 8, 37, 64])
+def test_fused_qmlp_kernel_cartpole_net_on_card(cuda, bits, m):
+    """The int4 / int8 training run's net, 4-64-64-2, at behaviour and
+    evaluation batch sizes: bitwise, one launch."""
+    _fused_one_launch(*_fused_case(cuda, 4, (64, 64), 2, bits, m, seed=m))
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("k0", [4, 9, 33])
+@pytest.mark.parametrize("n", [1, 2, 7, 9])
+@pytest.mark.parametrize("m", [15, 16, 17])
+def test_fused_qmlp_kernel_tile_edges_on_card(cuda, bits, k0, n, m):
+    """The edges of the tiling: widths below, at and past one n8 tile
+    (split K over the warps), K below, at and past a 32-deep step, rows
+    around one 16-row block."""
+    _fused_one_launch(*_fused_case(cuda, k0, (n, n), n, bits, m,
+                                   seed=k0 * 100 + n * 10 + m))
+
+
 def _attention_inputs(r, g, t, dh, seed):
     rng = np.random.default_rng(seed)
     f32 = np.float32
@@ -361,6 +406,35 @@ def test_flash_attention_kernel_vs_plain_on_card(cuda, shape):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     if causal and s > t:                    # rows before every key: 0
         assert not got[:, :s - t].any()
+
+
+@pytest.mark.parametrize("d", [40, 64, 80, 256])
+@pytest.mark.parametrize("h,kv", [(8, 2), (2, 2)])
+@pytest.mark.parametrize("s", [1, 8])
+def test_flash_attention_key_split_on_card(cuda, s, h, kv, d):
+    """Short query blocks against 4,096 keys: the key axis is split over a
+    cluster (the plan says so), G = 4 query heads packed with their KV
+    head or G = 1; within 1e-5 of the plain version, one launch."""
+    t = 4096
+    assert flash_attention.plan(1, s, t, h, kv, d)["cluster"] > 1
+    rng = np.random.default_rng(s + h + d)
+    q, k, v = (torch.from_numpy(rng.normal(size=sh).astype(np.float32)
+                                ).to(cuda)
+               for sh in ((1, s, h, d), (1, t, kv, d), (1, t, kv, d)))
+    before = flash_attention.launches.value
+    got = flash_attention.flash_attention_cuda(q, k, v)
+    want = flash_attention.flash_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches.value == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("d", [16, 40, 64, 80, 200, 256])
+def test_flash_attention_plan_matches_the_kernel(cuda, d):
+    """``plan``'s shared memory and rows a block are the built kernel's."""
+    got = flash_attention.kernel_shape(d)
+    want = flash_attention.plan(1, 64, 64, 2, 1, d)
+    assert got == dict(smem=want["smem"], bq=want["bq"])
 
 
 def test_flash_attention_op_on_card_and_refusals(cuda):
