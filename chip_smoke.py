@@ -10,7 +10,8 @@ holds each kernel against its plain PyTorch version on the card (the
 integer GEMMs, the fake quantizer and its QAT site kernel bitwise, the
 int8-cache and the flash attention within 1e-5) at the shapes its paths
 give it (B1's rollout and calibration shapes recorded from the paths
-themselves) and times both, then drives the port's four paths:
+themselves; B3 also at danube's decode shapes, reading the LM's strided
+cache in place) and times both, then drives the port's four paths:
 
 * serving -- ``PolicyServer`` answering batched AirNav sessions through
   the ActorQ int8 / int4 policy: every request answered, the hot-swap
@@ -33,7 +34,10 @@ themselves) and times both, then drives the port's four paths:
 * the LM -- ``transformer.prefill`` of h2o-danube-1.8b at full width and
   depth over 8,192 prompt tokens (every layer's attention through kernel
   B4), its 64-token logits held against the port's CPU path and against
-  64 token-by-token decode steps, then greedy decoding through
+  64 token-by-token decode steps, one decode step at a 4,096-token
+  context over full int8 caches (B3 once a layer, the logits held to
+  the same step through B3's plain version) and float32 caches, both
+  profiled, then greedy decoding through
   ``repro_torch.launch.serve.main`` with an fp32 cache, an int8 cache
   (kernel B3) and PTQ int8 weights (kernel B5);
 
@@ -157,6 +161,24 @@ FLASH_ROWS = (
     ("end-aligned", 1, 32, 8, 8, 4096, 80, True, None, None),
     ("ragged", 1, 32, 8, 1000, 1000, 80, True, None, None))
 FLASH_ATOL = 1e-5                 # docs/contracts.md, "Attention parity"
+# B3 at the shapes of its paths: (label, NB, NH, G, T, Dh, window, pos,
+# layout).  "rows" is the sequence actor's (R, T, Dh) cache, R = NB * NH;
+# "lm" the LM's (NB, T, NH, Dh) cache read through transpose(1, 2), as
+# its decode step reads it: danube's 4 x 8 KV heads at the 4,096-slot ring
+# (the window) and at the serve default of 64 slots
+CACHE_ROWS = (
+    ("airnav_seq", 1, ROLL_ENVS, 1, 121, 32, 8, "ragged", "rows"),
+    ("airnav_seq", 1, ROLL_ENVS, 1, 121, 32, 8, "last", "rows"),
+    ("catch_seq", 1, ROLL_ENVS, 1, 8, 32, 6, "ragged", "rows"),
+    ("long", 1, 8, 4, 4096, 128, None, "last", "rows"),
+    ("danube decode", 4, 8, 4, 4096, 80, None, "last", "lm"),
+    ("danube serve", 4, 8, 4, 64, 80, None, "ragged", "lm"))
+CACHE_ATOL = 1e-5                 # docs/contracts.md, "Attention parity"
+# the LM decode step at a long context: batch 4 over a full 4,096-slot
+# ring (danube's window), its logits held to the same step through B3's
+# plain version
+LM_LONG = (4, 4096)
+LM_LONG_ATOL = 1e-3
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float = INT8_OPS_PER_S):
@@ -199,13 +221,15 @@ def device_ms(torch, fn, reps: int = 25, per_rep: int = 10) -> float:
     return statistics.median(times)
 
 
-def profile_calls(torch, fn, n: int = 20) -> dict:
+def profile_calls(torch, fn, n: int = 20, match: str = "") -> dict:
     """Where ``n`` calls of ``fn`` spend their time, from ``torch.profiler``.
 
     Returns the host wall time per call, the device time per call
     (kernels summed), the device's busy share of the wall time, kernels
-    launched per call, and the five kernels that took most device time.
-    Device numbers are ``None`` when the trace holds no device events.
+    launched per call, the five kernels that took most device time, and
+    with ``match`` the device time per call of the kernels whose name
+    holds it.  Device numbers are ``None`` when the trace holds no device
+    events.
     """
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -221,13 +245,16 @@ def profile_calls(torch, fn, n: int = 20) -> dict:
                if e.device_type == torch.autograd.DeviceType.CUDA]
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:5]
+    matched = sum(e.self_device_time_total for e in kernels
+                  if match and match in e.key) / 1e3 / n
     return dict(
         host_ms_per_call=wall_ms,
         device_ms_per_call=dev_ms if kernels else None,
         device_busy_share=dev_ms / wall_ms if kernels else None,
         kernels_per_call=sum(e.count for e in kernels) / n,
         top=[[e.key[:60], e.self_device_time_total / 1e3 / n]
-             for e in top])
+             for e in top],
+        matched_device_ms_per_call=matched if kernels and match else None)
 
 
 def profile_dispatch(torch, server, obs_host, n: int = 20) -> dict:
@@ -561,6 +588,86 @@ def train_phase(torch, dev, smi, counters) -> dict:
         r["launches"] for r in rows if r.get("run") == "qat8"))
 
 
+def cache_inputs(torch, dev, gen, nb, nh, g, t, dh, how, layout):
+    """Seeded B3 inputs for a ``CACHE_ROWS`` row on the card: ``(q,
+    k_codes, k_scale, v_codes, v_scale, pos)``, the cache as a strided
+    view in the "lm" layout."""
+    from repro_torch.core import affine
+    shape = (nb, t, nh, dh) if layout == "lm" else (nb * nh, t, dh)
+    kc, ks = affine.quantize_symmetric(
+        torch.randn(shape, generator=gen).to(dev) * 2.0)
+    vc, vs = affine.quantize_symmetric(torch.randn(shape, generator=gen
+                                                   ).to(dev))
+    lead = (nb, nh) if layout == "lm" else (nb * nh,)
+    q = torch.randn(lead + (g, dh), generator=gen).to(dev)
+    pos = (torch.randint(0, t, lead, generator=gen) if how == "ragged"
+           else torch.full(lead, t - 1)).to(torch.int32).to(dev)
+    if layout == "lm":
+        kc, ks, vc, vs = (x.transpose(1, 2) for x in (kc, ks, vc, vs))
+    return q, kc, ks, vc, vs, pos
+
+
+def cache_rows(torch, dev, gen) -> list:
+    """B3 against its plain version at every ``CACHE_ROWS`` row, timed
+    beside its plain version, its bound and one SDPA call."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import int8_cache_attention as ca
+    rows = []
+    for label, nb, nh, g, t, dh, window, how, layout in CACHE_ROWS:
+        r = nb * nh
+        args = cache_inputs(torch, dev, gen, nb, nh, g, t, dh, how, layout)
+        q, kc, ks, vc, vs, pos = args
+        got = ca.int8_cache_attention_cuda(*args, window)
+        again = ca.int8_cache_attention_cuda(*args, window)
+        want = ca.int8_cache_attention_plain(*args, window)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(bool(torch.allclose(got, want, rtol=CACHE_ATOL,
+                                  atol=CACHE_ATOL)),
+              f"int8_cache_attention {label} pos={how} within {CACHE_ATOL} "
+              f"of the plain version (max abs diff {err})")
+        check(torch.equal(got, again), f"int8_cache_attention {label}: two "
+                                       f"calls in a row agree")
+        p = pos.reshape(-1).cpu()
+        lo = (p - window + 1).clamp(min=0) if window else 0
+        n_slots = int((p - lo + 1).sum())         # the slots B3 must read
+        # yardstick: one SDPA call on K/V dequantized beforehand (the
+        # dequant left out), with the boolean causal / window mask
+        kf = (kc.to(torch.float32) * ks).reshape(r, t, dh)
+        vf = (vc.to(torch.float32) * vs).reshape(r, t, dh)
+        qf, pf = q.reshape(r, g, dh), pos.reshape(r, 1)
+        idx = torch.arange(t, device=dev)
+        mask = idx <= pf
+        if window:
+            mask &= idx > pf - window
+        mask = mask[:, None, :]
+
+        def sdpa(qf=qf, kf=kf, vf=vf, mask=mask):
+            return F.scaled_dot_product_attention(qf, kf, vf,
+                                                  attn_mask=mask)
+        io = 2 * 4 * r * g * dh + 4 * r           # q in, out, pos
+        b_ms, b_by = bound(n_slots * (2 * dh + 8) + io,
+                           4.0 * n_slots * g * dh, F32_OPS_PER_S)
+        rows.append(dict(
+            name="int8_cache_attention", label=label, pos=how,
+            layout=layout, shape=[nb, nh, g, t, dh], window=window,
+            slots_read=n_slots, plan=ca.plan(r, g, t, dh, window),
+            max_abs_err=err,
+            sdpa_max_abs_err=float((sdpa().reshape(want.shape) - want
+                                    ).abs().max()),
+            ms=device_ms(torch, lambda: ca.int8_cache_attention_cuda(
+                *args, window)),
+            plain_ms=device_ms(torch, lambda: ca.int8_cache_attention_plain(
+                *args, window)),
+            bound_ms=b_ms, bound_by=b_by,
+            full_cache_bound_ms=bound(r * t * (2 * dh + 8) + io, 0.0)[0],
+            library_ms=device_ms(torch, sdpa),
+            library="scaled_dot_product_attention, K/V dequantized before"))
+        del args, q, kc, ks, vc, vs, kf, vf, got, again, want
+    return rows
+
+
 def flash_pairs(s: int, t: int, causal: bool, window) -> int:
     """Unmasked (query, key) pairs of one head, query positions aligned to
     the end of the kv axis."""
@@ -649,9 +756,10 @@ def lm_phase(torch, dev, smi, counters) -> dict:
     ``transformer.prefill`` of ``LM_PREFILL`` tokens (B4 once per layer;
     counted, then timed twice and profiled once), the card's 64-token
     prefill against the port's CPU path on the same params, and against
-    64 token-by-token ``decode_step``s; then ``launch.serve.main`` three
-    ways (fp32 cache, int8 cache through B3, PTQ int8 weights through B5),
-    each with every count set to 0 just before it and read just after."""
+    64 token-by-token ``decode_step``s; a decode step at a ``LM_LONG``
+    context (``decode_long``); then ``launch.serve.main`` three ways (fp32
+    cache, int8 cache through B3, PTQ int8 weights through B5), each with
+    every count set to 0 just before it and read just after."""
     import contextlib
     import io
     import re
@@ -743,7 +851,10 @@ def lm_phase(torch, dev, smi, counters) -> dict:
                           prefill_vs_forward_last_max_abs_diff=last,
                           decode_step_profile=decode_prof)
     print("lm parity " + json.dumps(rows["parity"]))
-    del params, params_cpu, logits, full, caches
+    del params_cpu, logits, full, caches
+    torch.cuda.empty_cache()
+    rows["decode_long"] = decode_long(torch, dev, cfg, params, counters, smi)
+    del params
     torch.cuda.empty_cache()
 
     # decode through the serve launcher, three ways
@@ -782,6 +893,101 @@ def lm_phase(torch, dev, smi, counters) -> dict:
         rows["serve"].append(row)
         print("lm serve " + json.dumps(row))
     return rows
+
+
+def long_caches(torch, dev, cfg, batch: int, size: int):
+    """Full decode caches of ``size`` slots, every slot written: seeded
+    int8 codes and scales, and the float32 cache holding the same K and V
+    (codes times scales).  Returns ``(int8 caches, float32 caches)``."""
+    from repro_torch.models import transformer
+    gen = torch.Generator(device=dev).manual_seed(SEED + 32)
+    c8 = transformer.init_caches(cfg, batch, size, int8=True, device=dev)
+    c32 = transformer.init_caches(cfg, batch, size, int8=False, device=dev)
+    pairs = [(a["kv"], b["kv"]) for a, b in zip(
+        list(c8["stacked"].values()) + c8["remainder"],
+        list(c32["stacked"].values()) + c32["remainder"])]
+    for kv8, kv32 in pairs:
+        for codes, scale, full in ((kv8.k, kv8.k_scale, kv32.k),
+                                   (kv8.v, kv8.v_scale, kv32.v)):
+            codes.copy_(torch.randint(-127, 128, codes.shape, generator=gen,
+                                      device=dev, dtype=torch.int8))
+            scale.copy_(torch.rand(scale.shape, generator=gen, device=dev)
+                        * 0.04 + 0.01)
+            full.copy_(codes.to(torch.float32) * scale)
+        for kv in (kv8, kv32):
+            kv.positions.copy_(torch.arange(
+                size, dtype=torch.int32, device=dev).expand_as(kv.positions))
+    return c8, c32
+
+
+def decode_long(torch, dev, cfg, params, counters, smi) -> dict:
+    """One ``transformer.decode_step`` at position ``LM_LONG[1] - 1`` over
+    full caches of ``LM_LONG[1]`` slots, int8 (B3 once a layer) and
+    float32: the int8 step's launches counted, its logits held to the
+    same step through B3's plain version (each on its own clone of the
+    cache), and both steps profiled."""
+    from repro_torch.core import ptq
+    from repro_torch.kernels import int8_cache_attention as ca
+    from repro_torch.models import transformer
+    b, size = LM_LONG
+    c8, c32 = long_caches(torch, dev, cfg, b, size)
+    tok = torch.randint(0, cfg.vocab, (b, 1), generator=torch.Generator(
+        ).manual_seed(SEED + 33)).to(dev)
+    pos = torch.tensor(size - 1, device=dev)
+
+    def clone(caches):
+        return {"stacked": {k: {"kv": type(v["kv"])(*(
+                    None if x is None else x.clone() for x in v["kv"]))}
+                    for k, v in caches["stacked"].items()},
+                "remainder": [{"kv": type(u["kv"])(*(
+                    None if x is None else x.clone() for x in u["kv"]))}
+                    for u in caches["remainder"]]}
+
+    def nbytes(caches):
+        return sum(x.numel() * x.element_size()
+                   for v in list(caches["stacked"].values())
+                   + caches["remainder"] for x in v["kv"] if x is not None)
+    for c in counters.values():
+        c.reset()
+    logits, _ = transformer.decode_step(cfg, params, tok, clone(c8), pos)
+    torch.cuda.synchronize()
+    n = {k: c.value for k, c in counters.items()}
+    want = {k: 0 for k in counters}
+    want["int8_cache_attention"] = cfg.n_layers
+    check(n == want, f"long decode step launches {n}, want {want}")
+    real = ca.int8_cache_attention_cuda
+    ca.int8_cache_attention_cuda = ca.int8_cache_attention_plain
+    try:
+        plain, _ = transformer.decode_step(cfg, params, tok, clone(c8), pos)
+    finally:
+        ca.int8_cache_attention_cuda = real
+    diff = float((logits - plain).abs().max())
+    check(tuple(logits.shape) == (b, 1, cfg.vocab)
+          and bool(torch.isfinite(logits).all()) and diff <= LM_LONG_ATOL,
+          f"long decode step: B3 vs its plain version, max abs diff {diff} "
+          f"(tolerance {LM_LONG_ATOL})")
+    row = dict(batch=b, slots=size, pos=size - 1, launches=n,
+               logits_vs_plain_max_abs_diff=diff,
+               logits_max_abs=float(plain.abs().max()),
+               tolerance=LM_LONG_ATOL, params_gb=sum(
+                   x.numel() * x.element_size()
+                   for _, x in ptq.tree_tensors(params)) / 1e9,
+               int8_cache_gb=nbytes(c8) / 1e9,
+               fp32_cache_gb=nbytes(c32) / 1e9, card=smi)
+    for label, caches in (("int8", c8), ("fp32", c32)):
+        prof = profile_calls(torch, lambda caches=caches: transformer.
+                             decode_step(cfg, params, tok, caches, pos),
+                             n=5, match="int8_cache_attention")
+        dev_ms, b3_ms = (prof["device_ms_per_call"],
+                         prof["matched_device_ms_per_call"])
+        row[label] = dict(
+            host_ms=prof["host_ms_per_call"], device_ms=dev_ms,
+            kernels_per_step=prof["kernels_per_call"], b3_device_ms=b3_ms,
+            b3_share=b3_ms / dev_ms if dev_ms else None, top=prof["top"])
+    print("lm decode_long " + json.dumps(row))
+    del c8, c32
+    torch.cuda.empty_cache()
+    return row
 
 
 def _spec_weights(spec) -> int:
@@ -981,57 +1187,7 @@ def main() -> int:
             plain_ms=device_ms(torch, lambda: fused_qmlp.fused_qmlp_plain(
                 xq, layers)),
             bound_ms=b_ms, bound_by=b_by, library_ms=None))
-    # B3 at the sequence actor's shapes: (label, R, G, T, Dh, window, pos)
-    for label, r, g, t, dh, window, how in (
-            ("airnav_seq", ROLL_ENVS, 1, 121, 32, 8, "ragged"),
-            ("airnav_seq", ROLL_ENVS, 1, 121, 32, 8, "last"),
-            ("catch_seq", ROLL_ENVS, 1, 8, 32, 6, "ragged"),
-            ("long", 8, 4, 4096, 128, None, "last")):
-        kc, ks = affine.quantize_symmetric(
-            torch.randn((r, t, dh), generator=gen).to(dev) * 2.0)
-        vc, vs = affine.quantize_symmetric(
-            torch.randn((r, t, dh), generator=gen).to(dev))
-        q = torch.randn((r, g, dh), generator=gen).to(dev)
-        pos = (torch.randint(0, t, (r,), generator=gen) if how == "ragged"
-               else torch.full((r,), t - 1)).to(torch.int32)
-        lo = (pos - window + 1).clamp(min=0) if window else 0
-        n_slots = int((pos - lo + 1).sum())       # the slots B3 must read
-        pos = pos.to(dev)
-        args = (q, kc, ks, vc, vs, pos)
-        got = int8_cache_attention.int8_cache_attention_cuda(*args, window)
-        want = int8_cache_attention.int8_cache_attention_plain(*args, window)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        check(bool(torch.allclose(got, want, rtol=1e-5, atol=1e-5)),
-              f"int8_cache_attention {label} pos={how} within 1e-5 of the "
-              f"plain version (max abs diff {err})")
-        # yardstick: one SDPA call on K/V dequantized beforehand (the
-        # dequant left out), with the boolean causal / window mask
-        kf, vf = kc.to(torch.float32) * ks, vc.to(torch.float32) * vs
-        idx = torch.arange(t, device=dev)
-        mask = idx <= pos[:, None]
-        if window:
-            mask &= idx > pos[:, None] - window
-        mask = mask[:, None, :]
-
-        def sdpa(q=q, kf=kf, vf=vf, mask=mask):
-            return F.scaled_dot_product_attention(q, kf, vf, attn_mask=mask)
-        io = 2 * 4 * r * g * dh + 4 * r           # q in, out, pos
-        b_ms, b_by = bound(n_slots * (2 * dh + 8) + io,
-                           4.0 * n_slots * g * dh, F32_OPS_PER_S)
-        rows.append(dict(
-            name="int8_cache_attention", label=label, pos=how,
-            shape=[r, g, t, dh], window=window, slots_read=n_slots,
-            max_abs_err=err,
-            sdpa_max_abs_err=float((sdpa() - want).abs().max()),
-            ms=device_ms(torch, lambda: int8_cache_attention.
-                         int8_cache_attention_cuda(*args, window)),
-            plain_ms=device_ms(torch, lambda: int8_cache_attention.
-                               int8_cache_attention_plain(*args, window)),
-            bound_ms=b_ms, bound_by=b_by,
-            full_cache_bound_ms=bound(r * t * (2 * dh + 8) + io, 0.0)[0],
-            library_ms=device_ms(torch, sdpa),
-            library="scaled_dot_product_attention, K/V dequantized before"))
+    rows += cache_rows(torch, dev, gen)
     rows += fake_quant_rows(torch, dev, gen)
     rows += site_rows(torch, dev, gen)
     t_flash = time.perf_counter()

@@ -164,10 +164,15 @@ def int8_cache_attention(q: torch.Tensor, k_codes: torch.Tensor,
     -- against ``k_codes/v_codes (T, Dh)`` int8 and ``k_scale/v_scale (T,
     1)`` f32 (``core.affine.quantize_symmetric``).  Slots ``> pos`` (and,
     with ``window``, ``<= pos - window``) are masked out.  Leading dims
-    are batch dims, flattened into the kernel's grid; ``pos`` is a scalar
-    or has a leading prefix of them as its shape (one position shared, or
-    ragged decode), and a ``pos`` of higher rank raises ``ValueError``.
-    The contract is ``0 <= pos < T``.  Returns ``(..., G, Dh)``.
+    are batch dims, the kernel's problems; ``pos`` is a scalar or has a
+    leading prefix of them as its shape (one position shared, or ragged
+    decode), and a ``pos`` of higher rank raises ``ValueError``.  The
+    contract is ``0 <= pos < T``.  Returns ``(..., G, Dh)``.
+
+    The cache is not copied: the last leading dim and the ones before it
+    are the kernel's two problem levels, so a strided view such as the
+    LM's ``(B, T, KV, Dh)`` cache transposed to ``(B, KV, T, Dh)`` is read
+    where it lies (its head dim must have unit stride on the card).
     """
     pos = torch.as_tensor(pos, dtype=torch.int32, device=q.device)
     lead = tuple(q.shape[:-2])
@@ -180,13 +185,12 @@ def int8_cache_attention(q: torch.Tensor, k_codes: torch.Tensor,
     pos = pos.reshape(tuple(pos.shape) + (1,) * (len(lead) - pos.dim()))
     g, dh = q.shape[-2:]
     t = k_codes.shape[-2]
-    flat = (-1, t, dh)
-    args = (q.reshape(-1, g, dh).contiguous(),
-            k_codes.reshape(flat).contiguous(),
-            k_scale.reshape(-1, t, 1).contiguous(),
-            v_codes.reshape(flat).contiguous(),
-            v_scale.reshape(-1, t, 1).contiguous(),
-            pos.expand(lead).reshape(-1).contiguous())
+    nh = lead[-1] if lead else 1
+    codes, scales = (-1, nh, t, dh), (-1, nh, t, 1)
+    args = (q.reshape(-1, nh, g, dh).contiguous(),
+            k_codes.reshape(codes), k_scale.reshape(scales),
+            v_codes.reshape(codes), v_scale.reshape(scales),
+            pos.expand(lead).reshape(-1, nh))
     if _device_type(q) == "cuda":
         out = _ca.int8_cache_attention_cuda(*args, window=window)
     else:

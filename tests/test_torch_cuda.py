@@ -191,6 +191,115 @@ def test_int8_cache_attention_op_on_card_and_leading_dims(cuda):
             torch.zeros(1, dtype=torch.int32, device=cuda))
 
 
+def _b3_inputs(cuda, nb, nh, g, t, dh, pos, *, lm, seed):
+    """B3 inputs on the card: q (NB, NH, G, Dh), the cache as (NB, NH, T,
+    Dh) -- a transposed view of a (NB, T, NH, Dh) cache with ``lm`` --
+    and ``pos`` (NB, NH) int32."""
+    rng = np.random.default_rng(seed)
+    f32 = np.float32
+    shape = (nb, t, nh, dh) if lm else (nb, nh, t, dh)
+    k = torch.from_numpy(rng.normal(size=shape).astype(f32) * 3.0).to(cuda)
+    v = torch.from_numpy(rng.normal(size=shape).astype(f32)).to(cuda)
+    kc, ks = affine.quantize_symmetric(k)
+    vc, vs = affine.quantize_symmetric(v)
+    if lm:
+        kc, ks, vc, vs = (x.transpose(1, 2) for x in (kc, ks, vc, vs))
+    q = torch.from_numpy(rng.normal(size=(nb, nh, g, dh)).astype(f32))
+    pos = torch.as_tensor(np.broadcast_to(np.asarray(pos, np.int32),
+                                          (nb, nh)).copy())
+    return q.to(cuda), kc, ks, vc, vs, pos.to(cuda)
+
+
+def _b3_one_launch(args, window):
+    """One launch a call, within 1e-5 of the plain version, and a second
+    call bitwise equal to the first (scratch and arrival counters left
+    clean by the merge)."""
+    before = int8_cache_attention.launches.value
+    got = int8_cache_attention.int8_cache_attention_cuda(*args, window)
+    again = int8_cache_attention.int8_cache_attention_cuda(*args, window)
+    want = int8_cache_attention.int8_cache_attention_plain(*args, window)
+    torch.cuda.synchronize()
+    assert int8_cache_attention.launches.value == before + 2
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, again)
+    return got
+
+
+@pytest.mark.parametrize("g", [1, 4, 8])
+@pytest.mark.parametrize("dh", [32, 80, 128, 256])
+@pytest.mark.parametrize("t", [1, 63, 64, 65, 4096])
+def test_int8_cache_attention_edges_on_card(cuda, t, dh, g):
+    """Slot counts around one 64-slot tile and a long cache (split 32
+    ways over 3 problems), ragged pos from the first slot to the last."""
+    pos = [[t - 1, t // 2, 0]]
+    _b3_one_launch(_b3_inputs(cuda, 1, 3, g, t, dh, pos, lm=False,
+                              seed=t + dh + g), None)
+
+
+@pytest.mark.parametrize("window,pos", [(100, 4095), (1000, 2000),
+                                        (3000, 3500), (200, 150),
+                                        (4096, 4095), (5000, 1234)])
+def test_int8_cache_attention_windows_across_splits_on_card(cuda, window,
+                                                            pos):
+    """Windows that start and end inside a split, and windows at or past
+    the cache; the second problem's pos is ragged."""
+    assert int8_cache_attention.plan(2, 4, 4096, 80, window)["splits"] > 1 \
+        or window < 256
+    _b3_one_launch(_b3_inputs(cuda, 1, 2, 4, 4096, 80, [[pos, pos // 3]],
+                              lm=False, seed=window), window)
+
+
+@pytest.mark.parametrize("t,pos", [(64, "ragged"), (4096, 4095),
+                                   (4096, "ragged"), (300, 299)])
+def test_int8_cache_attention_lm_views_on_card(cuda, t, pos):
+    """Danube's decode layout, 4 x 8 KV heads of G 4 and Dh 80 read in
+    place from a (B, T, KV, Dh) cache, directly and through the op."""
+    if pos == "ragged":
+        pos = np.random.default_rng(t).integers(0, t, size=(4, 8))
+    args = _b3_inputs(cuda, 4, 8, 4, t, 80, pos, lm=True, seed=t)
+    assert args[1].stride() == (t * 8 * 80, 80, 8 * 80, 1)
+    got = _b3_one_launch(args, None)
+    before = int8_cache_attention.launches.value
+    via_op = ops.int8_cache_attention(*args)
+    assert int8_cache_attention.launches.value == before + 1
+    assert torch.equal(via_op, got)
+
+
+@pytest.mark.parametrize("g,dh", [(3, 6), (2, 20), (16, 200), (5, 8)])
+@pytest.mark.parametrize("t", [40, 1500])
+def test_int8_cache_attention_odd_shapes_on_card(cuda, g, dh, t):
+    """Head dims that take 1-, 4- and 8-byte copies, odd and large G."""
+    pos = [[t - 1, t // 3]]
+    _b3_one_launch(_b3_inputs(cuda, 1, 2, g, t, dh, pos, lm=False,
+                              seed=g * dh + t), 700 if t > 1000 else None)
+
+
+@pytest.mark.parametrize("t", [64, 4096])
+def test_int8_cache_attention_empty_rows_write_zero_on_card(cuda, t):
+    """A problem with pos < 0 has no valid slot and writes 0, split or
+    not; the others are untouched by it."""
+    args = _b3_inputs(cuda, 1, 2, 4, t, 32, [[-1, t - 1]], lm=False, seed=t)
+    before = int8_cache_attention.launches.value
+    got = int8_cache_attention.int8_cache_attention_cuda(*args)
+    again = int8_cache_attention.int8_cache_attention_cuda(*args)
+    want = int8_cache_attention.int8_cache_attention_plain(*args)
+    torch.cuda.synchronize()
+    assert int8_cache_attention.launches.value == before + 2
+    assert not bool(got[0, 0].any()) and torch.equal(got, again)
+    torch.testing.assert_close(got[0, 1], want[0, 1], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("g,dh", [(1, 32), (4, 80), (4, 128), (8, 256),
+                                  (16, 256), (3, 6), (16, 32)])
+@pytest.mark.parametrize("r,t", [(1, 64), (8, 4096), (512, 121),
+                                 (1, 65536)])
+def test_int8_cache_attention_plan_matches_the_kernel(cuda, g, dh, r, t):
+    """``plan``'s shared-memory bytes are the built kernel's."""
+    p = int8_cache_attention.plan(r, g, t, dh)
+    assert int8_cache_attention.kernel_smem(g, dh, p["per"],
+                                            p["splits"]) == p["smem"]
+
+
 def test_cache_codes_on_card_equal_cpu(cuda):
     """The KV-cache writer: the same K gives the same codes and scales on
     the card as on the CPU (correctly rounded division, round half to

@@ -1,15 +1,18 @@
 """Where a port kernel's time goes, by ablation, on one card.
 
-Builds variants of ``csrc/flash_attention.cu`` (B4) and
-``csrc/fused_qmlp.cu`` (B2), each with one part of the work taken out
-(the variants compute wrong results and are never checked), and times
-each against the unchanged kernel, in turns, at the main-path rows:
-B4 at the danube prefill (8,192 x 8,192, 32 / 8 heads, D 80, window
-4,096), B2 on Policy II (9-256-256-256-25) and the CartPole net
-(4-64-64-2), int8, M 8.  A part whose removal moves the time is on the
-critical path.
+Builds variants of ``csrc/flash_attention.cu`` (B4),
+``csrc/fused_qmlp.cu`` (B2) and ``csrc/int8_cache_attention.cu`` (B3),
+each with one part of the work taken out (the variants compute wrong
+results and are never checked), and times each against the unchanged
+kernel, in turns, at the main-path rows: B4 at the danube prefill (8,192
+x 8,192, 32 / 8 heads, D 80, window 4,096), B2 on Policy II
+(9-256-256-256-25) and the CartPole net (4-64-64-2), int8, M 8, B3 at
+``chip_smoke.CACHE_ROWS``' airnav_seq (ragged), long and danube decode
+rows.  B3's unchanged kernel is also timed at other key splits than its
+plan's (``splits=N`` in the variant's name).  A part whose removal moves
+the time is on the critical path.
 
-    python3 tools/kernel_ablation.py
+    python3 tools/kernel_ablation.py [--only int8_cache_attention]
 
 Prints one JSON object a variant and round, and the card's name and
 power limit.  Needs ``nvcc`` and a card.
@@ -52,6 +55,59 @@ VARIANTS = {
             ("      *reinterpret_cast<uint4*>(vbig + o) = big;\n"
              "      *reinterpret_cast<uint4*>(vsml + o) = sml;", "")],
     },
+    "int8_cache_attention": {
+        "unchanged": [],
+        "no code copies": [
+            ("for (int i = tid; i < nt * npc; i += THREADS) {",
+             "for (int i = tid; i < 0; i += THREADS) {")],
+        "no q.k products": [
+            ("for (int w = qj; w < W; w += LANES) {",
+             "for (int w = qj; w < 0; w += LANES) {")],
+        "no softmax expf": [
+            ("const float e = expf(w_s[t * GM + g] - mx);",
+             "const float e = w_s[t * GM + g] - mx;")],
+        "no p.v products": [
+            ("for (int t = sg; t < nt; t += nsub) {",
+             "for (int t = sg; t < 0; t += nsub) {")],
+        "no merge sums": [
+            ("for (int u = j; u < S; u += tpc) {",
+             "for (int u = j; u < 0; u += tpc) {")],
+        "no scale copies": [
+            ("for (int i = tid; i < 2 * nt; i += THREADS) {",
+             "for (int i = tid; i < 0; i += THREADS) {")],
+        "8 stages": [("constexpr int STAGES = 4;",
+                      "constexpr int STAGES = 8;")],
+        "64-slot tiles": [("constexpr int TS = 128;",
+                           "constexpr int TS = 64;"),
+                          ("constexpr int LANES = 2;",
+                           "constexpr int LANES = 4;")],
+        "mul and add products": [
+            ("            dot[g] = __fmaf_rn(qv.x, kf[0], dot[g]);\n"
+             "            dot[g] = __fmaf_rn(qv.y, kf[1], dot[g]);\n"
+             "            dot[g] = __fmaf_rn(qv.z, kf[2], dot[g]);\n"
+             "            dot[g] = __fmaf_rn(qv.w, kf[3], dot[g]);",
+             "            float part = mul(qv.x, kf[0]);\n"
+             "            part = add(part, mul(qv.y, kf[1]));\n"
+             "            part = add(part, mul(qv.z, kf[2]));\n"
+             "            part = add(part, mul(qv.w, kf[3]));\n"
+             "            dot[g] = add(dot[g], part);"),
+            ("              acc[g][e] = __fmaf_rn(wt[g], vf[e], acc[g][e]);",
+             "              acc[g][e] = add(acc[g][e], mul(wt[g], vf[e]));")],
+        "small path: return at the start": [
+            ("  const int r = blockIdx.x, G = a.G, Dh = a.Dh;\n",
+             "  const int r = blockIdx.x, G = a.G, Dh = a.Dh;\n"
+             "  if (a.vec > 0) return;\n")],
+        "return at the start": [
+            ("  const int tid = threadIdx.x;\n",
+             "  const int tid = threadIdx.x;\n  if (a.vec > 0) return;\n")],
+        "index math only": [
+            ("for (int i = tid; i < nt * npc; i += THREADS) {",
+             "for (int i = tid; i < 0; i += THREADS) {"),
+            ("for (int w = qj; w < W; w += LANES) {",
+             "for (int w = qj; w < 0; w += LANES) {"),
+            ("for (int t = sg; t < nt; t += nsub) {",
+             "for (int t = sg; t < 0; t += nsub) {")],
+    },
     "fused_qmlp": {
         "unchanged": [],
         "no mma": [("    mma_s8(p.c, a, b0, b1);",
@@ -71,6 +127,10 @@ VARIANTS = {
 
 def main() -> int:
     """Build, time and print every variant; 2 without a card."""
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", choices=tuple(VARIANTS))
+    only = ap.parse_args().only
     import torch
     if not torch.cuda.is_available():
         print("kernel_ablation: no CUDA card", file=sys.stderr)
@@ -78,6 +138,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.core import affine
     from repro_torch.kernels import build, flash_attention, fused_qmlp
+    from repro_torch.kernels import int8_cache_attention as ca
     from repro_torch.rl import actorq, networks
     spec = importlib.util.spec_from_file_location("chip_smoke",
                                                   ROOT / "chip_smoke.py")
@@ -87,6 +148,8 @@ def main() -> int:
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
     for name, variants in VARIANTS.items():
+        if only not in (None, name):
+            continue
         src = (build.CSRC / build.SOURCES[name]).read_text()
         for i, (label, subs) in enumerate(variants.items()):
             text = src
@@ -128,6 +191,14 @@ def main() -> int:
             affine.AffineParams(layers[0].x_delta, layers[0].x_zero, 8))
         nets.append((net, layers, xq))
 
+    cache_gen = torch.Generator().manual_seed(cs.SEED + 35)
+    cache = [(row, cs.cache_inputs(torch, dev, cache_gen, *row[1:6],
+                                   *row[7:]))
+             for row in cs.CACHE_ROWS if (row[0], row[7]) in (
+                 ("airnav_seq", "ragged"), ("long", "last"),
+                 ("danube decode", "last"))]
+    plan = ca.plan
+
     def use(mod, so):
         real = build.load
         mod._lib.cache_clear()
@@ -138,9 +209,36 @@ def main() -> int:
             build.load = real
 
     order = list(libs)
+    if ("int8_cache_attention", "unchanged") in libs:
+        order += [("int8_cache_attention", f"splits={n}")
+                  for n in (1, 4, 8, 16, 32)]
     for rnd, keys in enumerate((order, order[::-1])):
         for name, label in keys:
-            if name == "flash_attention":
+            if name == "int8_cache_attention":
+                forced = label.startswith("splits=")
+                use(ca, libs[(name, "unchanged" if forced else label)])
+                for row, x in cache:
+                    label_row, nb, nh, g, t, dh, window = row[:7]
+                    r, n_max = nb * nh, min(t, window or t)
+                    if forced:
+                        n = min(int(label[7:]), -(-n_max // ca.TILE))
+                        per = -(-(-(-n_max // n)) // ca.TILE) * ca.TILE
+                        p = dict(plan(r, g, t, dh, window),
+                                 splits=-(-n_max // per), per=per)
+                        p["scratch"] = (4 * r * p["splits"] * g
+                                        * (2 + 4 * -(-dh // 4)))
+                        ca.plan = lambda *_a, p=p: p
+                    try:
+                        ms = cs.device_ms(torch, lambda: ca.
+                                          int8_cache_attention_cuda(
+                                              *x, window))
+                    finally:
+                        ca.plan = plan
+                    print(json.dumps(dict(
+                        round=rnd, kernel=name, variant=label,
+                        row=label_row, splits=(p if forced else plan(
+                            r, g, t, dh, window))["splits"], ms=ms)))
+            elif name == "flash_attention":
                 use(flash_attention, libs[(name, label)])
                 ms = cs.device_ms(torch, lambda: flash_attention.
                                   flash_attention_cuda(q, k, v, window=4096),

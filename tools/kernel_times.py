@@ -1,12 +1,19 @@
-"""Time kernels B2 (``fused_qmlp``) and B4 (``flash_attention``) of a
-checkout's PyTorch port on one card.
+"""Time kernels B2 (``fused_qmlp``), B3 (``int8_cache_attention``) and B4
+(``flash_attention``) of a checkout's PyTorch port on one card, and
+profile the LM's decode step at a long context.
 
 Times each kernel by CUDA events (``chip_smoke.device_ms``) at the shapes
 ``chip_smoke.py`` holds them at: B2 on the calibrated Policy II and III
 nets (9 -> 25, seeded random weights) at M 8 and 512 and the CartPole net
-4-64-64-2 at M 8, int8 and int4; B4 at ``chip_smoke.FLASH_ROWS``.  Each
-B2 result is checked bitwise and each B4 result within 1e-5 against the
-plain version first.  The port is imported from ``--src`` (default: this
+4-64-64-2 at M 8, int8 and int4; B3 at ``chip_smoke.CACHE_ROWS`` (the
+"lm" rows as strided views of the LM's cache where the checkout's B3
+takes them, else as contiguous copies); B4 at ``chip_smoke.FLASH_ROWS``.
+Each B2 result is checked bitwise and each B3 and B4 result within 1e-5
+against the plain version first.  ``--only decode`` profiles one
+full-size h2o-danube-1.8b ``decode_step`` at position 4095 over full
+int8 and float32 caches of 4,096 slots (``chip_smoke.long_caches``,
+params drawn on the card): host and device ms, kernels a step and B3's
+device ms.  The port is imported from ``--src`` (default: this
 checkout's ``src``), so two checkouts can be timed in turns, in one run
 on the same card:
 
@@ -43,7 +50,8 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--label", default="")
-    ap.add_argument("--only", choices=("fused_qmlp", "flash_attention"))
+    ap.add_argument("--only", choices=("fused_qmlp", "int8_cache_attention",
+                                       "flash_attention", "decode"))
     args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
@@ -92,6 +100,29 @@ def main(argv=None) -> int:
                     emit(kernel="fused_qmlp", net=name, bits=bits, m=m,
                          ms=cs.device_ms(torch, lambda: fused_qmlp.
                                          fused_qmlp_cuda(xq, layers)))
+    if args.only in (None, "int8_cache_attention"):
+        from repro_torch.kernels import int8_cache_attention as ca
+        gen = torch.Generator().manual_seed(cs.SEED + 34)
+        for label, nb, nh, g, t, dh, window, how, layout in cs.CACHE_ROWS:
+            x = cs.cache_inputs(torch, dev, gen, nb, nh, g, t, dh, how,
+                                layout)
+            if layout == "lm" and not hasattr(ca, "plan"):
+                # a B3 that takes contiguous (R, T, Dh) caches only
+                x = tuple(a.reshape((nb * nh,) + a.shape[2:]).contiguous()
+                          for a in x)
+            got = ca.int8_cache_attention_cuda(*x, window)
+            want = ca.int8_cache_attention_plain(*x, window)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            if not torch.allclose(got, want, rtol=1e-5, atol=1e-5):
+                raise AssertionError(f"B3 {label} {how}: {err}")
+            emit(kernel="int8_cache_attention", row=label, pos=how,
+                 layout=layout, max_abs_err=err,
+                 ms=cs.device_ms(torch, lambda: ca.int8_cache_attention_cuda(
+                     *x, window)))
+            del x, got, want
+    if args.only == "decode":
+        decode_rows(torch, dev, cs, emit)
     if args.only in (None, "flash_attention"):
         gen = torch.Generator(device=dev).manual_seed(cs.SEED + 31)
         for label, b, h, kv, s, t, d, causal, window, softcap in \
@@ -116,6 +147,47 @@ def main(argv=None) -> int:
             torch.cuda.empty_cache()
     print(smi)
     return 0
+
+
+def card_params(torch, spec, gen, dev):
+    """Params of a spec tree drawn on the card (``common.init_params``'s
+    scales, the card's generator): a timing needs their sizes, not the
+    CPU's draws, and drawing 1.8 B normals on the CPU takes seconds."""
+    if isinstance(spec, dict):
+        return {k: card_params(torch, spec[k], gen, dev) for k in sorted(spec)}
+    if spec.init in ("zeros", "ones"):
+        return (torch.zeros if spec.init == "zeros" else torch.ones)(
+            spec.shape, device=dev)
+    fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
+    scale = 0.02 if spec.init == "embed" else (
+        spec.scale if spec.scale is not None else fan_in ** -0.5)
+    return torch.randn(spec.shape, generator=gen, device=dev) * scale
+
+
+def decode_rows(torch, dev, cs, emit) -> None:
+    """Profile a full-size danube decode step over full int8 and float32
+    caches of ``cs.LM_LONG`` slots."""
+    from repro_torch.configs import base as cfgs
+    from repro_torch.models import transformer
+    cfg = cfgs.get(cs.LM_ARCH)
+    params = card_params(torch, transformer.param_specs(cfg),
+                         torch.Generator(device=dev).manual_seed(cs.SEED),
+                         dev)
+    b, size = cs.LM_LONG
+    c8, c32 = cs.long_caches(torch, dev, cfg, b, size)
+    tok = torch.randint(0, cfg.vocab, (b, 1), generator=torch.Generator(
+        ).manual_seed(cs.SEED + 33)).to(dev)
+    pos = torch.tensor(size - 1, device=dev)
+    for label, caches in (("int8", c8), ("fp32", c32)):
+        prof = cs.profile_calls(torch, lambda caches=caches: transformer.
+                                decode_step(cfg, params, tok, caches, pos),
+                                n=5, match="int8_cache_attention")
+        emit(kernel="decode_step", cache=label, batch=b, slots=size,
+             host_ms=prof["host_ms_per_call"],
+             device_ms=prof["device_ms_per_call"],
+             kernels_per_step=prof["kernels_per_call"],
+             b3_device_ms=prof["matched_device_ms_per_call"],
+             top=prof["top"])
 
 
 if __name__ == "__main__":
