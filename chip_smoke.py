@@ -31,6 +31,16 @@ cache in place) and times both, then drives the port's four paths:
   the QAT run is replayed on the CPU (within 1e-5), and a profiled QAT
   iteration launches at most ``QAT_KERNEL_RATIO`` times the kernels of
   an fp32 one;
+* the topologies -- ``loops.train`` runs the same DQN CartPole net with 4
+  actors of 8 envs for 400 iterations, a push every 16 learner updates:
+  the actor-learner topology with int8 actors (kernel B1), async with
+  int8 actors (B1), int4 calibrated actors (B2) and fp32 actors, each
+  held to its launch counts, a reward bar of 100, finite per-actor
+  divergences and actor lags, and profiled per CUDA stream over two
+  rounds (for async, the share of the round with kernels of both streams
+  running); first, on the card, actor-learner with one actor is held
+  bitwise to the fused driver and async in barrier mode bitwise to
+  actor-learner;
 * the LM -- ``transformer.prefill`` of h2o-danube-1.8b at full width and
   depth over 8,192 prompt tokens (every layer's attention through kernel
   B4), its 64-token logits held against the port's CPU path and against
@@ -58,9 +68,11 @@ it exits with code 2 and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -133,6 +145,30 @@ QAT_DELAY = 200                   # TD updates: iteration 25 of 400
 TRAIN_BARS = {"qat8": 9.0, "actorq_int4": 100.0, "actorq_int8": 100.0,
               "fp32": 100.0}
 TD_ATOL = 1e-5
+# the topology phase: DQN on CartPole at full width with the reference's
+# defaults, 4 actors x 8 envs, 400 iterations, seed SEED, and one
+# staleness in both topologies: a push every 16 learner updates (the
+# actor-learner topology's 2 iterations of 8; async rounds of 2 rollouts
+# and 16 updates)
+TOPO_ACTORS, TOPO_ITERS, TOPO_RECORD, ASYNC_SPC = 4, 400, 50, 2
+TOPO_RUNS = (
+    ("al_int8", dict(topology="actor-learner", sync_every=2,
+                     actor_backend="int8", steps_per_call=TRAIN_SPC)),
+    ("async_int8", dict(topology="async", sync_every=16,
+                        actor_backend="int8", steps_per_call=ASYNC_SPC)),
+    ("async_int4", dict(topology="async", sync_every=16,
+                        actor_backend="int4", calib_batch=32,
+                        steps_per_call=ASYNC_SPC)),
+    ("async_fp32", dict(topology="async", sync_every=16,
+                        steps_per_call=ASYNC_SPC)))
+# max eval reward of the JAX package on the CPU at each run's config
+# (PERF.md, section 6): every one clears 100, so every run is held to 100
+TOPO_JAX_MAX = {"al_int8": 500.0, "async_int8": 358.375,
+                "async_int4": 312.25, "async_fp32": 500.0}
+TOPO_BAR = 100.0
+# the bitwise anchors' config (tests/test_actor_learner.py:31)
+SMALL_DQN = dict(n_envs=4, rollout_steps=4, updates_per_iter=2,
+                 buffer_size=512, batch_size=16, warmup=8)
 # the LM phase: h2o-danube-1.8b (src/repro/configs/h2o_danube_1_8b.py, the
 # serve launcher's default --arch) at full width and depth, random weights
 # from SEED
@@ -586,6 +622,254 @@ def train_phase(torch, dev, smi, counters) -> dict:
     rows.append(dict(kernels_per_iteration=side))
     return dict(rows=rows, qat_launches=next(
         r["launches"] for r in rows if r.get("run") == "qat8"))
+
+
+def _merged(spans):
+    """Union of ``(start, end)`` spans, as sorted disjoint spans."""
+    out = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def profile_streams(torch, fn, n: int = 2) -> dict:
+    """``n`` calls of ``fn`` under ``torch.profiler``, read per CUDA stream.
+
+    Host ms a call (wall to a sync), device ms a call (kernel time
+    summed), kernels a call, the device's busy share of the wall (the
+    union of all kernels' spans), each stream's busy share, and the share
+    of the wall in which kernels of two streams or more run at once, from
+    the trace's kernel events.  Device numbers are ``None`` without them.
+    """
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    kernels = [e for e in events
+               if e.get("cat") == "kernel" and "dur" in e]
+    by_stream = {}
+    for e in kernels:
+        stream = e.get("args", {}).get("stream", e.get("tid"))
+        by_stream.setdefault(stream, []).append(
+            (float(e["ts"]), float(e["ts"]) + float(e["dur"])))
+    if not kernels:
+        return dict(host_ms_per_call=wall_us / 1e3 / n,
+                    device_ms_per_call=None, kernels_per_call=0,
+                    device_busy_share=None, stream_busy_share={},
+                    both_streams_share=None)
+    merged = {k: _merged(v) for k, v in by_stream.items()}
+    # sweep: time with at least one / at least two streams busy
+    edges = sorted([(a, 1) for m in merged.values() for a, _ in m]
+                   + [(b, -1) for m in merged.values() for _, b in m])
+    busy = both = 0.0
+    active, last = 0, edges[0][0]
+    for t_us, step in edges:
+        if active >= 1:
+            busy += t_us - last
+        if active >= 2:
+            both += t_us - last
+        active += step
+        last = t_us
+    return dict(
+        host_ms_per_call=wall_us / 1e3 / n,
+        device_ms_per_call=sum(b - a for v in by_stream.values()
+                               for a, b in v) / 1e3 / n,
+        kernels_per_call=len(kernels) / n,
+        device_busy_share=busy / wall_us,
+        stream_busy_share={str(k): sum(b - a for a, b in m) / wall_us
+                           for k, m in merged.items()},
+        both_streams_share=both / wall_us)
+
+
+def _bitwise_runs(torch, a, b) -> bool:
+    """Two ``TrainResult``s with equal rewards, update counts and params,
+    bit for bit."""
+    from repro_torch.core import ptq
+    return (a.rewards == b.rewards
+            and int(a.state.extras.updates) == int(b.state.extras.updates)
+            and all(torch.equal(x, y) for (_, x), (_, y) in zip(
+                ptq.tree_tensors(a.state.params),
+                ptq.tree_tensors(b.state.params))))
+
+
+def topology_programs(torch, dev, backend: str, calib_batch: int = 0):
+    """The async programs of the topology phase's config on the card and
+    a first state: ``(progs, learner, wbuf, env_state, obs, snap)``."""
+    from repro_torch.rl import actor_learner, dqn, networks
+    from repro_torch.rl.envs import make
+    env = make("cartpole")
+    net = networks.make_network(env.spec.obs_shape, env.spec.n_actions,
+                                device=dev)
+    cfg = dqn.DQNConfig(actor_backend=backend, calib_batch=calib_batch)
+    al = actor_learner.ActorLearnerConfig(num_actors=TOPO_ACTORS,
+                                          sync_every=16)
+    progs = actor_learner.make_async_actor_learner("dqn", env, net, cfg, al,
+                                                   device=dev)
+    learner, wbuf = actor_learner.init_async(
+        torch.Generator().manual_seed(SEED), env, net, "dqn", cfg, al)
+    env_state, obs = progs.benv_global.reset(
+        torch.Generator(device=dev).manual_seed(SEED + 50), dev)
+    progs.streams.start()
+    progs.streams.share((learner, wbuf, env_state, obs))
+    snap = progs.make_snapshot(learner, obs)
+    return progs, learner, wbuf, env_state, obs, snap
+
+
+def topology_phase(torch, dev, smi, counters) -> dict:
+    """The actor-learner and async topologies through ``loops.train``.
+
+    The bitwise anchors first (actor-learner with 1 actor and a push
+    every iteration against the fused driver, async in barrier mode
+    against actor-learner; fp32 and int8, at ``SMALL_DQN``), then the four
+    ``TOPO_RUNS`` at full width, each with every kernel count set to 0
+    just before it and read just after, held to its launch counts, its
+    bar and finite divergences and lags; then two rounds of each,
+    profiled per stream."""
+    from repro_torch.rl import actor_learner, actorq, loops
+    rows, anchors = [], {}
+    small = dict(iterations=6, record_every=3, eval_episodes=2, seed=7,
+                 algo_overrides=dict(SMALL_DQN))
+    for backend in ("fp32", "int8"):
+        kw = dict(small, actor_backend=backend)
+        fused = loops.train("dqn", "cartpole", **kw)
+        sync = loops.train("dqn", "cartpole", topology="actor-learner",
+                           num_actors=1, sync_every=1, **kw)
+        barrier = loops.train("dqn", "cartpole", topology="async",
+                              num_actors=1,
+                              sync_every=SMALL_DQN["updates_per_iter"],
+                              async_barrier=True, steps_per_call=1, **kw)
+        anchors[backend] = dict(
+            actor_learner_is_fused=_bitwise_runs(torch, fused, sync),
+            async_barrier_is_actor_learner=_bitwise_runs(torch, sync,
+                                                         barrier),
+            rewards=sync.rewards)
+        check(all(v for v in anchors[backend].values()
+                  if isinstance(v, bool)),
+              f"{backend} anchors on the card: {anchors[backend]}")
+    print("topology anchors " + json.dumps(dict(anchors, card=smi)))
+    rows.append(dict(anchors=anchors))
+
+    results = {}
+    for name, kw in TOPO_RUNS:
+        for c in counters.values():
+            c.reset()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = loops.train("dqn", "cartpole", iterations=TOPO_ITERS,
+                          record_every=TOPO_RECORD, seed=SEED,
+                          num_actors=TOPO_ACTORS, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        n = {k: c.value for k, c in counters.items()}
+        cfg = res.algo_cfg
+        steps = TOPO_ITERS * cfg.rollout_steps      # batched env steps
+        envs = TOPO_ACTORS * cfg.n_envs
+        updates = TOPO_ITERS * cfg.updates_per_iter
+        records = len(res.rewards)
+        is_async = kw["topology"] == "async"
+        pushes = len(res.actor_lags) if is_async \
+            else TOPO_ITERS // kw["sync_every"]
+        heads = pushes * TOPO_ACTORS            # divergence heads, 1 an actor
+        want = dict.fromkeys(counters, 0)
+        if actorq.is_quantized(cfg.actor_backend):
+            if cfg.calib_batch:
+                # B2 a behaviour step, eval step and head; the per-layer
+                # calibration (2 hidden layers) at the first mint, every
+                # push and every eval mint
+                want["fused_qmlp"] = steps + res.eval_steps + heads
+                want["int8_matmul"] = 2 * (1 + pushes + records)
+            else:
+                want["int8_matmul"] = 3 * (steps + res.eval_steps + heads)
+        check(n == want, f"topology {name}: launches {n}, the config "
+                         f"implies {want}")
+        check(records == TOPO_ITERS // TOPO_RECORD
+              and all(np.isfinite(res.rewards)),
+              f"topology {name}: rewards {res.rewards}")
+        check(max(res.rewards) > TOPO_BAR,
+              f"topology {name}: max eval reward {max(res.rewards)} does "
+              f"not clear {TOPO_BAR} ({res.rewards}; the JAX package's "
+              f"max {TOPO_JAX_MAX[name]})")
+        divs = np.asarray(res.divergences, dtype=np.float64)
+        check(divs.shape == ((pushes if is_async else records),
+                             TOPO_ACTORS) and np.isfinite(divs).all(),
+              f"topology {name}: divergences of shape {divs.shape}")
+        if actorq.is_quantized(cfg.actor_backend):
+            check(bool((divs > 0).any()), f"topology {name}: the quantized "
+                                          f"actors diverge")
+        elif is_async:
+            check(bool((divs == 0).all()), f"topology {name}: fp32 "
+                                           f"divergence at a push is 0")
+        check(not is_async or (len(res.actor_lags) > 0 and all(
+            lag == kw["sync_every"] for lag in res.actor_lags)),
+              f"topology {name}: actor lags {sorted(set(res.actor_lags))}")
+        row = dict(run=name, rewards=res.rewards,
+                   jax_max_reward=TOPO_JAX_MAX[name], bar=TOPO_BAR,
+                   wall_s=wall, updates_per_s=updates / wall,
+                   env_steps_per_s=steps * envs / wall,
+                   eval_env_steps=res.eval_steps, launches=n, pushes=pushes,
+                   divergence_first=divs[0].tolist(),
+                   divergence_last=divs[-1].tolist(),
+                   divergence_mean=divs.mean(0).tolist(),
+                   actor_lags=sorted(set(res.actor_lags)), card=smi)
+        rows.append(row)
+        print("topology " + json.dumps(row))
+        results[name] = (res, kw)
+
+    # two rounds of each run, profiled per stream (after every timed run)
+    for name, (res, kw) in results.items():
+        cfg = res.algo_cfg
+        gen = torch.Generator(device=dev).manual_seed(SEED + 60)
+        if kw["topology"] == "async":
+            progs, _, wbuf, env_state, obs, snap = topology_programs(
+                torch, dev, cfg.actor_backend, cfg.calib_batch)
+            carry = [res.state, wbuf, env_state, obs, snap]
+
+            def one(progs=progs, carry=carry, gen=gen):
+                learner, wbuf, env_state, obs, snap = carry
+                env_state, obs, wbuf, _ = progs.actor_chunk(
+                    snap, env_state, obs, wbuf, gen, n_chunks=ASYNC_SPC)
+                learner, _ = progs.learner_chunk(
+                    learner, gen, n_updates=ASYNC_SPC * cfg.updates_per_iter)
+                learner, wbuf = actor_learner.swap_read_slot(
+                    learner, wbuf, progs.streams)
+                snap = progs.make_snapshot(learner, obs)
+                progs.divergence(learner, snap, obs)
+                carry[:] = [learner, wbuf, env_state, obs, snap]
+        else:
+            al = actor_learner.ActorLearnerConfig(
+                num_actors=TOPO_ACTORS, sync_every=kw["sync_every"])
+            iteration, _, benv = actor_learner.make_actor_learner(
+                "dqn", res.env, res.net, cfg, al, device=dev)
+            env_state, obs = benv.reset(gen, dev)
+            cache = actorq.make_actor_cache(res.state.params,
+                                            cfg.actor_backend)
+            # t = 1: the second of the two profiled iterations pushes
+            state = actor_learner.ActorLearnerState(
+                res.state, res.state.params, cache, 1,
+                torch.zeros(TOPO_ACTORS, device=dev))
+            carry = [state, env_state, obs]
+
+            def one(iteration=iteration, carry=carry, gen=gen):
+                carry[0], carry[1], carry[2], _ = iteration(*carry, gen)
+        prof = dict(run=name, **profile_streams(torch, one, n=2))
+        rows.append(dict(profile=prof))
+        print("topology profile " + json.dumps(prof))
+    return dict(rows=rows, launches=next(
+        r["launches"] for r in rows if r.get("run") == "async_int8"))
 
 
 def cache_inputs(torch, dev, gen, nb, nh, g, t, dh, how, layout):
@@ -1096,6 +1380,18 @@ def main() -> int:
         for m, k, n, b in b1_path_shapes(torch, dev, lambda: actorq.
                                          calibrate_actor_cache(qp, calib)):
             b1_rows.append(("cartpole calibration", m, k, n, b))
+        # the topology path: a rollout of 4 actors x 8 envs and the
+        # per-actor divergence heads of a push
+        progs, learner, wbuf, st0, ob0, snap = topology_programs(
+            torch, dev, backend)
+        tgen = torch.Generator(device=dev).manual_seed(SEED + 26)
+
+        def topology_calls(progs=progs, snap=snap, learner=learner,
+                           st0=st0, ob0=ob0, wbuf=wbuf, tgen=tgen):
+            progs.actor_chunk(snap, st0, ob0, wbuf, tgen, n_chunks=1)
+            progs.divergence(learner, snap, ob0)
+        for m, k, n, b in b1_path_shapes(torch, dev, topology_calls):
+            b1_rows.append(("topology", m, k, n, b))
     for label, m, k, n, bits in b1_rows:
         x = torch.randn((m, k), generator=gen).to(dev) * 1.5
         w = (torch.randn((k, n), generator=gen) / k ** 0.5).to(dev)
@@ -1157,14 +1453,16 @@ def main() -> int:
                     plain_ms=device_ms(torch, lambda: fused_qmlp.
                                        fused_qmlp_plain(xq, layers)),
                     bound_ms=b_ms, bound_by=b_by, library_ms=None))
-    # B2 at the int4 training run's shape: the CartPole net 4-64-64-2 at
-    # the behaviour batch (8 envs), calibrated on 32 observations
-    for bits in (4, 8):
+    # B2 at the training runs' shapes: the CartPole net 4-64-64-2,
+    # calibrated on 32 observations, at the behaviour batch of the fused
+    # topology and of one actor's divergence head (8 envs) and at the
+    # topology runs' behaviour batch (4 actors x 8 envs)
+    for bits, m in ((4, 8), (8, 8), (4, 32), (8, 32)):
         cache = actorq.calibrate_actor_cache(
             actorq.pack_actor_params(cp_params, bits),
             (torch.randn((32, 4), generator=gen) * 0.5).to(dev))
         layers = actorq._fused_layers(cache, 2)
-        obs = (torch.randn((8, 4), generator=gen) * 0.5).to(dev)
+        obs = (torch.randn((m, 4), generator=gen) * 0.5).to(dev)
         xq = affine.quantize_with_params(
             obs, affine.AffineParams(layers[0].x_delta, layers[0].x_zero, 8))
         got = fused_qmlp.fused_qmlp_cuda(xq, layers)
@@ -1172,15 +1470,16 @@ def main() -> int:
         torch.cuda.synchronize()
         same = torch.equal(got, want)
         err = float((got - want).abs().max())
-        check(same, f"fused_qmlp bits={bits} CartPole M=8 bitwise (max abs "
-                    f"diff {err})")
-        nbytes = 8 * 4 + 4 * 8 * 2 + sum(la.codes.numel() + 12 * la.n + 8
+        check(same, f"fused_qmlp bits={bits} CartPole M={m} bitwise (max "
+                    f"abs diff {err})")
+        nbytes = m * 4 + 4 * m * 2 + sum(la.codes.numel() + 12 * la.n + 8
                                           for la in layers)
-        b_ms, b_by = bound(nbytes, 2.0 * 8 * sum(la.k * la.n
+        b_ms, b_by = bound(nbytes, 2.0 * m * sum(la.k * la.n
                                                   for la in layers))
         rows.append(dict(
-            name="fused_qmlp", bits=bits, policy="cartpole train",
-            shape=[8], plan=fused_qmlp.plan(8, 4, layers), bitwise=same,
+            name="fused_qmlp", bits=bits,
+            policy="cartpole train" if m == 8 else "topology",
+            shape=[m], plan=fused_qmlp.plan(m, 4, layers), bitwise=same,
             max_abs_err=err,
             ms=device_ms(torch, lambda: fused_qmlp.fused_qmlp_cuda(
                 xq, layers)),
@@ -1527,6 +1826,14 @@ def main() -> int:
                             fake_quant.launches)})
     print(f"train phase: {time.perf_counter() - t_train:.1f}s")
 
+    # ---- topology phase (the actor-learner and async topologies) ---------
+    t_topo = time.perf_counter()
+    topo = topology_phase(torch, dev, smi, {
+        c.name: c for c in (int8_matmul.launches, fused_qmlp.launches,
+                            int8_cache_attention.launches,
+                            fake_quant.launches)})
+    print(f"topology phase: {time.perf_counter() - t_topo:.1f}s")
+
     # ---- LM phase (prefill and greedy decode) -----------------------------
     t_lm = time.perf_counter()
     lm = lm_phase(torch, dev, smi, {
@@ -1576,9 +1883,11 @@ def main() -> int:
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         dict(card=smi, kernel_rows=rows, serve_rows=serve_rows,
              rollout_rows=roll_rows, eval_row=eval_row,
-             train_rows=train["rows"], lm_rows=lm,
+             train_rows=train["rows"], topology_rows=topo["rows"],
+             lm_rows=lm,
              path_launches=dict(serve=launches, rollout=roll_launches,
                                 train_qat=train["qat_launches"],
+                                topology_async_int8=topo["launches"],
                                 lm_prefill=lm["prefill"]["launches"]),
              kernels=report, seconds=time.perf_counter() - t0), indent=1))
     print(f"total {time.perf_counter() - t0:.1f}s")

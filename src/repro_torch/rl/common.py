@@ -1,7 +1,7 @@
 """Shared RL plumbing of the port: the train state, the QAT context
 wiring, evaluation-time quantization and the loss and schedule helpers.
 
-Counterpart of ``repro/rl/common.py:15-72, 114-126``.  ``state_from_jax``
+Counterpart of ``repro/rl/common.py:15-126``.  ``state_from_jax``
 carries a JAX ``TrainState`` across (as numpy arrays), so a learner step
 can start from the same state in both packages.
 """
@@ -97,6 +97,32 @@ def linear_epsilon(step: torch.Tensor, start: float, end: float,
     return start + frac * (end - start)
 
 
+def per_beta(state: TrainState, cfg) -> torch.Tensor:
+    """The IS-correction exponent of this learner step: ``cfg.is_beta``
+    annealed linearly to 1 over ``cfg.is_beta_anneal_updates`` landed
+    learner updates (``state.extras.updates``, which warmup does not
+    move), so every driver and topology reaches 1 at the same update."""
+    return linear_epsilon(state.extras.updates, cfg.is_beta, 1.0,
+                          cfg.is_beta_anneal_updates)
+
+
+def per_learner_step(state: TrainState, generator: torch.Generator, cfg,
+                     update_fn):
+    """One prioritized learner step on the single (fused) buffer: anneal
+    beta, draw a priority-proportional batch with IS weights from
+    ``generator``, run ``update_fn(state, batch, size, weights=w) ->
+    (state, (loss, td_abs))`` and push ``|td|`` back as the sampled
+    slots' priorities.  Returns ``(state, loss)``."""
+    beta = per_beta(state, cfg)
+    batch, idx, w = rb.per_sample(state.extras.replay, generator,
+                                  cfg.batch_size, beta)
+    state, (loss, td_abs) = update_fn(
+        state, batch, state.extras.replay.replay.size, weights=w)
+    per = rb.per_update_priorities(state.extras.replay, idx, td_abs,
+                                   cfg.priority_exponent)
+    return state._replace(extras=state.extras._replace(replay=per)), loss
+
+
 def huber(x: torch.Tensor, delta: float = 1.0) -> torch.Tensor:
     """Elementwise Huber loss."""
     a = torch.abs(x)
@@ -107,9 +133,9 @@ def state_from_jax(state: Any, device=None) -> TrainState:
     """The port's ``TrainState`` from a JAX one (fields read as numpy).
 
     Carries the params, Adam's step and moments, the observers, the step
-    and, for DQN, the extras (target params, the uniform replay and the
-    update count), with dtypes kept, onto ``device`` (``None`` is
-    ``cuda``).
+    and, for DQN, the extras (target params, the uniform or prioritized
+    replay, single or sharded, and the update count), with dtypes kept,
+    onto ``device`` (``None`` is ``cuda``).
     """
     from repro_torch.rl import dqn          # dqn imports this module
     device = resolve_device(device)
@@ -125,14 +151,18 @@ def state_from_jax(state: Any, device=None) -> TrainState:
     observers = {k: fake_quant.ObserverState(t(o.vmin), t(o.vmax),
                                              t(o.initialized))
                  for k, o in state.observers.items()}
+    def replay(r):
+        if hasattr(r, "tree"):
+            return rb.PrioritizedReplayState(replay(r.replay), t(r.tree),
+                                             t(r.max_priority))
+        return rb.ReplayState(rb.Transition(*(t(x) for x in r.data)),
+                              t(r.index), t(r.size))
+
     extras = state.extras
     if hasattr(extras, "target_params"):
-        r = extras.replay
-        extras = dqn.DQNExtras(
-            target_params=tree(extras.target_params),
-            replay=rb.ReplayState(rb.Transition(*(t(x) for x in r.data)),
-                                  t(r.index), t(r.size)),
-            updates=t(extras.updates))
+        extras = dqn.DQNExtras(target_params=tree(extras.target_params),
+                               replay=replay(extras.replay),
+                               updates=t(extras.updates))
     elif extras != ():
         raise NotImplementedError("state_from_jax carries DQN extras only "
                                   "(ROADMAP queue A, item 8)")

@@ -1,5 +1,5 @@
-"""DQN (Mnih et al. 2013) with a target network and uniform replay,
-QAT-instrumented, with the ActorQ actors.
+"""DQN (Mnih et al. 2013) with a target network and uniform or
+prioritized replay, QAT-instrumented, with the ActorQ actors.
 
 Counterpart of ``repro/rl/dqn.py``.  ``DQNConfig`` keeps the reference's
 fields and defaults.
@@ -19,8 +19,10 @@ fields and defaults.
   updates; and the deterministic ``act_fn``.
 
 All random draws come from one ``torch.Generator`` on the data's device,
-in turn (the reference splits keys).  Prioritized replay comes with the
-actor-learner topologies (ROADMAP queue A, item 7) and raises.
+in turn (the reference splits keys).  ``replay="prioritized"`` (with
+``priority_exponent > 0``) keeps a sum-tree replay: each update samples
+in proportion to the priorities, weights its loss by the IS weights and
+pushes its ``|td|`` back (``common.per_learner_step``).
 """
 from __future__ import annotations
 
@@ -93,19 +95,21 @@ def _check_kernel_backend(cfg: DQNConfig) -> None:
 def init(generator: torch.Generator, env: Env, net: Network,
          cfg: DQNConfig) -> common.TrainState:
     """A fresh train state: params from the CPU ``generator`` (on the
-    network's device), zero Adam moments, an empty replay, and target
-    params that are a separate copy of the params."""
-    rb.use_prioritized(cfg.replay, cfg.priority_exponent)
+    network's device), zero Adam moments, an empty replay (a sum-tree one
+    for prioritized replay), and target params that are a separate copy
+    of the params."""
     params = net.init(generator)
     device = next(t for _, t in tree_tensors(params)).device
+    init_replay = rb.per_init if rb.use_prioritized(
+        cfg.replay, cfg.priority_exponent) else rb.replay_init
     zero = torch.zeros((), dtype=torch.int32, device=device)
     return common.TrainState(
         params=params, opt=adam_init(params, AdamConfig(lr=cfg.lr)),
         observers={}, step=zero,
         extras=DQNExtras(
             target_params=tree_map(torch.clone, params),
-            replay=rb.replay_init(cfg.buffer_size, env.spec.obs_shape,
-                                  device=device),
+            replay=init_replay(cfg.buffer_size, env.spec.obs_shape,
+                               device=device),
             updates=zero.clone()))
 
 
@@ -179,11 +183,15 @@ def make_behaviour_policy(env: Env, net: Network, cfg: DQNConfig):
 
 
 def make_td_update(env: Env, net: Network, cfg: DQNConfig):
-    """``td_update(state, batch, replay_size) -> (state, (loss, td_abs))``.
+    """``td_update(state, batch, replay_size, weights=None) -> (state,
+    (loss, td_abs))``.
 
-    One fp32 learner step on an already-sampled batch, as the reference's
-    (without its importance weights and cross-device ``reduce``, which
-    belong to prioritized replay and the actor-learner topology).  The
+    One fp32 learner step on an already-sampled batch, as the reference's.
+    ``weights`` (prioritized replay's IS weights) scale each transition's
+    Huber loss; ``None`` keeps the plain mean.  The reference's
+    ``reduce`` averages over a mesh's actor axis; with no mesh it is the
+    identity, and the port takes no mesh (ROADMAP queue A, item 14).
+    ``td_abs`` is the per-transition ``|td|``.  The
     online forward runs under autograd and leaves the observers' new
     state; the target forward reads the same observers and drops its
     updates.  Adam's state, the observers and ``step`` always advance;
@@ -195,7 +203,7 @@ def make_td_update(env: Env, net: Network, cfg: DQNConfig):
     adam_cfg = AdamConfig(lr=cfg.lr)
 
     def td_update(state: common.TrainState, batch: rb.Transition,
-                  replay_size: torch.Tensor
+                  replay_size: torch.Tensor, weights=None
                   ) -> Tuple[common.TrainState, Tuple[torch.Tensor,
                                                       torch.Tensor]]:
         with torch.enable_grad():
@@ -212,7 +220,10 @@ def make_td_update(env: Env, net: Network, cfg: DQNConfig):
                 target = batch.reward + cfg.gamma * (1 - batch.done) \
                     * torch.amax(q_next, dim=-1)
             td = q_sel - target
-            loss = torch.mean(common.huber(td))
+            if weights is None:
+                loss = torch.mean(common.huber(td))
+            else:
+                loss = torch.mean(weights * common.huber(td))
             flat = [t for _, t in tree_tensors(leaves)]
             grads_flat = torch.autograd.grad(loss, flat)
         grads = _unflatten(leaves, iter(grads_flat))
@@ -251,7 +262,8 @@ def make_iteration(env: Env, net: Network, cfg: DQNConfig, device=None):
     obs, metrics)``: one rollout of ``rollout_steps`` steps over
     ``n_envs`` envs with the behaviour policy (a calibrated cache, and
     so kernel B2, when ``calib_batch > 0`` with a quantized backend),
-    the replay write, then ``updates_per_iter`` sampled TD updates.
+    the replay write, then ``updates_per_iter`` sampled TD updates
+    (prioritized ones through ``common.per_learner_step``).
     ``metrics`` (loss, reward per finished episode, the mean variance of
     the softmax over Q) stay on the device.  ``act_fn(params, obs,
     observers=None, step=1 << 30)`` is the greedy policy under the QAT
@@ -261,7 +273,7 @@ def make_iteration(env: Env, net: Network, cfg: DQNConfig, device=None):
     """
     actorq.validate_actor_backend(cfg.actor_backend)
     _check_kernel_backend(cfg)
-    rb.use_prioritized(cfg.replay, cfg.priority_exponent)
+    use_per = rb.use_prioritized(cfg.replay, cfg.priority_exponent)
     device = resolve_device(device)
     benv = actorq.maybe_attach_seq_state(
         batched_env(env, cfg.n_envs), net, cfg.actor_backend, cfg.n_envs,
@@ -286,7 +298,8 @@ def make_iteration(env: Env, net: Network, cfg: DQNConfig, device=None):
 
         def flat(x):
             return x.reshape((-1,) + tuple(x.shape[2:]))
-        replay = rb.replay_add_batch(
+        add = rb.per_add if use_per else rb.replay_add_batch
+        replay = add(
             state.extras.replay,
             rb.Transition(flat(traj.obs), flat(traj.action),
                           flat(traj.reward), flat(traj.done),
@@ -294,10 +307,14 @@ def make_iteration(env: Env, net: Network, cfg: DQNConfig, device=None):
         state = state._replace(extras=state.extras._replace(replay=replay))
         losses = []
         for _ in range(cfg.updates_per_iter):
-            batch = rb.replay_sample(state.extras.replay, generator,
-                                     cfg.batch_size)
-            state, (loss, _) = td_update(state, batch,
-                                         state.extras.replay.size)
+            if use_per:
+                state, loss = common.per_learner_step(state, generator, cfg,
+                                                      td_update)
+            else:
+                batch = rb.replay_sample(state.extras.replay, generator,
+                                         cfg.batch_size)
+                state, (loss, _) = td_update(state, batch,
+                                             state.extras.replay.size)
             losses.append(loss)
         metrics = {
             "loss": torch.mean(torch.stack(losses)),

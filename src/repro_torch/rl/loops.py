@@ -1,30 +1,36 @@
-"""The training loop and the QuaRL pipelines (paper Algorithms 1 and 2).
+"""The training loops and the QuaRL pipelines (paper Algorithms 1 and 2).
 
-Counterpart of ``repro/rl/loops.py`` for ``algo="dqn"`` and the fused
-topology:
+Counterpart of ``repro/rl/loops.py`` for ``algo="dqn"``:
 
-* ``train`` -- the fused driver: one learner, ``n_envs`` batched envs,
-  rollouts by the behaviour policy (fp32 under the QAT context, or the
-  ActorQ int8/int4 actor), uniform replay, the TD updates, and an
-  evaluation every ``record_every`` iterations (through the packed actor
-  when the backend is quantized -- calibrated, and so kernel B2, with
-  ``calib_batch`` -- else the greedy fp32 policy under the QAT context);
+* ``train`` -- one learner and its actors in one of three topologies:
+  ``"fused"`` (``n_envs`` batched envs stepped by the learner's own
+  behaviour policy), ``"actor-learner"`` (``num_actors`` actors with a
+  sharded replay and a push every ``sync_every`` iterations) or
+  ``"async"`` (actor and learner chunks on two CUDA streams over a
+  double-buffered replay, a push every ``sync_every`` learner updates);
+  see ``rl.actor_learner``.  Rollouts run the fp32 policy under the QAT
+  context or the ActorQ int8/int4 actor; the replay is uniform or
+  prioritized; an evaluation runs every ``record_every`` iterations
+  (through the packed actor when the backend is quantized -- calibrated,
+  and so kernel B2, with ``calib_batch`` -- else the greedy fp32 policy
+  under the QAT context);
 * ``make_scan_iteration`` -- the ``steps_per_call`` chunk: a host loop
   over that many iterations, with the metrics kept on the device until
   the chunk ends.  Chunks are clipped to ``record_every`` boundaries, so
-  any ``steps_per_call`` gives the per-step driver's run bit for bit;
+  any ``steps_per_call`` gives the per-step driver's run bit for bit
+  (async rounds are ``steps_per_call`` rollouts and their updates, so
+  there it sets the run);
 * ``eval_policy`` / ``quarl_ptq`` / ``quarl_qat`` -- Eval(Q(M)) and the
   two studies, with the paper's relative error E_%.
 
 A run's randomness comes from ``torch.Generator``s seeded from ``seed``:
 one on the CPU for the params, and on the run's device one for env
-resets, one for the loop (exploration and replay draws, in turn) and one
-for evaluations.  ``device=None`` is ``cuda``.
+resets, one for the loop (exploration and replay draws, in turn, in every
+topology) and one for evaluations.  ``device=None`` is ``cuda``.
 
 Not ported yet, and raising ``NotImplementedError`` naming the ROADMAP
-queue A item: the other algorithms (item 8), the actor-learner and async
-topologies and prioritized replay (item 7), checkpointing and resume
-(item 9), and the resilience hooks (item 11).
+queue A item: the other algorithms (item 8), a device mesh (item 14),
+checkpointing and resume (item 9), and the resilience hooks (item 11).
 """
 from __future__ import annotations
 
@@ -38,14 +44,13 @@ from repro_torch.core import fake_quant
 from repro_torch.core import metrics as metrics_lib
 from repro_torch.core.qconfig import QuantConfig, QuantMode
 from repro_torch.device import resolve_device
-from repro_torch.rl import actorq, common, dqn
+from repro_torch.rl import actor_learner, actorq, common, dqn
 from repro_torch.rl import buffer as rb
 from repro_torch.rl.env import Env, evaluate
 from repro_torch.rl.envs import make as make_env
 from repro_torch.rl.networks import make_network
 
 ALGOS = ("dqn", "a2c", "ppo", "ddpg")
-TOPOLOGIES = ("fused", "actor-learner", "async")
 
 
 def _not_ported(what: str, item: int) -> NotImplementedError:
@@ -64,12 +69,16 @@ def _bootstrap_observers(env: Env, net, state: common.TrainState,
 
 @dataclasses.dataclass
 class TrainResult:
-    """What ``train`` hands back: the final ``state``, the deterministic
-    ``act_fn(params, obs, observers, step)``, the ``env``, the recorded
-    eval ``rewards`` and ``action_variances``, the wall time, the
-    resolved config and network, the run's ``device``, and
-    ``eval_steps``, the batched env steps its evaluations ran (each one
-    forward of the eval policy)."""
+    """What ``train`` hands back: the final (learner) ``state``, the
+    deterministic ``act_fn(params, obs, observers, step)``, the ``env``,
+    the recorded eval ``rewards`` and ``action_variances``, the wall time,
+    the resolved config and network, the run's ``device``, ``eval_steps``
+    (the batched env steps its evaluations ran, each one forward of the
+    eval policy), and, for the actor-learner topologies, ``divergences``
+    (per-actor behaviour-vs-learner head gaps at true pushes: one a record
+    point for ``"actor-learner"``, one a push for ``"async"``) and, for
+    ``"async"``, ``actor_lags`` (the learner updates each retired snapshot
+    served for, at least ``sync_every``)."""
 
     state: common.TrainState
     act_fn: Callable
@@ -81,12 +90,14 @@ class TrainResult:
     net: Any
     device: torch.device
     eval_steps: int = 0
+    divergences: List[List[float]] = dataclasses.field(default_factory=list)
+    actor_lags: List[int] = dataclasses.field(default_factory=list)
 
 
 def make_scan_iteration(iteration: Callable, steps_per_call: int):
     """``chunk(state, env_state, obs, generator) -> (state, env_state,
     obs, metrics)``: ``steps_per_call`` iterations in a host loop, with
-    each metric stacked to ``(steps_per_call,)`` on the device."""
+    each metric stacked to ``(steps_per_call, ...)`` on the device."""
     def chunk(state, env_state, obs, generator):
         """Run the chunk's iterations one after another."""
         per = []
@@ -100,24 +111,68 @@ def make_scan_iteration(iteration: Callable, steps_per_call: int):
 
 
 def _check_supported(algo, topology, num_actors, sync_every, mesh,
-                     async_barrier, replay, priority_exponent,
+                     async_barrier, quant, replay, priority_exponent,
                      checkpoint_dir, checkpoint_every, resume, resilience):
     if algo not in ALGOS:
         raise ValueError(f"algo must be one of {ALGOS}, got {algo!r}")
+    actor_learner.validate_topology(topology)
+    rb.use_prioritized(replay, priority_exponent)
+    if topology != "fused" and algo not in actor_learner.ALGOS:
+        raise ValueError(f"topology={topology!r} needs a replay algorithm "
+                         f"{actor_learner.ALGOS}, got {algo!r}")
     if algo != "dqn":
         raise _not_ported(f"algo={algo!r}", 8)
-    if topology not in TOPOLOGIES:
-        raise ValueError(f"topology must be one of {TOPOLOGIES}, got "
-                         f"{topology!r}")
-    if topology != "fused" or async_barrier or num_actors != 1 \
-            or sync_every != 1 or mesh is not None:
-        raise _not_ported("the actor-learner and async topologies", 7)
-    if rb.use_prioritized(replay, priority_exponent):
-        raise _not_ported("prioritized replay", 7)
+    if async_barrier and topology != "async":
+        raise ValueError("async_barrier is an async-topology knob: pass "
+                         "topology='async'")
+    if topology == "fused" and (num_actors != 1 or sync_every != 1
+                                or mesh is not None):
+        raise ValueError("num_actors/sync_every/mesh are actor-learner "
+                         "knobs: pass topology='actor-learner' or 'async' "
+                         "(the fused driver would ignore them)")
+    if topology != "fused" and quant.is_qat:
+        raise ValueError(f"the {topology} topology does not support QAT "
+                         f"(the learner trains fp32; use PTQ eval)")
+    if mesh is not None:
+        raise _not_ported("a device mesh over the actor axis", 14)
     if checkpoint_dir or checkpoint_every or resume:
         raise _not_ported("checkpointing and resume", 9)
     if resilience is not None:
         raise _not_ported("the resilience hooks", 11)
+
+
+def _evaluator(env: Env, cfg, act_fn, g_eval: torch.Generator,
+               eval_episodes: int, device, eval_steps: List[int]):
+    """``evaluate_at(params, observers, step, obs) -> float``: the eval
+    reward of the learner's params -- through the packed actor when the
+    backend is quantized (calibrated on the live ``obs`` with
+    ``calib_batch``), else the greedy fp32 policy under the QAT context.
+    Each batched eval step adds one to ``eval_steps[0]``."""
+    quantized = actorq.is_quantized(cfg.actor_backend)
+
+    def counted(act):
+        def step(p, o):
+            eval_steps[0] += 1
+            return act(p, o)
+        return step
+    q_act = counted(actorq.make_act_fn(env.spec)) if quantized else None
+    det_act = counted(lambda p, o: act_fn(p[0], o, p[1], p[2]))
+
+    def evaluate_at(params, observers, step, obs) -> float:
+        if q_act is not None:
+            obs_g = obs.reshape((-1,) + tuple(env.spec.obs_shape))
+            qparams = actorq.make_actor_cache(
+                params, cfg.actor_backend,
+                calib_obs=actorq.calib_slice(obs_g, cfg.calib_batch)
+                if cfg.calib_batch else None)
+            r = evaluate(env, q_act, qparams, g_eval, eval_episodes,
+                         max_steps=env.spec.max_steps, device=device)
+        else:
+            r = evaluate(env, det_act, (params, observers, step), g_eval,
+                         eval_episodes, max_steps=env.spec.max_steps,
+                         device=device)
+        return float(r)
+    return evaluate_at
 
 
 def train(algo: str, env_name: str, *, iterations: int = 200,
@@ -134,20 +189,32 @@ def train(algo: str, env_name: str, *, iterations: int = 200,
           checkpoint_dir: Optional[str] = None, checkpoint_every: int = 0,
           resume: bool = False, resilience: Any = None,
           device=None) -> TrainResult:
-    """Train ``algo`` on ``env_name`` with the fused driver.
+    """Train ``algo`` on ``env_name``.
 
     ``steps_per_call`` iterations run per chunk (``make_scan_iteration``),
     clipped to ``record_every`` boundaries, so every value gives the same
-    run.  ``actor_backend="int8"``/``"int4"`` collects rollouts and
-    evaluates through the packed actor (ActorQ; the learner stays fp32);
-    ``calib_batch > 0`` calibrates that cache from the live observations
-    at every refresh, so both run the fused kernel.  ``quant`` is the
-    learner's QAT config (``QuantConfig.qat``); its ``quant_delay``
-    counts TD updates (the state's ``step``, ``updates_per_iter`` per
-    iteration).  ``device=None`` is ``cuda``.
+    run in the fused and actor-learner topologies.  ``actor_backend=
+    "int8"``/``"int4"`` collects rollouts and evaluates through the packed
+    actor (ActorQ; the learner stays fp32); ``calib_batch > 0`` calibrates
+    that cache from the live observations at every refresh, so both run
+    the fused kernel.  ``quant`` is the learner's QAT config
+    (``QuantConfig.qat``, fused topology only); its ``quant_delay`` counts
+    TD updates (the state's ``step``, ``updates_per_iter`` per
+    iteration).  ``replay="prioritized"`` samples by priority (a sum-tree
+    a shard), ``priority_exponent=0`` being bitwise uniform.
+
+    ``topology="actor-learner"`` runs ``num_actors`` actors pushed every
+    ``sync_every`` iterations; ``topology="async"`` runs a round of
+    ``steps_per_call`` rollouts and ``steps_per_call * updates_per_iter``
+    learner updates on two streams, pushing at the first round boundary
+    ``sync_every`` learner updates after the last push.
+    ``async_barrier=True`` threads one replay slot actor -> learner: with
+    ``steps_per_call=1`` and ``sync_every=updates_per_iter`` the run is
+    bitwise the actor-learner run with ``sync_every=1``.  ``device=None``
+    is ``cuda``.
     """
     _check_supported(algo, topology, num_actors, sync_every, mesh,
-                     async_barrier, replay, priority_exponent,
+                     async_barrier, quant, replay, priority_exponent,
                      checkpoint_dir, checkpoint_every, resume, resilience)
     actorq.validate_actor_backend(actor_backend)
     device = resolve_device(device)
@@ -164,27 +231,34 @@ def train(algo: str, env_name: str, *, iterations: int = 200,
 
     def gen(offset):
         return torch.Generator(device=device).manual_seed(seed + offset)
-    state = dqn.init(torch.Generator().manual_seed(seed), env, net, cfg)
-    if quant.is_qat:
-        state = state._replace(
-            observers=_bootstrap_observers(env, net, state, quant))
-    iteration, act_fn, benv = dqn.make_iteration(env, net, cfg, device)
+    g_params = torch.Generator().manual_seed(seed)
+    if topology == "async":
+        return _train_async(env, net, cfg, g_params, gen,
+                            iterations=iterations,
+                            record_every=record_every,
+                            eval_episodes=eval_episodes,
+                            steps_per_call=steps_per_call,
+                            num_actors=num_actors, sync_every=sync_every,
+                            barrier=async_barrier, device=device)
+    if topology == "actor-learner":
+        al = actor_learner.ActorLearnerConfig(num_actors=num_actors,
+                                              sync_every=sync_every)
+        state = actor_learner.init(g_params, env, net, algo, cfg, al)
+        iteration, act_fn, benv = actor_learner.make_actor_learner(
+            algo, env, net, cfg, al, device=device)
+    else:
+        state = dqn.init(g_params, env, net, cfg)
+        if quant.is_qat:
+            state = state._replace(
+                observers=_bootstrap_observers(env, net, state, quant))
+        iteration, act_fn, benv = dqn.make_iteration(env, net, cfg, device)
     env_state, obs = benv.reset(gen(1), device)
-    g_run, g_eval = gen(2), gen(3)
-
-    quantized = actorq.is_quantized(cfg.actor_backend)
-    int8_act = actorq.make_act_fn(env.spec) if quantized else None
+    g_run = gen(2)
     eval_steps = [0]
-
-    def counted(act):
-        def step(p, o):
-            eval_steps[0] += 1
-            return act(p, o)
-        return step
-    q_act = counted(int8_act) if quantized else None
-    det_act = counted(lambda p, o: act_fn(p[0], o, p[1], p[2]))
+    evaluate_at = _evaluator(env, cfg, act_fn, gen(3), eval_episodes,
+                             device, eval_steps)
     chunks: Dict[int, Callable] = {}
-    rewards, variances = [], []
+    rewards, variances, divergences = [], [], []
     i = 0
     t0 = time.time()
     while i < iterations:
@@ -196,26 +270,107 @@ def train(algo: str, env_name: str, *, iterations: int = 200,
                                                    g_run)
         i += n
         if i % record_every == 0 or i == iterations:
-            if q_act is not None:
-                obs_g = obs.reshape((-1,) + tuple(env.spec.obs_shape))
-                qparams = actorq.make_actor_cache(
-                    state.params, cfg.actor_backend,
-                    calib_obs=actorq.calib_slice(obs_g, cfg.calib_batch)
-                    if cfg.calib_batch else None)
-                r = evaluate(env, q_act, qparams, g_eval, eval_episodes,
-                             max_steps=env.spec.max_steps, device=device)
-            else:
-                r = evaluate(env, det_act,
-                             (state.params, state.observers, state.step),
-                             g_eval, eval_episodes,
-                             max_steps=env.spec.max_steps, device=device)
-            rewards.append(float(r))
-            variances.append(float(metrics["mean_q_var"][-1]))
+            learner = state.learner if isinstance(
+                state, actor_learner.ActorLearnerState) else state
+            rewards.append(evaluate_at(learner.params, learner.observers,
+                                       learner.step, obs))
+            variances.append(float(metrics["mean_q_var"][-1])
+                             if "mean_q_var" in metrics else 0.0)
+            # the first push is at iteration sync_every: a record point
+            # before it would only see the init-time zeros
+            if "divergence" in metrics and i >= sync_every:
+                divergences.append(metrics["divergence"][-1].tolist())
     wall = time.time() - t0
+    if isinstance(state, actor_learner.ActorLearnerState):
+        state = state.learner
     return TrainResult(state=state, act_fn=act_fn, env=env, rewards=rewards,
                        action_variances=variances, wall_time_s=wall,
                        algo_cfg=cfg, net=net, device=device,
-                       eval_steps=eval_steps[0])
+                       eval_steps=eval_steps[0], divergences=divergences)
+
+
+def _train_async(env: Env, net, cfg, g_params: torch.Generator, gen, *,
+                 iterations: int, record_every: int, eval_episodes: int,
+                 steps_per_call: int, num_actors: int, sync_every: int,
+                 barrier: bool, device) -> TrainResult:
+    """The ``topology="async"`` driver.
+
+    A round enqueues one actor chunk (``c`` rollouts into the write slot,
+    on the actors' stream) and one learner chunk (``c *
+    updates_per_iter`` updates on the read slot, on the learner's
+    stream), ``c`` being ``steps_per_call`` clipped to the next record
+    point, and waits on neither.  Once ``sync_every`` learner updates have
+    landed since the last push, the host swaps the slots, mints the next
+    snapshot (the streams join there) and enqueues the divergence, which
+    stays on the device until the run ends; the retiring snapshot's lag
+    is host arithmetic.  Evaluations at record points are the only host
+    syncs.  ``barrier=True`` threads one slot actor -> learner and makes
+    each chunk wait for the other's last one.
+    """
+    al = actor_learner.ActorLearnerConfig(num_actors=num_actors,
+                                          sync_every=sync_every)
+    progs = actor_learner.make_async_actor_learner("dqn", env, net, cfg, al,
+                                                   device=device)
+    learner, wbuf = actor_learner.init_async(g_params, env, net, "dqn", cfg,
+                                             al, double=not barrier)
+    env_state, obs = progs.benv_global.reset(gen(1), device)
+    g_run = gen(2)
+    eval_steps = [0]
+    evaluate_at = _evaluator(env, cfg, progs.act_fn, gen(3), eval_episodes,
+                             device, eval_steps)
+    streams = progs.streams
+    streams.start()
+    streams.share((learner, wbuf, env_state, obs))
+    snap = progs.make_snapshot(learner, obs)
+    rewards, variances, actor_lags, divs = [], [], [], []
+    updates_since_push = total_updates = snap_minted_at = 0
+    i = 0
+    t0 = time.time()
+    while i < iterations:
+        next_stop = min((i // record_every + 1) * record_every, iterations)
+        c = min(max(steps_per_call, 1), next_stop - i)
+        if barrier:
+            wbuf = learner.extras.replay
+            streams.actors_wait_for_learner()
+            streams.share(wbuf)
+        env_state, obs, wbuf, _ = progs.actor_chunk(
+            snap, env_state, obs, wbuf, g_run, n_chunks=c)
+        if barrier:
+            learner = learner._replace(
+                extras=learner.extras._replace(replay=wbuf))
+            streams.learner_waits_for_actors()
+            streams.share(wbuf)
+        learner, _ = progs.learner_chunk(
+            learner, g_run, n_updates=c * cfg.updates_per_iter)
+        total_updates += c * cfg.updates_per_iter
+        updates_since_push += c * cfg.updates_per_iter
+        i += c
+        if updates_since_push >= sync_every:
+            if not barrier:
+                learner, wbuf = actor_learner.swap_read_slot(learner, wbuf,
+                                                             streams)
+            actor_lags.append(total_updates - snap_minted_at)
+            snap = progs.make_snapshot(learner, obs)
+            snap_minted_at = total_updates
+            divs.append(progs.divergence(learner, snap, obs))
+            updates_since_push = 0
+        if i % record_every == 0 or i == iterations:
+            streams.learner_waits_for_actors()
+            streams.share(obs)
+            with streams.on_learner():
+                rewards.append(evaluate_at(learner.params, learner.observers,
+                                           learner.step, obs))
+            # neither chunk surfaces an action variance (the reference
+            # records the same zeros)
+            variances.append(0.0)
+    streams.finish()
+    wall = time.time() - t0
+    return TrainResult(state=learner, act_fn=progs.act_fn, env=env,
+                       rewards=rewards, action_variances=variances,
+                       wall_time_s=wall, algo_cfg=cfg, net=net,
+                       device=device, eval_steps=eval_steps[0],
+                       divergences=[d.tolist() for d in divs],
+                       actor_lags=actor_lags)
 
 
 def eval_policy(result: TrainResult, quant: QuantConfig,

@@ -603,3 +603,160 @@ def test_reduced_serve_on_card_launches_b3_and_b5(cuda, capsys):
     assert serve.main(argv + ["--device", "cpu"]) == 0
     host = capsys.readouterr().out
     assert card.splitlines()[-1] == host.splitlines()[-1]
+
+
+# --- the actor-learner and async topologies --------------------------------
+
+# tests/test_actor_learner.py:31
+SMALL_DQN = dict(n_envs=4, rollout_steps=4, updates_per_iter=2,
+                 buffer_size=512, batch_size=16, warmup=8)
+
+
+def _same_run(a, b) -> bool:
+    return (a.rewards == b.rewards
+            and int(a.state.extras.updates) == int(b.state.extras.updates)
+            and all(torch.equal(x, y) for (_, x), (_, y) in zip(
+                ptq.tree_tensors(a.state.params),
+                ptq.tree_tensors(b.state.params))))
+
+
+@pytest.mark.parametrize("backend", ["fp32", "int8"])
+def test_topology_anchors_on_card(cuda, backend):
+    """On the card, as on the CPU: actor-learner with one actor and a push
+    every iteration is the fused driver bit for bit, and async in barrier
+    mode the actor-learner run (one CUDA generator drawn in host order,
+    the async chunks on two streams)."""
+    kw = dict(iterations=6, record_every=3, eval_episodes=2, seed=7,
+              actor_backend=backend, algo_overrides=dict(SMALL_DQN))
+    fused = loops.train("dqn", "cartpole", **kw)
+    sync = loops.train("dqn", "cartpole", topology="actor-learner",
+                       num_actors=1, sync_every=1, **kw)
+    barrier = loops.train("dqn", "cartpole", topology="async", num_actors=1,
+                          sync_every=SMALL_DQN["updates_per_iter"],
+                          async_barrier=True, steps_per_call=1, **kw)
+    assert _same_run(fused, sync)
+    assert _same_run(sync, barrier)
+
+
+def _async_setup(cuda, backend, calib_batch=0, replay="uniform"):
+    from repro_torch.rl import actor_learner
+    env = make("cartpole")
+    net = networks.make_network(env.spec.obs_shape, env.spec.n_actions,
+                                device=cuda)
+    cfg = dqn.DQNConfig(actor_backend=backend, calib_batch=calib_batch,
+                        replay=replay)
+    al = actor_learner.ActorLearnerConfig(num_actors=4, sync_every=16)
+    progs = actor_learner.make_async_actor_learner("dqn", env, net, cfg, al,
+                                                   device=cuda)
+    learner, wbuf = actor_learner.init_async(
+        torch.Generator().manual_seed(0), env, net, "dqn", cfg, al)
+    env_state, obs = progs.benv_global.reset(
+        torch.Generator(device=cuda).manual_seed(1), cuda)
+    progs.streams.start()
+    progs.streams.share((learner, wbuf, env_state, obs))
+    snap = progs.make_snapshot(learner, obs)
+    return progs, [learner, wbuf, env_state, obs, snap]
+
+
+def _async_round(progs, carry, gen):
+    """One round of the async driver with a push: actor chunk, learner
+    chunk, slot swap, snapshot, divergence."""
+    from repro_torch.rl import actor_learner
+    learner, wbuf, env_state, obs, snap = carry
+    env_state, obs, wbuf, _ = progs.actor_chunk(snap, env_state, obs, wbuf,
+                                                gen, n_chunks=2)
+    learner, _ = progs.learner_chunk(learner, gen, n_updates=16)
+    learner, wbuf = actor_learner.swap_read_slot(learner, wbuf,
+                                                 progs.streams)
+    snap = progs.make_snapshot(learner, obs)
+    div = progs.divergence(learner, snap, obs)
+    carry[:] = [learner, wbuf, env_state, obs, snap]
+    return div
+
+
+@pytest.mark.parametrize("backend,calib,replay", [
+    ("int8", 0, "uniform"), ("int4", 32, "uniform"),
+    ("fp32", 0, "prioritized")])
+def test_async_round_makes_no_host_sync_on_card(cuda, backend, calib,
+                                                replay):
+    """A whole async round (both chunks, the swap, the push and the
+    divergence) runs under ``set_sync_debug_mode("error")``: nothing in
+    it waits on the card from the host."""
+    progs, carry = _async_setup(cuda, backend, calib, replay)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    _async_round(progs, carry, gen)              # warm: allocations, builds
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        div = _async_round(progs, carry, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    progs.streams.finish()
+    torch.cuda.synchronize()
+    assert tuple(div.shape) == (4,) and bool(torch.isfinite(div).all())
+
+
+def test_async_chunks_run_on_two_streams_on_card(cuda, monkeypatch):
+    """The actor chunk's kernels go to the actors' stream, the learner
+    chunk's and the divergence's to the learner's, and the two differ."""
+    from repro_torch.rl import buffer as rb
+    progs, carry = _async_setup(cuda, "int8")
+    seen = {"b1": set(), "sample": set()}
+    real_mm, real_sample = int8_matmul.int8_matmul_cuda, \
+        rb.replay_sample_sharded
+
+    def mm(*a, **k):
+        seen["b1"].add(torch.cuda.current_stream().stream_id)
+        return real_mm(*a, **k)
+
+    def sample(*a, **k):
+        seen["sample"].add(torch.cuda.current_stream().stream_id)
+        return real_sample(*a, **k)
+    monkeypatch.setattr(int8_matmul, "int8_matmul_cuda", mm)
+    monkeypatch.setattr(rb, "replay_sample_sharded", sample)
+    learner, wbuf, env_state, obs, snap = carry
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    progs.actor_chunk(snap, env_state, obs, wbuf, gen, n_chunks=1)
+    actor_b1 = set(seen["b1"])
+    progs.learner_chunk(learner, gen, n_updates=2)
+    progs.divergence(learner, snap, obs)
+    torch.cuda.synchronize()
+    a, lrn = progs.streams.actor.stream_id, progs.streams.learner.stream_id
+    assert a != lrn
+    assert actor_b1 == {a}
+    assert seen["sample"] == {lrn}
+    assert seen["b1"] == {a, lrn}
+
+
+def test_topology_path_kernels_equal_plain_on_card(cuda, monkeypatch):
+    """Every B1 and B2 launch of an async round (behaviour steps of 4
+    actors x 8 envs, per-actor divergence heads of 8 rows, calibrations)
+    equals its plain version on the same inputs, bit for bit, for int8,
+    int4, and int4 calibrated actors."""
+    shapes = set()
+    real_mm, real_fq = int8_matmul.int8_matmul_cuda, \
+        fused_qmlp.fused_qmlp_cuda
+
+    def mm(x_q, w_q, *args, w_bits=8):
+        out = real_mm(x_q, w_q, *args, w_bits=w_bits)
+        want = int8_matmul.int8_matmul_plain(x_q, w_q, *args, w_bits=w_bits)
+        assert torch.equal(out, want)
+        shapes.add(("B1", x_q.shape[0], x_q.shape[1], w_q.shape[1], w_bits))
+        return out
+
+    def fq(x_q, layers):
+        out = real_fq(x_q, layers)
+        assert torch.equal(out, fused_qmlp.fused_qmlp_plain(x_q, layers))
+        shapes.add(("B2", x_q.shape[0], layers[0].bits))
+        return out
+    monkeypatch.setattr(int8_matmul, "int8_matmul_cuda", mm)
+    monkeypatch.setattr(fused_qmlp, "fused_qmlp_cuda", fq)
+    for backend, calib in (("int8", 0), ("int4", 0), ("int4", 32)):
+        progs, carry = _async_setup(cuda, backend, calib)
+        _async_round(progs, carry, torch.Generator(device=cuda).manual_seed(3))
+        torch.cuda.synchronize()
+    for bits in (8, 4):
+        for m in (32, 8):
+            assert {("B1", m, 4, 64, bits), ("B1", m, 64, 64, bits),
+                    ("B1", m, 64, 2, bits)} <= shapes
+    assert {("B2", 32, 4), ("B2", 8, 4)} <= shapes

@@ -82,10 +82,11 @@ def _b2_layers(k0, widths, n_out, bits, seed=0):
 
 
 # chip_smoke's B2 rows: Policies II and III on AirNav (9 -> 25) at M 8 and
-# 512, and the int4 training run's CartPole net at M 8
+# 512, and the training runs' CartPole net at M 8 (one actor's envs) and
+# 32 (the topology runs' 4 actors x 8 envs)
 B2_ROWS = [("II", 9, chip_smoke.POLICY_II, 25, m) for m in (8, 512)] + \
     [("III", 9, chip_smoke.POLICY_III, 25, m) for m in (8, 512)] + \
-    [("cartpole", 4, (64, 64), 2, 8)]
+    [("cartpole", 4, (64, 64), 2, m) for m in (8, 32)]
 
 
 @pytest.mark.parametrize("bits", [4, 8])
@@ -127,12 +128,19 @@ def tf32_cut(x: torch.Tensor) -> torch.Tensor:
 def mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a @ b as big.big + big.small + small.big, each operand split into
     big = tf32(a) and small = a - big, of which the products see the top
-    11 bits."""
+    11 bits.  Each of the three products is summed in float64 and rounded
+    to float32 once (an 11-bit by 11-bit product is exact in float64), then
+    the small terms are added first, as the kernel adds them: a float32
+    BLAS would make the result depend on its blocking and on the process's
+    float32 matmul precision, which oneDNN may lower to bf16 or tf32."""
     ab = tf32(a)
     as_ = tf32_cut(a - ab)
     bb = tf32(b)
     bs = tf32_cut(b - bb)
-    return as_ @ bb + ab @ bs + ab @ bb
+
+    def mm(x, y):
+        return (x.double() @ y.double()).float()
+    return mm(as_, bb) + mm(ab, bs) + mm(ab, bb)
 
 
 def emulate_3xtf32(q, k, v, *, causal=True, window=None, softcap=None):

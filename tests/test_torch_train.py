@@ -140,10 +140,13 @@ def test_replay_sample_draws_from_the_written_prefix(size):
 
 
 def test_prioritized_replay_is_not_ported():
+    # ported since: alpha > 0 takes the sum-tree, alpha == 0 the uniform
+    # path (tests/test_torch_replay.py holds the tree against JAX)
     assert rb.use_prioritized("uniform", 0.6) is False
     assert rb.use_prioritized("prioritized", 0.0) is False
-    with pytest.raises(NotImplementedError, match="item 7"):
-        rb.use_prioritized("prioritized", 0.6)
+    assert rb.use_prioritized("prioritized", 0.6) is True
+    with pytest.raises(ValueError, match="priority_exponent"):
+        rb.use_prioritized("prioritized", -0.1)
     with pytest.raises(ValueError, match="replay"):
         rb.validate_replay("lifo")
 
@@ -395,13 +398,16 @@ def test_quarl_pipelines_return_their_rows():
 
 def test_unported_options_raise():
     kw = dict(iterations=1, device="cpu")
-    for extra, item in ((dict(topology="async"), 7),
-                        (dict(num_actors=2), 7),
-                        (dict(replay="prioritized"), 7),
+    # the topologies and prioritized replay are ported (item 7); a mesh
+    # over the actor axis is not (item 14), and fused-only knobs given to
+    # the fused driver are refused as in the reference
+    for extra, item in ((dict(topology="async", mesh=object()), 14),
                         (dict(checkpoint_dir="x"), 9),
                         (dict(resilience=object()), 11)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             loops.train("dqn", "cartpole", **kw, **extra)
+    with pytest.raises(ValueError, match="actor-learner knobs"):
+        loops.train("dqn", "cartpole", num_actors=2, **kw)
     with pytest.raises(NotImplementedError, match="item 8"):
         loops.train("ppo", "cartpole", **kw)
     with pytest.raises(ValueError, match="algo"):
