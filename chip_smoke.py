@@ -41,6 +41,17 @@ cache in place) and times both, then drives the port's four paths:
   running); first, on the card, actor-learner with one actor is held
   bitwise to the fused driver and async in barrier mode bitwise to
   actor-learner;
+* the conv actor -- the paper's Atari conv actor (3 conv + FC, its
+  Policies A, B and C) on pixel Catch: each int8 / int4 actor's forward at
+  8 and 256 envs bitwise its plain replay on the card (B1 five times a
+  forward: three im2col convs, the fc and the head), fp32 through cuDNN,
+  each within 1e-4 of the CPU at 8 envs, timed, profiled and rolled out
+  for 200 steps; ``loops.train`` DQN on Catch at Policy A width (fp32,
+  ActorQ int8 and int4, QAT int8 with exact B1 / B5 counts, one TD update
+  replayed on the CPU), the async int8 Catch run of
+  ``tests/test_async_actor_learner.py:215-228`` held to its bar, the
+  three anchors bitwise at a small conv net, and B1 bitwise and timed at
+  every shape these paths gave it (K 9 to 102,400);
 * the LM -- ``transformer.prefill`` of h2o-danube-1.8b at full width and
   depth over 8,192 prompt tokens (every layer's attention through kernel
   B4), its 64-token logits held against the port's CPU path and against
@@ -67,6 +78,7 @@ it exits with code 2 and prints no result.
 """
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
 import statistics
@@ -88,8 +100,6 @@ INT8_OPS_PER_S = 1979e12
 F32_OPS_PER_S = 67e12
 TF32_OPS_PER_S = 495e12
 
-POLICY_II = (256, 256, 256)       # paper Table 5 deployment MLPs
-POLICY_III = (4096, 512, 1024)
 BUCKETS = (8, 32, 128, 512)
 SESSIONS, STEPS, SWAP_AT = 512, 200, 100
 # each backend is served twice, in this order and then reversed, so that
@@ -215,6 +225,51 @@ CACHE_ATOL = 1e-5                 # docs/contracts.md, "Attention parity"
 # plain version
 LM_LONG = (4, 4096)
 LM_LONG_ATOL = 1e-3
+# the conv phase: the paper's Atari conv actor (Appendix B; Policies A/B/C
+# of Table 10, src/repro/configs/quarl_atari.py:29-32, the port's copy in
+# src/repro_torch/configs/quarl_atari.py) on pixel Catch (10x10x1, 3
+# actions): the forward at DQNConfig's 8 behaviour envs and at the 256 of
+# benchmarks/actor_throughput.py:45-49, a 200-step rollout of each
+CONV_ENVS = (8, 256)
+# the rollouts take the backends in this order, reversed at every other
+# (policy, envs) cell, so no backend always runs first
+CONV_BACKENDS = ("fp32", "int8", "int4")
+CONV_ROLL_STEPS = 200
+CONV_CPU_ATOL = 1e-4              # the card's forward against the CPU's
+# DQN on Catch at Policy A width (ATARI_DQN) with DQNConfig's defaults:
+# (name, loops.train keywords); the QAT run's delay is QAT_DELAY
+CONV_TRAIN_ITERS, CONV_TRAIN_RECORD = 50, 25
+CONV_TRAIN_RUNS = (("qat8", {}), ("actorq_int4", dict(actor_backend="int4")),
+                   ("actorq_int8", dict(actor_backend="int8")),
+                   ("fp32", {}))
+# bars on max(eval rewards): set only where the JAX package clears them on
+# the CPU at the same config (tools/jax_catch_rewards.py; PERF.md)
+CONV_TRAIN_BARS = {}
+# A7's convergence bar, verbatim (tests/test_async_actor_learner.py:
+# 215-228): async int8 on Catch, held to max(rewards) > A7_BAR
+A7_RUN = dict(topology="async", num_actors=2, sync_every=16,
+              steps_per_call=4, actor_backend="int8", iterations=800,
+              record_every=100, eval_episodes=16, seed=0,
+              net_kwargs=dict(conv_filters=(8, 8), fc_width=32),
+              algo_overrides=dict(n_envs=8, rollout_steps=8,
+                                  updates_per_iter=4, buffer_size=8192,
+                                  batch_size=32, warmup=256,
+                                  eps_decay_updates=800,
+                                  target_update_every=100))
+A7_BAR = 0.0
+
+
+def quarl_atari():
+    """The paper's policy configs (deployment MLPs I-III of Table 5, conv
+    Policies A-C of Table 10): the port's copy of
+    ``src/repro/configs/quarl_atari.py``, a data module, loaded by its path
+    so the tools that import this script against another tree's ``src``
+    read this tree's configs."""
+    path = ROOT / "src" / "repro_torch" / "configs" / "quarl_atari.py"
+    spec = importlib.util.spec_from_file_location("_quarl_atari", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def bound(nbytes: float, ops: float, ops_per_s: float = INT8_OPS_PER_S):
@@ -460,6 +515,45 @@ def site_rows(torch, dev, gen) -> list:
     return rows
 
 
+def b1_row(torch, dev, gen, label, m, k, n, bits, reps=25) -> dict:
+    """B1 at ``(m, k, n)``, ``bits``-bit weights, on seeded random inputs
+    (drawn on ``gen``'s device): bitwise against its plain version, and
+    timed beside it and ``torch._int_mm`` (where that takes the shape: M
+    > 16, K and N multiples of 8, int8) with its bound."""
+    from repro_torch.core import affine, ptq
+    from repro_torch.kernels import int8_matmul
+    x = torch.randn((m, k), generator=gen, device=gen.device).to(dev) * 1.5
+    w = (torch.randn((k, n), generator=gen, device=gen.device)
+         / k ** 0.5).to(dev)
+    xq, xp = affine.quantize_to_int(x, 8)
+    pw = ptq._pack_leaf(w, bits)
+    del x, w
+    args = (xq, pw.codes, xp.delta, xp.zero_point, pw.col_scale,
+            pw.col_zero)
+    got = int8_matmul.int8_matmul_cuda(*args, w_bits=bits)
+    want = int8_matmul.int8_matmul_plain(*args, w_bits=bits)
+    torch.cuda.synchronize()
+    same = torch.equal(got, want)
+    err = float((got - want).abs().max())
+    del got, want
+    check(same, f"int8_matmul bits={bits} {m}x{k}x{n} bitwise "
+                f"(max abs diff {err})")
+    lib_ms = None
+    if bits == 8 and m > 16 and k % 8 == 0 and n % 8 == 0:
+        wq = pw.codes
+        lib_ms = device_ms(torch, lambda: torch._int_mm(xq, wq), reps=reps)
+    nbytes = m * k + pw.codes.numel() + 8 * n + 8 + 4 * m * n
+    b_ms, b_by = bound(nbytes, 2.0 * m * k * n)
+    return dict(
+        name="int8_matmul", label=label, bits=bits, shape=[m, k, n],
+        plan=int8_matmul.plan(m, k, n), bitwise=same, max_abs_err=err,
+        ms=device_ms(torch, lambda: int8_matmul.int8_matmul_cuda(
+            *args, w_bits=bits), reps=reps),
+        plain_ms=device_ms(torch, lambda: int8_matmul.int8_matmul_plain(
+            *args, w_bits=bits), reps=reps),
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
+
+
 def b1_path_shapes(torch, dev, fn) -> list:
     """The ``(M, K, N, bits)`` of every B1 launch ``fn()`` makes (each
     launched and counted as usual), in order of first launch."""
@@ -486,10 +580,8 @@ def train_phase(torch, dev, smi, counters) -> dict:
 
     Each run is driven with every kernel count set to 0 just before it
     and read just after, and held to its launch counts and its bar."""
-    from repro_torch.core import ptq
     from repro_torch.core.qconfig import QuantConfig
-    from repro_torch.rl import buffer as rb
-    from repro_torch.rl import dqn, loops
+    from repro_torch.rl import loops
     runs = (("qat8", dict(quant=QuantConfig.qat(8, quant_delay=QAT_DELAY))),
             ("actorq_int4", dict(actor_backend="int4", calib_batch=32)),
             ("actorq_int8", dict(actor_backend="int8", calib_batch=32)),
@@ -558,10 +650,33 @@ def train_phase(torch, dev, smi, counters) -> dict:
         rows.append(row)
         print("train " + json.dumps(row))
 
-    # one TD update of the QAT run (past the delay) on the card and,
-    # from the same state and batch, on the CPU
-    res = results["qat8"]
-    check(int(res.state.step) >= QAT_DELAY, "the QAT run is past its delay")
+    rows.append(dict(td_replay=td_replay(torch, dev, results["qat8"], smi,
+                                         "train")))
+    rows += profile_iterations(torch, dev, results, "train")
+    per_iter = {r["profile"]["run"]: r["profile"]["kernels_per_call"]
+                for r in rows if "profile" in r}
+    side = dict(qat8=per_iter["qat8"], fp32=per_iter["fp32"],
+                ratio=per_iter["qat8"] / per_iter["fp32"],
+                bound=QAT_KERNEL_RATIO, card=smi)
+    print("train kernels per iteration " + json.dumps(side))
+    check(side["ratio"] <= QAT_KERNEL_RATIO,
+          f"a QAT iteration launches {side['qat8']} kernels, fp32 "
+          f"{side['fp32']}: more than {QAT_KERNEL_RATIO}x")
+    rows.append(dict(kernels_per_iteration=side))
+    return dict(rows=rows, qat_launches=next(
+        r["launches"] for r in rows if r.get("run") == "qat8"))
+
+
+def td_replay(torch, dev, res, smi: str, label: str) -> dict:
+    """One TD update of the QAT run ``res`` (past its delay) on the card
+    and, from the same state and batch, on the CPU: the loss, |td| and
+    every state tensor's largest difference, printed and held to
+    ``TD_ATOL``."""
+    from repro_torch.core import ptq
+    from repro_torch.rl import buffer as rb
+    from repro_torch.rl import dqn
+    check(int(res.state.step) >= QAT_DELAY, f"{label}: the QAT run is past "
+                                            f"its delay")
     td = dqn.make_td_update(res.env, res.net, res.algo_cfg)
     batch = rb.replay_sample(res.state.extras.replay,
                              torch.Generator(device=dev).manual_seed(SEED),
@@ -591,13 +706,19 @@ def train_phase(torch, dev, smi, counters) -> dict:
                   max_abs_diff=diffs,
                   td_rows_over_1e6=int((td_diff > 1e-6).sum()),
                   td_max_abs_diff=float(td_diff.max()), card=smi)
-    print("train td_replay " + json.dumps(replay))
+    print(f"{label} td_replay " + json.dumps(replay))
     check(replay["loss_abs_diff"] <= TD_ATOL
           and max(diffs.values()) <= TD_ATOL,
-          f"TD update on the card vs the CPU: {replay}")
-    rows.append(dict(td_replay=replay))
+          f"{label}: TD update on the card vs the CPU: {replay}")
+    return replay
 
-    # where an iteration's time goes, profiled after every timed run
+
+def profile_iterations(torch, dev, results: dict, label: str) -> list:
+    """Where an iteration's time goes: two further fused iterations of
+    each run in ``results`` (name -> ``TrainResult``) under
+    ``profile_calls``, after every timed run; printed, one row a run."""
+    from repro_torch.rl import dqn
+    rows = []
     for name, res in results.items():
         iteration, _, benv = dqn.make_iteration(res.env, res.net,
                                                 res.algo_cfg, dev)
@@ -609,19 +730,8 @@ def train_phase(torch, dev, smi, counters) -> dict:
             carry[0], carry[1], carry[2], _ = iteration(*carry, gen)
         prof = dict(run=name, **profile_calls(torch, one, n=2))
         rows.append(dict(profile=prof))
-        print("train profile " + json.dumps(prof))
-    per_iter = {r["profile"]["run"]: r["profile"]["kernels_per_call"]
-                for r in rows if "profile" in r}
-    side = dict(qat8=per_iter["qat8"], fp32=per_iter["fp32"],
-                ratio=per_iter["qat8"] / per_iter["fp32"],
-                bound=QAT_KERNEL_RATIO, card=smi)
-    print("train kernels per iteration " + json.dumps(side))
-    check(side["ratio"] <= QAT_KERNEL_RATIO,
-          f"a QAT iteration launches {side['qat8']} kernels, fp32 "
-          f"{side['fp32']}: more than {QAT_KERNEL_RATIO}x")
-    rows.append(dict(kernels_per_iteration=side))
-    return dict(rows=rows, qat_launches=next(
-        r["launches"] for r in rows if r.get("run") == "qat8"))
+        print(f"{label} profile " + json.dumps(prof))
+    return rows
 
 
 def _merged(spans):
@@ -706,6 +816,40 @@ def _bitwise_runs(torch, a, b) -> bool:
                 ptq.tree_tensors(b.state.params))))
 
 
+def anchor_runs(torch, env_name: str, smi: str, label: str,
+                **net) -> dict:
+    """The topologies' bitwise anchors on ``env_name`` at ``SMALL_DQN``,
+    fp32 and int8 actors: actor-learner with one actor pushed every
+    iteration is the fused driver, async in barrier mode is actor-learner,
+    and ``steps_per_call`` 3 is the per-step driver.  Printed and checked;
+    returns the verdicts and rewards by backend."""
+    from repro_torch.rl import loops
+    small = dict(iterations=6, record_every=3, eval_episodes=2, seed=7,
+                 algo_overrides=dict(SMALL_DQN), **net)
+    anchors = {}
+    for backend in ("fp32", "int8"):
+        kw = dict(small, actor_backend=backend)
+        fused = loops.train("dqn", env_name, **kw)
+        sync = loops.train("dqn", env_name, topology="actor-learner",
+                           num_actors=1, sync_every=1, **kw)
+        barrier = loops.train("dqn", env_name, topology="async",
+                              num_actors=1,
+                              sync_every=SMALL_DQN["updates_per_iter"],
+                              async_barrier=True, steps_per_call=1, **kw)
+        chunked = loops.train("dqn", env_name, steps_per_call=3, **kw)
+        anchors[backend] = dict(
+            actor_learner_is_fused=_bitwise_runs(torch, fused, sync),
+            async_barrier_is_actor_learner=_bitwise_runs(torch, sync,
+                                                         barrier),
+            chunked_is_per_step=_bitwise_runs(torch, fused, chunked),
+            rewards=sync.rewards)
+        check(all(v for v in anchors[backend].values()
+                  if isinstance(v, bool)),
+              f"{backend} {label} anchors on the card: {anchors[backend]}")
+    print(f"{label} anchors " + json.dumps(dict(anchors, card=smi)))
+    return anchors
+
+
 def topology_programs(torch, dev, backend: str, calib_batch: int = 0):
     """The async programs of the topology phase's config on the card and
     a first state: ``(progs, learner, wbuf, env_state, obs, snap)``."""
@@ -740,28 +884,7 @@ def topology_phase(torch, dev, smi, counters) -> dict:
     bar and finite divergences and lags; then two rounds of each,
     profiled per stream."""
     from repro_torch.rl import actor_learner, actorq, loops
-    rows, anchors = [], {}
-    small = dict(iterations=6, record_every=3, eval_episodes=2, seed=7,
-                 algo_overrides=dict(SMALL_DQN))
-    for backend in ("fp32", "int8"):
-        kw = dict(small, actor_backend=backend)
-        fused = loops.train("dqn", "cartpole", **kw)
-        sync = loops.train("dqn", "cartpole", topology="actor-learner",
-                           num_actors=1, sync_every=1, **kw)
-        barrier = loops.train("dqn", "cartpole", topology="async",
-                              num_actors=1,
-                              sync_every=SMALL_DQN["updates_per_iter"],
-                              async_barrier=True, steps_per_call=1, **kw)
-        anchors[backend] = dict(
-            actor_learner_is_fused=_bitwise_runs(torch, fused, sync),
-            async_barrier_is_actor_learner=_bitwise_runs(torch, sync,
-                                                         barrier),
-            rewards=sync.rewards)
-        check(all(v for v in anchors[backend].values()
-                  if isinstance(v, bool)),
-              f"{backend} anchors on the card: {anchors[backend]}")
-    print("topology anchors " + json.dumps(dict(anchors, card=smi)))
-    rows.append(dict(anchors=anchors))
+    rows = [dict(anchors=anchor_runs(torch, "cartpole", smi, "topology"))]
 
     results = {}
     for name, kw in TOPO_RUNS:
@@ -870,6 +993,314 @@ def topology_phase(torch, dev, smi, counters) -> dict:
         print("topology profile " + json.dumps(prof))
     return dict(rows=rows, launches=next(
         r["launches"] for r in rows if r.get("run") == "async_int8"))
+
+
+def conv_boards(torch, dev, n: int, seed: int):
+    """``n`` Catch observations three steps into their episodes (the ball
+    in the board's fourth row), drawn on the card."""
+    from repro_torch.rl.envs import make
+    env = make("catch")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    state, obs = env.reset(gen, n, dev)
+    for _ in range(3):
+        state, obs, _, _ = env.step(state, torch.randint(
+            0, 3, (n,), generator=gen, device=dev), gen)
+    return obs
+
+
+def with_plain_b1(fn):
+    """``fn()`` with B1's plain version in the kernel's place: the same
+    actor's plain replay on the card (no launch counted)."""
+    from repro_torch.kernels import int8_matmul
+    orig = int8_matmul.int8_matmul_cuda
+    int8_matmul.int8_matmul_cuda = int8_matmul.int8_matmul_plain
+    try:
+        return fn()
+    finally:
+        int8_matmul.int8_matmul_cuda = orig
+
+
+def qat_site_launches(filters, fc_width: int, batch: int, hw: int = 100,
+                      n_out: int = 3) -> int:
+    """B5 launches of one QAT forward of the Catch conv net on ``batch``
+    boards of ``hw`` pixels: the activation sites ``conv{i}/out``,
+    ``fc/out`` and ``out/out`` and the dense weight sites ``fc/w`` and
+    ``out/w`` (the conv kernels' per-channel sites are plain torch), each
+    one launch up to 4,096 elements and two above."""
+    def site(n):
+        return 1 if n <= 4096 else 2
+    return (sum(site(batch * hw * f) for f in filters)
+            + site(hw * filters[-1] * fc_width) + site(batch * fc_width)
+            + site(fc_width * n_out) + site(batch * n_out))
+
+
+def conv_phase(torch, dev, smi, counters) -> dict:
+    """The conv path: the paper's Atari conv actor on pixel Catch.
+
+    The int8 / int4 / fp32 actors of Policies A, B and C at ``CONV_ENVS``
+    envs: each forward's launches, the quantized ones bitwise their plain
+    replay on the card (B1's plain version), at 8 envs within
+    ``CONV_CPU_ATOL`` of the CPU's, timed and profiled; a
+    ``CONV_ROLL_STEPS`` rollout of each, in turns.  Then DQN on Catch at
+    Policy A width (``CONV_TRAIN_RUNS``: exact launch counts, one QAT TD
+    update replayed on the CPU, two profiled iterations a run), A7's async
+    int8 bar (``A7_RUN``), the three anchors at a small conv net, and B1
+    bitwise and timed at every shape these paths gave it.  Each run is
+    driven with every count set to 0 just before it and read just after.
+    """
+    from repro_torch.core import ptq
+    from repro_torch.core.qconfig import QuantConfig
+    from repro_torch.rl import actorq, dqn, loops
+    from repro_torch.rl import env as env_mod
+    from repro_torch.rl import networks
+    from repro_torch.rl.env import batched_env
+    from repro_torch.rl.envs import make
+    cfgs = quarl_atari()
+    env = make("catch")
+    rows = dict(forward=[], rollout=[], train=[], b1=[], seconds={})
+    b1_seen = []
+    t_part = [time.perf_counter()]
+
+    def part_done(name):
+        now = time.perf_counter()
+        rows["seconds"][name] = now - t_part[0]
+        t_part[0] = now
+
+    def record(label, fn):
+        for m, k, n, bits in b1_path_shapes(torch, dev, fn):
+            if all((m, k, n, bits) != s[1:] for s in b1_seen):
+                b1_seen.append((label, m, k, n, bits))
+
+    def counted(fn):
+        for c in counters.values():
+            c.reset()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t, {k: c.value
+                                              for k, c in counters.items()}
+
+    # ---- the actors of Policies A, B and C, params drawn on the card
+    actors = {}
+    for pname, pcfg in (("A", cfgs.POLICY_A), ("B", cfgs.POLICY_B),
+                        ("C", cfgs.POLICY_C)):
+        net = networks.make_network(
+            env.spec.obs_shape, env.spec.n_actions,
+            conv_filters=pcfg.conv_filters, fc_width=pcfg.fc_width,
+            device=dev)
+        params = net.init(torch.Generator(device=dev).manual_seed(SEED + 80))
+        actors[pname] = (net, params, len(pcfg.conv_filters) + 2, {
+            b: actorq.pack_actor_params(params, actorq.backend_bits(b))
+            for b in ("int8", "int4")})
+    for pname, (net, params, layers, caches) in actors.items():
+        for n_envs in CONV_ENVS:
+            obs = conv_boards(torch, dev, n_envs, SEED + 81)
+            for backend in CONV_BACKENDS:
+                cache = caches.get(backend)
+                if cache is None:
+                    def fwd(obs=obs, net=net, params=params):
+                        return net.apply(params, obs)
+                else:
+                    def fwd(obs=obs, cache=cache):
+                        return actorq.quantized_apply(cache, obs)
+                got, _, n = counted(fwd)
+                want = dict.fromkeys(counters, 0)
+                if cache is not None:
+                    want["int8_matmul"] = layers
+                what = f"conv forward Policy {pname} {backend} {n_envs} envs"
+                check(n == want, f"{what}: launches {n}, want {want}")
+                check(tuple(got.shape) == (n_envs, env.spec.n_actions)
+                      and bool(torch.isfinite(got).all()),
+                      f"{what}: finite Q of shape {tuple(got.shape)}")
+                row = dict(policy=pname, envs=n_envs, backend=backend,
+                           launches=n)
+                if cache is not None:
+                    record(f"conv Policy {pname}", fwd)
+                    plain = with_plain_b1(fwd)
+                    torch.cuda.synchronize()
+                    row["bitwise_plain_replay"] = bool(
+                        torch.equal(got, plain)
+                        and torch.equal(got.argmax(-1), plain.argmax(-1)))
+                    check(row["bitwise_plain_replay"],
+                          f"{what}: bitwise its plain replay on the card "
+                          f"(max abs diff "
+                          f"{float((got - plain).abs().max())})")
+                if n_envs == CONV_ENVS[0]:
+                    tree = ptq.tree_to(params if cache is None else cache,
+                                       "cpu")
+                    cpu = (net.apply(tree, obs.cpu()) if cache is None
+                           else actorq.quantized_apply(tree, obs.cpu()))
+                    diff = (got.cpu() - cpu).abs().amax(-1)
+                    top2 = cpu.topk(2, dim=-1).values
+                    must = (top2[:, 0] - top2[:, 1]) > 2 * diff
+                    agree = got.cpu().argmax(-1) == cpu.argmax(-1)
+                    row.update(cpu_max_abs_diff=float(diff.max()),
+                               cpu_argmax_equal=int(agree.sum()))
+                    check(float(diff.max()) <= CONV_CPU_ATOL
+                          and bool(agree[must].all()),
+                          f"{what}: the CPU replay differs by "
+                          f"{float(diff.max())} (argmax equal on "
+                          f"{int(agree.sum())} of {n_envs})")
+                    del tree
+                prof = profile_calls(torch, fwd, n=5)
+                row.update(device_ms=device_ms(torch, fwd, reps=10,
+                                               per_rep=5),
+                           host_ms=prof["host_ms_per_call"],
+                           profiled_device_ms=prof["device_ms_per_call"],
+                           kernels=prof["kernels_per_call"],
+                           device_busy_share=prof["device_busy_share"],
+                           top=prof["top"], card=smi)
+                rows["forward"].append(row)
+                print("conv forward " + json.dumps(row))
+    part_done("forwards")
+
+    # ---- a rollout of each actor, the backends in turns
+    cell = 0
+    for pname, (net, params, layers, caches) in actors.items():
+        for n_envs in CONV_ENVS:
+            benv = batched_env(env, n_envs)
+            order = CONV_BACKENDS[::-1] if cell % 2 else CONV_BACKENDS
+            cell += 1
+            for backend in order:
+                cfg = dqn.DQNConfig(actor_backend=backend)
+                # epsilon at eps_end: the updates count is past the decay
+                pol = dqn.make_behaviour_policy(benv, net, cfg)(
+                    params, {}, torch.tensor(0, device=dev),
+                    torch.tensor(cfg.eps_decay_updates, device=dev),
+                    qparams=caches.get(backend))
+                gen = torch.Generator(device=dev).manual_seed(SEED + 82)
+                state, obs = benv.reset(gen, dev)
+                (_, _, traj), wall, n = counted(
+                    lambda pol=pol, state=state, obs=obs, gen=gen:
+                    env_mod.rollout(benv, pol, params, state, obs, gen,
+                                    CONV_ROLL_STEPS))
+                want = dict.fromkeys(counters, 0)
+                if backend in caches:
+                    want["int8_matmul"] = layers * CONV_ROLL_STEPS
+                what = f"conv rollout Policy {pname} {backend} {n_envs} envs"
+                check(n == want, f"{what}: launches {n}, want {want}")
+                check(bool(torch.isfinite(traj.logits_or_value).all()),
+                      f"{what}: finite Q-values")
+                row = dict(policy=pname, envs=n_envs, backend=backend,
+                           order=list(order), steps=CONV_ROLL_STEPS,
+                           wall_s=wall,
+                           env_steps_per_s=n_envs * CONV_ROLL_STEPS / wall,
+                           episodes_ended=int(traj.done.sum()),
+                           launches=n, card=smi)
+                rows["rollout"].append(row)
+                print("conv rollout " + json.dumps(row))
+    del actors
+    part_done("rollouts")
+
+    # ---- DQN on Catch at Policy A width
+    atari = cfgs.ATARI_DQN
+    net_kw = dict(conv_filters=atari.conv_filters, fc_width=atari.fc_width)
+    layers = len(atari.conv_filters) + 2
+    results = {}
+    for name, kw in CONV_TRAIN_RUNS:
+        if name == "qat8":
+            kw = dict(kw, quant=QuantConfig.qat(8, quant_delay=QAT_DELAY))
+        box = []
+        _, wall, n = counted(lambda kw=kw: record(
+            "conv train", lambda: box.append(loops.train(
+                "dqn", "catch", iterations=CONV_TRAIN_ITERS,
+                record_every=CONV_TRAIN_RECORD, steps_per_call=TRAIN_SPC,
+                seed=SEED, net_kwargs=net_kw, **kw))))
+        res = box[0]
+        cfg = res.algo_cfg
+        steps = CONV_TRAIN_ITERS * cfg.rollout_steps    # batched env steps
+        updates = CONV_TRAIN_ITERS * cfg.updates_per_iter
+        want = dict.fromkeys(counters, 0)
+        if name == "qat8":
+            # the fp32 actor's forwards (8 envs; evaluations of 8 episodes)
+            # and the learner's two a TD update
+            f = atari.conv_filters
+            want["fake_quant"] = (
+                qat_site_launches(f, atari.fc_width, cfg.n_envs) * steps
+                + qat_site_launches(f, atari.fc_width, 8) * res.eval_steps
+                + 2 * qat_site_launches(f, atari.fc_width, cfg.batch_size)
+                * updates)
+        elif actorq.is_quantized(cfg.actor_backend):
+            want["int8_matmul"] = layers * (steps + res.eval_steps)
+        check(n == want, f"conv train {name}: launches {n}, the config "
+                         f"implies {want}")
+        check(len(res.rewards) == CONV_TRAIN_ITERS // CONV_TRAIN_RECORD
+              and all(np.isfinite(res.rewards)),
+              f"conv train {name}: rewards {res.rewards}")
+        bar = CONV_TRAIN_BARS.get(name)
+        check(bar is None or max(res.rewards) > bar,
+              f"conv train {name}: max eval reward {max(res.rewards)} does "
+              f"not clear its bar {bar} ({res.rewards})")
+        row = dict(run=name, rewards=res.rewards, bar=bar, wall_s=wall,
+                   updates_per_s=updates / wall,
+                   env_steps_per_s=steps * cfg.n_envs / wall,
+                   eval_env_steps=res.eval_steps, launches=n,
+                   observers={k: [float(o.vmin), float(o.vmax)]
+                              for k, o in res.state.observers.items()},
+                   card=smi)
+        rows["train"].append(row)
+        print("conv train " + json.dumps(row))
+        results[name] = res
+
+    rows["train"].append(dict(td_replay=td_replay(
+        torch, dev, results["qat8"], smi, "conv train")))
+    rows["train"] += profile_iterations(torch, dev, results, "conv train")
+    del results, res
+    part_done("train")
+
+    # ---- A7's convergence bar: async int8 on Catch, verbatim
+    box = []
+    _, wall, n = counted(lambda: record("conv async", lambda: box.append(
+        loops.train("dqn", "catch", **A7_RUN))))
+    res = box[0]
+    cfg = res.algo_cfg
+    steps = A7_RUN["iterations"] * cfg.rollout_steps
+    pushes = len(res.actor_lags)
+    a7_layers = len(A7_RUN["net_kwargs"]["conv_filters"]) + 2
+    want = dict.fromkeys(counters, 0)
+    want["int8_matmul"] = a7_layers * (steps + res.eval_steps
+                                       + pushes * A7_RUN["num_actors"])
+    check(n == want, f"conv async: launches {n}, the config implies {want}")
+    divs = np.asarray(res.divergences, dtype=np.float64)
+    check(divs.shape == (pushes, A7_RUN["num_actors"])
+          and np.isfinite(divs).all() and bool((divs > 0).any()),
+          f"conv async: divergences of shape {divs.shape}")
+    check(pushes > 0 and all(lag == A7_RUN["sync_every"]
+                             for lag in res.actor_lags),
+          f"conv async: actor lags {sorted(set(res.actor_lags))}")
+    check(max(res.rewards) > A7_BAR,
+          f"conv async: max eval reward {max(res.rewards)} does not clear "
+          f"{A7_BAR} ({res.rewards})")
+    updates = A7_RUN["iterations"] * cfg.updates_per_iter
+    row = dict(run="a7_async_int8", rewards=res.rewards, bar=A7_BAR,
+               wall_s=wall, updates_per_s=updates / wall,
+               env_steps_per_s=steps * cfg.n_envs * A7_RUN["num_actors"]
+               / wall, eval_env_steps=res.eval_steps, launches=n,
+               pushes=pushes, divergence_first=divs[0].tolist(),
+               divergence_last=divs[-1].tolist(),
+               divergence_mean=divs.mean(0).tolist(),
+               actor_lags=sorted(set(res.actor_lags)), card=smi)
+    rows["train"].append(row)
+    print("conv async " + json.dumps(row))
+    part_done("async")
+
+    # ---- the anchors on the card at a small conv net (cuDNN deterministic)
+    check(torch.backends.cudnn.deterministic, "cuDNN is deterministic")
+    rows["train"].append(dict(anchors=anchor_runs(
+        torch, "catch", smi, "conv",
+        net_kwargs=dict(conv_filters=(8, 8), fc_width=32))))
+    part_done("anchors")
+
+    # ---- B1 at every shape the conv paths gave it
+    gen = torch.Generator(device=dev).manual_seed(SEED + 83)
+    for label, m, k, n, bits in b1_seen:
+        rows["b1"].append(b1_row(torch, dev, gen, label, m, k, n, bits,
+                                 reps=10))
+        print("conv kernel " + json.dumps(rows["b1"][-1]))
+    part_done("b1_rows")
+    print("conv phase parts " + json.dumps(rows["seconds"]))
+    return rows
 
 
 def cache_inputs(torch, dev, gen, nb, nh, g, t, dh, how, layout):
@@ -1313,6 +1744,9 @@ def main() -> int:
     from repro_torch.serving import (PolicyServer, greedy_calib_obs,
                                      pad_rows, select_bucket)
 
+    policies = quarl_atari()
+    POLICY_II = policies.DEPLOY_POLICY_II.widths
+    POLICY_III = policies.DEPLOY_POLICY_III.widths
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1393,34 +1827,7 @@ def main() -> int:
         for m, k, n, b in b1_path_shapes(torch, dev, topology_calls):
             b1_rows.append(("topology", m, k, n, b))
     for label, m, k, n, bits in b1_rows:
-        x = torch.randn((m, k), generator=gen).to(dev) * 1.5
-        w = (torch.randn((k, n), generator=gen) / k ** 0.5).to(dev)
-        xq, xp = affine.quantize_to_int(x, 8)
-        pw = ptq._pack_leaf(w, bits)
-        args = (xq, pw.codes, xp.delta, xp.zero_point, pw.col_scale,
-                pw.col_zero)
-        got = int8_matmul.int8_matmul_cuda(*args, w_bits=bits)
-        want = int8_matmul.int8_matmul_plain(*args, w_bits=bits)
-        torch.cuda.synchronize()
-        same = torch.equal(got, want)
-        err = float((got - want).abs().max())
-        check(same, f"int8_matmul bits={bits} {m}x{k}x{n} bitwise "
-                    f"(max abs diff {err})")
-        lib_ms = None
-        if bits == 8 and m > 16 and k % 8 == 0 and n % 8 == 0:
-            wq = pw.codes
-            lib_ms = device_ms(torch, lambda: torch._int_mm(xq, wq))
-        nbytes = m * k + pw.codes.numel() + 8 * n + 8 + 4 * m * n
-        b_ms, b_by = bound(nbytes, 2.0 * m * k * n)
-        rows.append(dict(
-            name="int8_matmul", label=label, bits=bits, shape=[m, k, n],
-            plan=int8_matmul.plan(m, k, n), bitwise=same,
-            max_abs_err=err,
-            ms=device_ms(torch, lambda: int8_matmul.int8_matmul_cuda(
-                *args, w_bits=bits)),
-            plain_ms=device_ms(torch, lambda: int8_matmul.
-                               int8_matmul_plain(*args, w_bits=bits)),
-            bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
+        rows.append(b1_row(torch, dev, gen, label, m, k, n, bits))
     for bits in (8, 4):
         for pname, widths in (("II", POLICY_II), ("III", POLICY_III)):
             qp = actorq.pack_actor_params(
@@ -1834,6 +2241,15 @@ def main() -> int:
                             fake_quant.launches)})
     print(f"topology phase: {time.perf_counter() - t_topo:.1f}s")
 
+    # ---- conv phase (the paper's Atari conv actor on pixel Catch) --------
+    t_conv = time.perf_counter()
+    conv = conv_phase(torch, dev, smi, {
+        c.name: c for c in (int8_matmul.launches, fused_qmlp.launches,
+                            int8_cache_attention.launches,
+                            fake_quant.launches)})
+    rows += conv["b1"]
+    print(f"conv phase: {time.perf_counter() - t_conv:.1f}s")
+
     # ---- LM phase (prefill and greedy decode) -----------------------------
     t_lm = time.perf_counter()
     lm = lm_phase(torch, dev, smi, {
@@ -1884,6 +2300,9 @@ def main() -> int:
         dict(card=smi, kernel_rows=rows, serve_rows=serve_rows,
              rollout_rows=roll_rows, eval_row=eval_row,
              train_rows=train["rows"], topology_rows=topo["rows"],
+             conv_rows=dict(forward=conv["forward"],
+                            rollout=conv["rollout"], train=conv["train"],
+                            seconds=conv["seconds"]),
              lm_rows=lm,
              path_launches=dict(serve=launches, rollout=roll_launches,
                                 train_qat=train["qat_launches"],

@@ -11,11 +11,17 @@ The range is divided by ``2**n`` (not ``2**n - 1``), exactly as the paper
 and the reference do.  Every op here is a plain torch op in float32 with
 round-half-to-even (``torch.round``), so codes and params agree with the
 reference bit for bit on the same inputs.  The reference's CPU int-key
-range trick is an XLA workaround and has no counterpart here.
+range trick is an XLA workaround and has no counterpart here: it is exact
+for every finite float, and where it and ``amin`` / ``amax`` differ (the
+sign of a -0.0 / 0.0 tie) the derived params do not.
+
+Dense weights are quantized per tensor; conv kernels per output channel
+(``axis``: the quantization axis is kept and every other axis reduced),
+as the paper and the reference do.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -40,9 +46,17 @@ def affine_params_from_range(wmin: torch.Tensor, wmax: torch.Tensor,
     return AffineParams(delta=delta, zero_point=zero_point, bits=bits)
 
 
-def compute_affine_params(w: torch.Tensor, bits: int) -> AffineParams:
-    """Per-tensor params over all of ``w``."""
-    return affine_params_from_range(w.amin(), w.amax(), bits)
+def compute_affine_params(w: torch.Tensor, bits: int,
+                          axis: Optional[int] = None) -> AffineParams:
+    """Per-tensor params over all of ``w`` (``axis=None``), or per-axis
+    params: reduced over every axis but ``axis``, kept with size 1, so a
+    conv kernel's ``(kh, kw, C_in, C_out)`` gives ``(1, 1, 1, C_out)``."""
+    if axis is None:
+        return affine_params_from_range(w.amin(), w.amax(), bits)
+    axis = axis % w.dim()
+    dims = tuple(i for i in range(w.dim()) if i != axis)
+    return affine_params_from_range(w.amin(dim=dims, keepdim=True),
+                                    w.amax(dim=dims, keepdim=True), bits)
 
 
 def quantize(w: torch.Tensor, params: AffineParams) -> torch.Tensor:
@@ -62,15 +76,15 @@ def quantize_dequantize(w: torch.Tensor, params: AffineParams
     return dequantize(quantize(w, params), params)
 
 
-def ptq_tensor(w: torch.Tensor, bits: int, axis=None) -> torch.Tensor:
+def ptq_tensor(w: torch.Tensor, bits: int,
+               axis: Optional[int] = None) -> torch.Tensor:
     """One-shot post-training quantize-dequantize of a tensor over its
-    own range (Algorithm 1), through ``kernels.ops.fake_quant`` (kernel
-    B5 on the card).  Per-axis (conv) quantization comes with the conv
-    actor (ROADMAP queue A, item 6) and raises until then."""
+    own range (Algorithm 1).  Per tensor it goes through
+    ``kernels.ops.fake_quant`` (kernel B5 on the card); per axis it is
+    plain torch on every device, as the reference computes it with jnp
+    ops outside its kernel."""
     if axis is not None:
-        raise NotImplementedError(
-            "per-axis (conv) quantization is not ported yet (ROADMAP "
-            "queue A, item 6)")
+        return quantize_dequantize(w, compute_affine_params(w, bits, axis))
     from repro_torch.kernels import ops      # ops imports this module
     return ops.fake_quant(w, bits)
 
@@ -84,14 +98,15 @@ def _int_dtype(bits: int) -> torch.dtype:
     return torch.int8 if bits <= 8 else torch.int16
 
 
-def quantize_to_int(w: torch.Tensor, bits: int
+def quantize_to_int(w: torch.Tensor, bits: int, axis: Optional[int] = None
                     ) -> Tuple[torch.Tensor, AffineParams]:
     """Quantize into signed storage: codes ``q - 2**(bits-1)``.
 
-    Returns the codes and the params with the zero point shifted by the
-    same offset, so ``dequantize_from_int`` needs no offset.
+    Returns the codes and the params (per tensor, or per ``axis``) with
+    the zero point shifted by the same offset, so ``dequantize_from_int``
+    needs no offset.
     """
-    params = compute_affine_params(w, bits)
+    params = compute_affine_params(w, bits, axis)
     offset = 2.0 ** (bits - 1)
     q_signed = (quantize(w, params) - offset).to(_int_dtype(bits))
     return q_signed, AffineParams(params.delta, params.zero_point - offset,

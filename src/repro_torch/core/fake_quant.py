@@ -6,6 +6,10 @@ Counterpart of ``repro/core/fake_quant.py``:
 * ``ObserverState`` / ``observe`` -- a tensor's running min/max (an EMA
   of the batch min/max), monitored for the first ``quant_delay`` updates
   and frozen after;
+* ``fake_quant`` / ``fake_quant_self_range`` -- the paper's Q_n^train
+  with the straight-through estimator over a given range, a scalar or one
+  a channel (the conv weight site), or the tensor's own range: plain
+  torch, as the reference computes them in jnp outside its kernel;
 * ``QATContext`` -- what a layer calls at each quantized site:
   ``weight(name, w)`` and ``activation(name, x)``.  It reads observer
   slots from ``collection`` and records their updates in ``updates``.
@@ -28,6 +32,7 @@ from typing import Dict, NamedTuple, Optional
 
 import torch
 
+from repro_torch.core import affine
 from repro_torch.core.qconfig import QuantConfig
 from repro_torch.kernels import fake_quant as _fk
 from repro_torch.kernels import ops
@@ -61,6 +66,39 @@ def observe(state: ObserverState, x: torch.Tensor, ema_decay: float,
     """
     return ObserverState(*_fk.observe_plain(
         state.vmin, state.vmax, state.initialized, x, ema_decay, monitoring))
+
+
+class _STEQuantizeDequantize(torch.autograd.Function):
+    """``affine.quantize_dequantize`` forward; the gradient passes to the
+    input unchanged and to the params not at all (the paper's STE)."""
+
+    @staticmethod
+    def forward(ctx, w, delta, zero_point, bits):
+        return affine.quantize_dequantize(
+            w, affine.AffineParams(delta, zero_point, bits))
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None, None
+
+
+def fake_quant(w: torch.Tensor, vmin: torch.Tensor, vmax: torch.Tensor,
+               bits: int) -> torch.Tensor:
+    """The paper's Q_n^train with the straight-through estimator, over the
+    range ``(vmin, vmax)`` extended to 0: 0-d tensors, or per-channel ones
+    that broadcast against ``w``'s last axis.  Identity gradient to ``w``,
+    none to the range."""
+    p = affine.affine_params_from_range(vmin.to(torch.float32),
+                                        vmax.to(torch.float32), bits)
+    return _STEQuantizeDequantize.apply(w.to(torch.float32), p.delta,
+                                        p.zero_point, bits).to(w.dtype)
+
+
+def fake_quant_self_range(w: torch.Tensor, bits: int) -> torch.Tensor:
+    """``fake_quant`` over ``w``'s own instantaneous range (min and max of
+    the whole tensor)."""
+    return fake_quant(w, torch.clamp(w.amin(), max=0.0),
+                      torch.clamp(w.amax(), min=0.0), bits)
 
 
 class _ActivationSite(torch.autograd.Function):
@@ -114,6 +152,11 @@ class QATContext:
     def enabled(self) -> torch.Tensor:
         """True once fake quantization is on."""
         return self.step >= self.config.quant_delay
+
+    @property
+    def monitoring(self) -> torch.Tensor:
+        """True while the observers still move (before the delay)."""
+        return self.step < self.config.quant_delay
 
     def _slot(self, name: str) -> ObserverState:
         if name in self.updates:

@@ -4,11 +4,13 @@ Counterpart of ``repro/core/ptq.py``: ``ptq_simulate`` quantize-dequantizes
 every weight in place of the float one (what the paper evaluates), and
 ``ptq_pack`` / ``ptq_unpack`` are the deployment form.  A param
 tree is nested dicts (and tuples) of tensors; ``ptq_pack`` turns every
-float weight of two dimensions into a ``PackedTensor`` -- int8 codes (or
-int4 codes two per byte) with per-tensor affine params -- and passes
-biases (one dimension) through unchanged, as the paper's per-layer weight
-quantization does.  Weights keep the reference's ``(K, N)`` layout
-(``y = x @ w``), so codes and column scales compare one for one.
+float weight of two dimensions or more into a ``PackedTensor`` -- int8
+codes (or int4 codes two per byte) with affine params, per tensor for a
+dense ``(K, N)`` weight and per output channel for an HWIO conv kernel --
+and passes biases (one dimension) through unchanged, as the paper's
+per-layer weight quantization does.  Weights keep the reference's
+layouts (``y = x @ w``; conv kernels HWIO), so codes and column scales
+compare one for one.
 """
 from __future__ import annotations
 
@@ -28,10 +30,13 @@ class PackedTensor:
     """An int-packed weight: codes + affine params (deployment format).
 
     ``col_scale`` / ``col_zero`` are the ``(N,)`` f32 per-column arrays the
-    GEMM epilogue reads, built once at pack time.  With ``bits <= 4`` the
-    codes are packed two per byte along K (``affine.pack_int4``) and
-    ``orig_shape`` holds the unpacked ``(K, N)``; ``None`` means the codes
-    are stored one per byte in the weight's own layout.
+    GEMM epilogue reads, built once at pack time (a per-tensor scale
+    broadcast, a conv kernel's per-channel one flattened).  With ``bits
+    <= 4`` the codes are packed two per byte along K (``affine.pack_int4``)
+    in the GEMM's ``(K, N)`` layout -- a conv kernel's first transposed to
+    the im2col ``(C_in * kh * kw, C_out)`` order -- and ``orig_shape``
+    holds the weight's unpacked shape; ``None`` means the codes are stored
+    one per byte in the weight's own layout (HWIO for a conv kernel).
     """
 
     codes: torch.Tensor
@@ -45,15 +50,26 @@ class PackedTensor:
     TENSOR_FIELDS = ("codes", "delta", "zero_point", "col_scale", "col_zero")
 
     def unpacked_codes(self) -> torch.Tensor:
-        """Codes widened to one per int8."""
+        """Codes widened to one per int8, in the stored ``(K, N)`` layout."""
         if self.orig_shape is None:
             return self.codes
-        return affine.unpack_int4(self.codes, self.orig_shape[0])
+        k = 1
+        for d in self.orig_shape[:-1]:
+            k *= d
+        return affine.unpack_int4(self.codes, k)
 
     def dequantize(self) -> torch.Tensor:
-        """The float32 weight ``delta * (q - z)``."""
+        """The float32 weight ``delta * (q - z)``, in the weight's shape."""
         p = affine.AffineParams(self.delta, self.zero_point, self.bits)
-        return affine.dequantize_from_int(self.unpacked_codes(), p)
+        codes = self.unpacked_codes()
+        if self.orig_shape is not None and len(self.orig_shape) == 4:
+            # packed conv codes lie in the im2col (C_in*kh*kw, C_out)
+            # order: back to HWIO, where the per-channel params broadcast
+            kh, kw, ci, co = self.orig_shape
+            codes = codes.reshape(ci, kh, kw, co).permute(1, 2, 0, 3)
+        elif self.orig_shape is not None:
+            codes = codes.reshape(self.orig_shape)
+        return affine.dequantize_from_int(codes, p)
 
     @property
     def nbytes(self) -> int:
@@ -122,19 +138,32 @@ def _is_weight(leaf: Any) -> bool:
             and leaf.dim() >= 2)
 
 
-def _pack_leaf(leaf: torch.Tensor, bits: int) -> PackedTensor:
-    """Quantize one dense ``(K, N)`` weight into the kernel layout."""
-    if leaf.dim() != 2:
-        raise NotImplementedError(
-            "the port packs dense (K, N) weights only; conv kernels come "
-            "with the int8 conv actor (ROADMAP queue A, item 6)")
-    codes, p = affine.quantize_to_int(leaf, bits)
+def _axis_for(leaf: torch.Tensor, config: QuantConfig) -> Optional[int]:
+    """The quantization axis: a conv kernel's output channels (HWIO, the
+    last axis) under ``per_axis_conv``, else ``None`` (per tensor)."""
+    if config.per_axis_conv and leaf.dim() == 4:
+        return leaf.dim() - 1
+    return None
+
+
+def _pack_leaf(leaf: torch.Tensor, bits: int,
+               axis: Optional[int] = None) -> PackedTensor:
+    """Quantize one weight (per tensor, or per ``axis``) into the kernel
+    layout."""
+    codes, p = affine.quantize_to_int(leaf, bits, axis)
     n = leaf.shape[-1]
-    col_scale = p.delta.reshape(1).expand(n).clone()
-    col_zero = p.zero_point.reshape(1).expand(n).clone()
+    col_scale = p.delta.reshape(-1).expand(n).clone()
+    col_zero = p.zero_point.reshape(-1).expand(n).clone()
     if bits > 4:
         return PackedTensor(codes, p.delta, p.zero_point, bits,
                             col_scale, col_zero)
+    # sub-8-bit: the GEMM's (K, N) layout, a conv kernel in the im2col
+    # (C_in, kh, kw) feature order, then two codes a byte along K
+    if leaf.dim() == 4:
+        kh, kw, ci, co = codes.shape
+        codes = codes.permute(2, 0, 1, 3).reshape(ci * kh * kw, co)
+    else:
+        codes = codes.reshape(-1, n)
     return PackedTensor(affine.pack_int4(codes), p.delta, p.zero_point,
                         bits, col_scale, col_zero,
                         orig_shape=tuple(leaf.shape))
@@ -144,10 +173,10 @@ def ptq_simulate(params: Tree, config: QuantConfig) -> Tree:
     """Quantize-dequantize every weight (Algorithm 1's Q applied to M).
 
     Dense weights are quantized per tensor over their own range
-    (``affine.ptq_tensor``, kernel B5 on the card) or round-tripped
-    through fp16; biases pass through.  Conv kernels (per-axis) raise
-    until the conv actor is ported (ROADMAP queue A, item 6).  A config
-    that is not PTQ returns ``params`` as they are.
+    (``affine.ptq_tensor``, kernel B5 on the card), conv kernels per
+    output channel (plain torch), or either is round-tripped through
+    fp16; biases pass through.  A config that is not PTQ returns
+    ``params`` as they are.
     """
     if not config.is_ptq:
         return params
@@ -157,9 +186,7 @@ def ptq_simulate(params: Tree, config: QuantConfig) -> Tree:
             return leaf
         if config.mode == QuantMode.PTQ_FP16:
             return affine.fp16_quantize(leaf)
-        if leaf.dim() == 4 and config.per_axis_conv:
-            return affine.ptq_tensor(leaf, config.bits, axis=3)
-        return affine.ptq_tensor(leaf, config.bits)
+        return affine.ptq_tensor(leaf, config.bits, _axis_for(leaf, config))
     return tree_map(one, params)
 
 
@@ -167,8 +194,9 @@ def ptq_pack(params: Tree, config: QuantConfig) -> Tree:
     """Pack weights into int storage; non-weights pass through unchanged."""
     if config.mode != QuantMode.PTQ_INT:
         raise ValueError(f"packing is for int PTQ, got {config.mode}")
-    return tree_map(lambda leaf: _pack_leaf(leaf, config.bits)
-                    if _is_weight(leaf) else leaf, params)
+    return tree_map(lambda leaf: _pack_leaf(
+        leaf, config.bits, _axis_for(leaf, config))
+        if _is_weight(leaf) else leaf, params)
 
 
 def ptq_unpack(packed: Tree) -> Tree:

@@ -55,7 +55,11 @@
 // rows on the H100, so that stays in the producer's loop.)
 //
 // Bitwise agreement with the plain version (kernels/ref.py): the integer
-// sum is exact in any order (|acc| <= 4096 * 128 * 128 < 2**31); the
+// sum is exact in any order (|acc| <= K * 128 * 128 < 2**31 for K up to
+// 131,071: the conv actor's longest K, Policy C's fc at 102,400, gives at
+// most 1.68e9); the corrected bracket can pass 2**31 only for codes at the
+// ends of their range, and then wraps in int32 as the plain version's int32
+// arithmetic (and the reference oracle's) does; the
 // epilogue rounds each float op on its own (__fmul_rn; the library is also
 // built with -fmad=false), and int -> float is round-to-nearest
 // (__int2float_rn).

@@ -6,7 +6,9 @@ GEMMs and the fake quantizer, within 1e-5 for the float attention), and
 the path a CPU tensor takes.  CUDA has no integer ``matmul``, so the int32 accumulator is taken
 in float64, which is exact here: ``|acc| <= 2**14 * K < 2**53`` for any K
 the policies use (float32 would not be exact past 2**24, which K = 4096
-exceeds).  The float epilogue is separate torch ops, so nothing is fused
+exceeds), and its cast to int32 is exact while ``K < 2**17`` (the conv
+actor's longest K is 102,400); the corrected bracket is int32 and wraps
+as the kernel's does.  The float epilogue is separate torch ops, so nothing is fused
 into an FMA: ``(x_scale * w_scale) * corr``, then ``+ bias``.
 """
 from __future__ import annotations

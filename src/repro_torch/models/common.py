@@ -33,9 +33,9 @@ def init_params(specs: Any, generator: torch.Generator,
     ``normal``: normal draws times the leaf's scale (the reference's
     fan-in default ``1 / sqrt(shape[-2])``); ``embed``: normal draws times
     0.02; ``zeros`` and ``ones`` draw nothing.  Leaves are drawn in
-    sorted-key order from the CPU ``generator`` (so one seed gives the same
-    params on every device), then moved to ``device`` (``None`` is
-    ``cuda``).
+    sorted-key order from ``generator``, on its device (a CPU generator
+    gives the same params on every device; a CUDA one draws a large tree
+    on the card), then moved to ``device`` (``None`` is ``cuda``).
     """
     device = resolve_device(device)
 
@@ -55,8 +55,8 @@ def init_params(specs: Any, generator: torch.Generator,
                 else 1.0 / math.sqrt(fan_in)
         else:
             raise ValueError(f"unknown init {spec.init!r}")
-        return torch.randn(spec.shape, generator=generator).mul_(scale
-                                                                 ).to(device)
+        return torch.randn(spec.shape, generator=generator,
+                           device=generator.device).mul_(scale).to(device)
 
     return make(specs)
 

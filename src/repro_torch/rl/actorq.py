@@ -1,13 +1,19 @@
-"""ActorQ: the packed int8/int4 actor of the port (MLP and sequence
-policies).
+"""ActorQ: the packed int8/int4 actor of the port (MLP, conv and
+sequence policies).
 
-Counterpart of ``repro/rl/actorq.py`` (lines 85-157, 164-205, 259-302,
-325-512, 489-554).  fp32 policy params are packed once per push into an
-int cache (``pack_actor_params``); the actor forward then runs every dense
-layer through the W8A8 / W4A8 integer GEMM (``kernels.ops.int8_matmul``,
-kernel B1 on the card) with dynamic per-tensor activation quantization,
-or -- once ``calibrate_actor_cache`` has attached static activation params
--- the whole MLP in one launch (``kernels.ops.fused_qmlp``, kernel B2).
+Counterpart of ``repro/rl/actorq.py`` (lines 85-554).  fp32 policy params
+are packed once per push into an int cache (``pack_actor_params``); the
+actor forward then runs every dense layer through the W8A8 / W4A8 integer
+GEMM (``kernels.ops.int8_matmul``, kernel B1 on the card) with dynamic
+per-tensor activation quantization, or -- once ``calibrate_actor_cache``
+has attached static activation params -- the whole MLP in one launch
+(``kernels.ops.fused_qmlp``, kernel B2).
+
+Conv caches (``conv*`` keys: the paper's Atari backbone) run each conv
+through the same GEMM by an im2col lowering (``int8_conv2d``): per-output-
+channel int8 codes, the patch matrix quantized per tensor, the
+per-channel scales in B1's per-column epilogue.  They never calibrate, so
+they always take the per-layer path.
 
 The calibrated path is the dynamic path on the calibration batch, bit for
 bit: the static params are exactly those the dynamic quantizer derives at
@@ -17,14 +23,14 @@ Sequence-policy caches (an ``embed`` key) run the decoder transformer:
 windowed (``quantized_seq_apply``, for eval) or one token at a time on a
 per-env int8 KV cache (``quantized_seq_step``, the rollout hot path),
 whose attention is ``kernels.ops.int8_cache_attention`` (kernel B3 on the
-card).  Conv caches are not ported yet: they raise
-``NotImplementedError`` naming the ROADMAP item that brings them.
+card).
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Dict, Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core import affine, ptq
 from repro_torch.core.ptq import PackedTensor
@@ -69,15 +75,11 @@ def backend_bits(actor_backend: str) -> int:
     return _BACKEND_BITS[actor_backend]
 
 
-def _check_ported(qparams: QuantizedParams) -> None:
-    if any(n.startswith("conv") for n in qparams):
-        raise NotImplementedError(
-            "int8 conv actors are not ported yet (ROADMAP queue A, item 6)")
-
-
 def pack_actor_params(params: Any, bits: int = 8) -> QuantizedParams:
-    """Pack an fp32 MLP or sequence-policy param tree into the int-code
-    deployment cache (every 2-D weight; biases and norm gains stay fp32).
+    """Pack an fp32 MLP, conv or sequence-policy param tree into the
+    int-code deployment cache (every weight of two dims or more, dense
+    ones per tensor and conv kernels per output channel; biases and norm
+    gains stay fp32).
 
     ``bits <= 4`` stores two codes per byte along K (W4A8, half the
     cache); activations always quantize to 8 bits at run time.
@@ -85,7 +87,6 @@ def pack_actor_params(params: Any, bits: int = 8) -> QuantizedParams:
     if not 1 <= bits <= 8:
         raise ValueError(f"int actor cache needs 1 <= bits <= 8, "
                          f"got {bits}")
-    _check_ported(params)
     return ptq.ptq_pack(params, QuantConfig.ptq_int(bits))
 
 
@@ -134,6 +135,59 @@ def int8_dense(layer: Dict[str, Any], x: torch.Tensor, *,
     return y.reshape(lead + (_out_width(w),))
 
 
+def _same_pads(size: int, k: int, stride: int):
+    """TF-style "SAME" padding of one spatial axis: ``(before, after)``,
+    the odd pixel after (1 each side at stride 1, k 3)."""
+    total = max((-(-size // stride) - 1) * stride + k - size, 0)
+    return total // 2, total - total // 2
+
+
+def im2col(x: torch.Tensor, kh: int, kw: int, stride: int = 1
+           ) -> torch.Tensor:
+    """The "SAME" patches of NHWC ``x``: ``(B, Ho, Wo, C * kh * kw)``,
+    features in ``lax.conv_general_dilated_patches``' channel-major
+    ``(C, kh, kw)`` order (``F.unfold`` over the NCHW view)."""
+    b = x.shape[0]
+    top, bottom = _same_pads(x.shape[1], kh, stride)
+    left, right = _same_pads(x.shape[2], kw, stride)
+    xp = F.pad(x.permute(0, 3, 1, 2), (left, right, top, bottom))
+    ho = (xp.shape[-2] - kh) // stride + 1
+    wo = (xp.shape[-1] - kw) // stride + 1
+    cols = F.unfold(xp, (kh, kw), stride=stride)            # (B, K, L)
+    return cols.transpose(1, 2).reshape(b, ho, wo, cols.shape[1])
+
+
+def int8_conv2d(layer: Dict[str, Any], x: torch.Tensor, stride: int = 1,
+                act: Optional[Callable] = torch.relu) -> torch.Tensor:
+    """One "SAME" conv through the W{8,4}A8 integer GEMM by im2col.
+
+    ``layer`` is ``{"w": PackedTensor, "b": f32}`` with per-output-channel
+    codes (HWIO one a byte, or int4 pre-transposed to the im2col ``(C_in *
+    kh * kw, C_out)`` order and packed); ``x`` is NHWC f32.  The patch
+    matrix (``im2col``) is quantized per tensor to 8 bits from its live
+    range, and the product runs through ``ops.int8_matmul`` with the
+    per-channel scales in the per-column epilogue.  Returns NHWC.
+    """
+    w: PackedTensor = layer["w"]
+    kh, kw, _, c_out = w.orig_shape if w.orig_shape is not None \
+        else w.codes.shape
+    patches = im2col(x, kh, kw, stride)
+    lead = patches.shape[:-1]
+    pq, pp = affine.quantize_to_int(
+        patches.reshape(-1, patches.shape[-1]), 8)
+    if w.orig_shape is not None:
+        w2 = w.codes
+    else:
+        # the patches order features (C_in, kh, kw): permute HWIO codes
+        w2 = w.codes.permute(2, 0, 1, 3).reshape(-1, c_out)
+    y = ops.int8_matmul(pq, w2, pp.delta, pp.zero_point, w.col_scale,
+                        w.col_zero, w_bits=w.bits if w.bits <= 4 else 8)
+    y = y.reshape(lead + (c_out,)) + layer["b"]
+    if act is not None:
+        y = act(y)
+    return y
+
+
 def _mlp_layer_names(n_hidden: int):
     return [f"fc{i}" for i in range(n_hidden)] + ["out"]
 
@@ -168,14 +222,32 @@ def quantized_mlp_apply(qparams: QuantizedParams, x: torch.Tensor,
     return int8_dense(qparams["out"], x)
 
 
+def quantized_cnn_apply(qparams: QuantizedParams, x: torch.Tensor,
+                        n_convs: int) -> torch.Tensor:
+    """Conv-net head outputs from a packed cache (always the per-layer
+    path): ``x`` is NHWC f32 with any leading batch dims, flattened for
+    the convs and restored on the ``(*batch, out)`` result."""
+    batch_shape = x.shape[:-3]
+    x = x.reshape((-1,) + tuple(x.shape[-3:]))
+    for i in range(n_convs):
+        x = int8_conv2d(qparams[f"conv{i}"], x)
+    x = x.reshape(x.shape[0], -1)
+    x = int8_dense(qparams["fc"], x, act=torch.relu)
+    y = int8_dense(qparams["out"], x)
+    return y.reshape(batch_shape + y.shape[-1:])
+
+
 def quantized_apply(qparams: QuantizedParams, x: torch.Tensor
                     ) -> torch.Tensor:
     """Head outputs of the packed actor, dispatched on the cache's keys:
     ``embed`` selects the sequence policy (windowed form,
-    ``quantized_seq_apply``), otherwise the MLP."""
-    _check_ported(qparams)
+    ``quantized_seq_apply``), ``conv*`` the conv net, otherwise the
+    MLP."""
     if "embed" in qparams:
         return quantized_seq_apply(qparams, x)
+    n_convs = sum(1 for n in qparams if n.startswith("conv"))
+    if n_convs:
+        return quantized_cnn_apply(qparams, x, n_convs)
     n_hidden = sum(1 for n in qparams if n.startswith("fc"))
     return quantized_mlp_apply(qparams, x, n_hidden)
 
@@ -320,10 +392,9 @@ def calibrate_actor_cache(qparams: QuantizedParams, obs: torch.Tensor
     dense layer, the affine params the dynamic quantizer derives for that
     layer's input.  ``quantized_apply`` on the returned cache then takes
     the single-launch fused kernel.  The fused kernel is MLP-only, so a
-    sequence-policy cache comes back as it is (per-layer path).
+    sequence-policy or conv cache comes back as it is (per-layer path).
     """
-    _check_ported(qparams)
-    if "embed" in qparams:
+    if "embed" in qparams or any(n.startswith("conv") for n in qparams):
         return qparams
     n_hidden = sum(1 for n in qparams if n.startswith("fc"))
     act = []

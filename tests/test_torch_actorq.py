@@ -93,12 +93,17 @@ def test_backend_validation_and_unported_caches():
         actorq.backend_bits("fp32")
     with pytest.raises(ValueError):
         actorq.pack_actor_params({}, bits=9)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        actorq.pack_actor_params({"conv0": {}, "out": {}})
-    with pytest.raises(NotImplementedError, match="item 6"):
-        actorq.quantized_apply({"conv0": {}, "out": {}}, torch.zeros(1, 3))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        actorq.calibrate_actor_cache({"conv0": {}}, torch.zeros(1, 3))
+    # conv caches are ported: packed per output channel, dispatched to the
+    # conv net, and left uncalibrated (tests/test_torch_conv.py holds them
+    # against JAX)
+    conv = networks.make_network((5, 5, 1), 3, conv_filters=(2,),
+                                 fc_width=4, device="cpu")
+    qp = actorq.pack_actor_params(
+        conv.init(torch.Generator().manual_seed(0)))
+    assert tuple(qp["conv0"]["w"].delta.shape) == (1, 1, 1, 2)
+    assert tuple(actorq.quantized_apply(qp, torch.zeros(2, 5, 5, 1)).shape) \
+        == (2, 3)
+    assert actorq.calibrate_actor_cache(qp, torch.zeros(1, 5, 5, 1)) is qp
     assert tuple(actorq.calib_slice(torch.zeros(10, 3), 4).shape) == (4, 3)
     assert tuple(actorq.calib_slice(torch.zeros(2, 3), 4).shape) == (2, 3)
 

@@ -4,6 +4,8 @@ Same numpy inputs through ``repro.core`` (CPU) and ``repro_torch.core``;
 codes and affine params must agree bitwise, including round-half ties,
 all-zero tensors and odd K under int4 packing.
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -97,8 +99,15 @@ def test_ptq_pack_rejects_other_modes_and_conv():
     w = {"w": torch.ones(3, 3, 2, 4)}
     with pytest.raises(ValueError):
         ptq.ptq_pack(w, QuantConfig(mode=QuantMode.NONE))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ptq.ptq_pack(w, QuantConfig.ptq_int(8))
+    # a conv kernel packs per output channel (bitwise against JAX in
+    # tests/test_torch_conv.py), or per tensor without per_axis_conv
+    packed = ptq.ptq_pack(w, QuantConfig.ptq_int(8))["w"]
+    assert tuple(packed.delta.shape) == (1, 1, 1, 4)
+    per_tensor = ptq.ptq_pack(w, dataclasses.replace(
+        QuantConfig.ptq_int(8), per_axis_conv=False))["w"]
+    assert per_tensor.delta.dim() == 0
+    assert torch.equal(packed.dequantize(),
+                       affine.ptq_tensor(w["w"], 8, axis=3))
 
 
 def test_tree_to_and_tensors_cover_packed_fields():

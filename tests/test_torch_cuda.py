@@ -6,7 +6,9 @@ kernel are bitwise equal to theirs; the int8-cache decode attention (B3) and the
 rtol = atol = 1e-5, the reference's attention contract.  A short QAT
 training run shows the learner's path through B5, a reduced-danube
 prefill the LM's through B4, and a reduced serve run decode through B3
-and PTQ through B5.
+and PTQ through B5; the conv cases (``-k conv``) hold B1 at the conv
+actor's im2col shapes and the Catch conv actor, its QAT training and
+its anchors on the card.
 
 The kernels have no CPU mode, so every test here takes the ``cuda``
 fixture, which skips on a machine without a card.  The file imports no
@@ -760,3 +762,132 @@ def test_topology_path_kernels_equal_plain_on_card(cuda, monkeypatch):
             assert {("B1", m, 4, 64, bits), ("B1", m, 64, 64, bits),
                     ("B1", m, 64, 2, bits)} <= shapes
     assert {("B2", 32, 4), ("B2", 8, 4)} <= shapes
+
+
+# --- the conv actor (the paper's Atari backbone on pixel Catch) ------------
+
+# B1 at the conv path's shapes (im2col GEMMs of 8 Catch envs, M 800, and of
+# a TD-sized batch; the fc and head at 8 rows), Catch's one-channel first
+# layer at K 9 (int4: 5 packed rows), and the long K of Policy C's convs
+# (9,216) and fc (102,400)
+CONV_B1_ROWS = [(800, 9, 128), (800, 1152, 128), (8, 12800, 128),
+                (8, 128, 3), (800, 9, 4), (1600, 72, 8), (16, 800, 32),
+                (6400, 1152, 128), (800, 9216, 1024), (8, 102400, 2048)]
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("mkn", CONV_B1_ROWS)
+def test_int8_matmul_conv_shapes_equal_plain_on_card(cuda, bits, mkn):
+    m, k, n = mkn
+    args = [a.to(cuda) for a in _gemm_inputs(m, k, n, bits, seed=m + k)]
+    got = int8_matmul.int8_matmul_cuda(*args, w_bits=bits)
+    want = int8_matmul.int8_matmul_plain(*args, w_bits=bits)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("k", [9, 102400])
+def test_int8_matmul_extreme_codes_conv_k_on_card(cuda, bits, k):
+    """Codes at the ends of their range and zero points that push the
+    corrected int32 bracket past 2**31 at K 102,400: the kernel wraps as
+    the plain version's int32 arithmetic does, bit for bit."""
+    m, n = 8, 16
+    lo, hi = (-8, 7) if bits <= 4 else (-128, 127)
+    x_q = torch.full((m, k), -128, dtype=torch.int8)
+    x_q[1::2] = 127
+    w = torch.full((k, n), lo, dtype=torch.int8)
+    w[:, 1::2] = hi
+    w_q = affine.pack_int4(w) if bits <= 4 else w
+    args = [t.to(cuda) for t in (
+        x_q, w_q, torch.tensor(0.01), torch.tensor(127.0),
+        torch.full((n,), 0.002), torch.full((n,), float(lo)))]
+    got = int8_matmul.int8_matmul_cuda(*args, w_bits=bits)
+    want = int8_matmul.int8_matmul_plain(*args, w_bits=bits)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def _conv_net(cuda, filters, fc, seed=0):
+    net = networks.make_network((10, 10, 1), 3, conv_filters=filters,
+                                fc_width=fc, device=cuda)
+    return net, net.init(torch.Generator(device=cuda).manual_seed(seed))
+
+
+@pytest.mark.parametrize("filters,fc", [((4,), 16), ((128, 128, 128), 128)])
+@pytest.mark.parametrize("bits", [4, 8])
+def test_conv_actor_equals_its_plain_replay_on_card(cuda, monkeypatch,
+                                                    filters, fc, bits):
+    """The int8 / int4 conv actor on Catch boards: 5 B1 launches a forward
+    at Policy A width (3 convs, fc, head), its output bitwise the same
+    actor through B1's plain version, and within 1e-4 of the CPU's."""
+    net, params = _conv_net(cuda, filters, fc)
+    qp = actorq.pack_actor_params(params, bits)
+    env = batched_env(make("catch"), 8)
+    _, obs = env.reset(torch.Generator(device=cuda).manual_seed(1))
+    before = int8_matmul.launches.value
+    got = actorq.quantized_apply(qp, obs)
+    torch.cuda.synchronize()
+    assert int8_matmul.launches.value - before == len(filters) + 2
+    monkeypatch.setattr(int8_matmul, "int8_matmul_cuda",
+                        int8_matmul.int8_matmul_plain)
+    assert torch.equal(got, actorq.quantized_apply(qp, obs))
+    cpu = actorq.quantized_apply(ptq.tree_to(qp, "cpu"), obs.cpu())
+    torch.testing.assert_close(got.cpu(), cpu, rtol=0, atol=1e-4)
+    fp32 = net.apply(params, obs)
+    torch.testing.assert_close(
+        fp32.cpu(), net.apply(ptq.tree_to(params, "cpu"), obs.cpu()),
+        rtol=0, atol=1e-4)
+
+
+def _site_launches(n: int) -> int:
+    return 1 if n <= 4096 else 2
+
+
+def test_qat_conv_train_on_card_launches_b1_and_b5(cuda):
+    """Two QAT iterations of DQN on Catch with int8 conv actors: B1 five
+    times a behaviour and an eval step (3 convs, fc, head), B5 at every
+    activation and dense-weight site of the learner's two forwards a TD
+    update (conv sites are plain torch), each site one launch up to 4,096
+    elements and two above."""
+    filters, fc = (8, 8, 8), 32
+    b1, b5 = int8_matmul.launches.value, fake_quant.launches.value
+    res = loops.train("dqn", "catch", iterations=2, record_every=2,
+                      eval_episodes=4, actor_backend="int8",
+                      quant=QuantConfig.qat(8, quant_delay=8),
+                      net_kwargs=dict(conv_filters=filters, fc_width=fc))
+    torch.cuda.synchronize()
+    cfg = res.algo_cfg
+    steps = 2 * cfg.rollout_steps
+    assert int8_matmul.launches.value - b1 == 5 * (steps + res.eval_steps)
+    batch = cfg.batch_size
+    per_forward = sum(_site_launches(batch * 100 * f) for f in filters) \
+        + _site_launches(100 * filters[-1] * fc) + _site_launches(batch * fc) \
+        + _site_launches(fc * 3) + _site_launches(batch * 3)
+    assert fake_quant.launches.value - b5 == \
+        2 * per_forward * 2 * cfg.updates_per_iter
+    assert sorted(res.state.observers) == [
+        "conv0/out", "conv1/out", "conv2/out", "fc/out", "out/out"]
+    assert all(np.isfinite(res.rewards))
+
+
+@pytest.mark.parametrize("backend", ["fp32", "int8"])
+def test_conv_topology_anchors_on_card(cuda, backend):
+    """The three anchors on the card with a small conv net on Catch, with
+    cuDNN deterministic: actor-learner with one actor is the fused driver,
+    async in barrier mode is actor-learner, and ``steps_per_call`` 3 is
+    the per-step driver, bit for bit."""
+    kw = dict(iterations=6, record_every=3, eval_episodes=2, seed=7,
+              actor_backend=backend, algo_overrides=dict(SMALL_DQN),
+              net_kwargs=dict(conv_filters=(8, 8), fc_width=32))
+    fused = loops.train("dqn", "catch", **kw)
+    sync = loops.train("dqn", "catch", topology="actor-learner",
+                       num_actors=1, sync_every=1, **kw)
+    barrier = loops.train("dqn", "catch", topology="async", num_actors=1,
+                          sync_every=SMALL_DQN["updates_per_iter"],
+                          async_barrier=True, steps_per_call=1, **kw)
+    chunked = loops.train("dqn", "catch", steps_per_call=3, **kw)
+    assert torch.backends.cudnn.deterministic
+    assert _same_run(fused, sync)
+    assert _same_run(sync, barrier)
+    assert _same_run(fused, chunked)

@@ -66,5 +66,9 @@ def test_reset_is_seeded_and_in_range():
     assert bool(((active >= 1) & (active <= 5)).all())
     assert bool((s.vel == 0).all()) and bool((s.t == 0).all())
     assert env.spec.n_actions == 25 and env.spec.obs_shape == (9,)
-    with pytest.raises(KeyError, match="not ported"):
-        make("pendulum")
+    # every env of the reference is registered now (pendulum and
+    # mountaincar: tests/test_torch_classic_envs.py); a name outside the
+    # registry raises
+    assert make("pendulum").spec.obs_shape == (3,)
+    with pytest.raises(KeyError, match="unknown env"):
+        make("pong")

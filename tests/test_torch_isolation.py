@@ -35,7 +35,8 @@ def test_scan_sees_the_port():
             "adam.py", "buffer.py", "loops.py", "train.py",
             "flash_attention.py", "attention.py", "blocks.py",
             "transformer.py", "serve.py", "base.py", "h2o_danube_1_8b.py",
-            "gemma2_9b.py"} <= names
+            "gemma2_9b.py", "quarl_atari.py", "mountaincar.py",
+            "pendulum.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -54,7 +55,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.rl.loops, repro_torch.launch.train, "
             "repro_torch.core.fake_quant, repro_torch.core.metrics, "
             "repro_torch.kernels.flash_attention, repro_torch.configs.base, "
-            "repro_torch.models.transformer, repro_torch.launch.serve\n"
+            "repro_torch.models.transformer, repro_torch.launch.serve, "
+            "repro_torch.configs.quarl_atari, "
+            "repro_torch.rl.envs.mountaincar, repro_torch.rl.envs.pendulum\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
@@ -99,6 +102,11 @@ def _entry_points():
             networks.make_network((6, 27), 3, transformer={},
                                   device="cpu").seq_cfg, 4, 8)["count"],
         "cartpole_reset": lambda: make("cartpole").reset(gen, 4)[1],
+        "mountaincar_reset": lambda: make("mountaincar").reset(gen, 4)[1],
+        "pendulum_reset": lambda: make("pendulum").reset(gen, 4)[1],
+        "conv_network_init": lambda: networks.make_network(
+            (5, 5, 1), 3, conv_filters=(2,), fc_width=4).init(gen)[
+                "conv0"]["w"],
         "replay_init": lambda: buffer.replay_init(8, (4,)).size,
         "make_iteration": lambda: dqn.make_iteration(
             make("cartpole"), networks.make_network((4,), 2, device="cpu"),
@@ -123,6 +131,8 @@ def _entry_points():
                                   "policy_server", "catch_reset",
                                   "wrapper_reset", "make_network_init",
                                   "seq_cache_zeros", "cartpole_reset",
+                                  "mountaincar_reset", "pendulum_reset",
+                                  "conv_network_init",
                                   "replay_init", "make_iteration",
                                   "loops_train", "launch_train",
                                   "transformer_init_params",

@@ -84,8 +84,11 @@ def _b2_layers(k0, widths, n_out, bits, seed=0):
 # chip_smoke's B2 rows: Policies II and III on AirNav (9 -> 25) at M 8 and
 # 512, and the training runs' CartPole net at M 8 (one actor's envs) and
 # 32 (the topology runs' 4 actors x 8 envs)
-B2_ROWS = [("II", 9, chip_smoke.POLICY_II, 25, m) for m in (8, 512)] + \
-    [("III", 9, chip_smoke.POLICY_III, 25, m) for m in (8, 512)] + \
+_POLICIES = chip_smoke.quarl_atari()
+B2_ROWS = [("II", 9, _POLICIES.DEPLOY_POLICY_II.widths, 25, m)
+           for m in (8, 512)] + \
+    [("III", 9, _POLICIES.DEPLOY_POLICY_III.widths, 25, m)
+     for m in (8, 512)] + \
     [("cartpole", 4, (64, 64), 2, m) for m in (8, 32)]
 
 

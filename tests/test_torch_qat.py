@@ -297,11 +297,22 @@ def test_eval_params_bitwise_vs_jax(spec):
 
 
 def test_per_axis_conv_raises():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        affine.ptq_tensor(torch.zeros(3, 3, 2, 4), 8, axis=3)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        ptq.ptq_simulate({"conv0": {"w": torch.ones(3, 3, 2, 4)}},
-                         QuantConfig.ptq_int(8))
+    # per-axis (conv) quantization is ported: per output channel, bitwise
+    # against JAX here and across conv trees in tests/test_torch_conv.py
+    from repro.core import affine as jaffine
+    w = np.random.default_rng(0).normal(size=(3, 3, 2, 4)).astype(
+        np.float32)
+    w[..., 1] = 0.0
+    np.testing.assert_array_equal(
+        affine.ptq_tensor(torch.from_numpy(w), 8, axis=3).numpy(),
+        np.asarray(jaffine.ptq_tensor(jnp.asarray(w), 8, axis=3)))
+    tree = {"conv0": {"w": torch.from_numpy(w)}}
+    _same_tree(ptq.ptq_simulate(tree, QuantConfig.ptq_int(8)),
+               jptq.ptq_simulate({"conv0": {"w": jnp.asarray(w)}},
+                                 JQuantConfig.ptq_int(8)))
+    _same_tree(common.eval_params(tree, QuantConfig.qat(8)),
+               jcommon.eval_params({"conv0": {"w": jnp.asarray(w)}},
+                                   JQuantConfig.qat(8)))
 
 
 def test_metrics_match_jax():

@@ -109,8 +109,10 @@ def test_network_spec_init_and_params_from_jax():
     mlp = networks.make_network((9,), 25, hidden=(8,), device="cpu")
     assert mlp.seq_cfg is None
     assert tuple(mlp.init(torch.Generator())["fc0"]["w"].shape) == (9, 8)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        networks.make_network((5, 5, 1), 3, device="cpu")
+    conv = networks.make_network((5, 5, 1), 3, device="cpu")   # pixels
+    assert conv.seq_cfg is None
+    assert tuple(conv.init(torch.Generator())["conv0"]["w"].shape) == (
+        3, 3, 1, 16)
     with pytest.raises(ValueError, match="obs_shape"):
         networks.make_network((8,), 3, transformer={}, device="cpu")
 
@@ -262,7 +264,9 @@ def test_framestack_rows_and_reset():
     assert bool((obs[:, -1, :9] == 0).all())               # flicker off
     assert obs.data_ptr() != state.frames.data_ptr()
     assert sorted(ENVS) == ["airnav", "airnav_flicker", "airnav_seq",
-                            "cartpole", "catch", "catch_masked", "catch_seq"]
+                            "cartpole", "catch", "catch_masked", "catch_seq",
+                            "mountaincar", "mountaincar_continuous",
+                            "pendulum"]
 
 
 # ---------------------------------------------------------------------------

@@ -178,8 +178,9 @@ def main() -> int:
     k = torch.randn((1, 8192, 8, 80), generator=gen, device=dev) * 1.5
     v = torch.randn((1, 8192, 8, 80), generator=gen, device=dev)
     nets = []
-    for net, k0, widths, n_out in (("II", 9, cs.POLICY_II, 25),
-                                   ("cartpole", 4, (64, 64), 2)):
+    for net, k0, widths, n_out in (
+            ("II", 9, cs.quarl_atari().DEPLOY_POLICY_II.widths, 25),
+            ("cartpole", 4, (64, 64), 2)):
         g = torch.Generator().manual_seed(cs.SEED + 10)
         params = networks.init_mlp(networks.mlp_spec(k0, widths, n_out), g,
                                    dev)

@@ -77,9 +77,11 @@ def main(argv=None) -> int:
                               sm_mhz=sm[0], power_w=sm[1], temp_c=sm[2])))
 
     if args.only in (None, "fused_qmlp"):
-        for name, k0, widths, n_out in (("II", 9, cs.POLICY_II, 25),
-                                        ("III", 9, cs.POLICY_III, 25),
-                                        ("cartpole", 4, (64, 64), 2)):
+        policies = cs.quarl_atari()
+        for name, k0, widths, n_out in (
+                ("II", 9, policies.DEPLOY_POLICY_II.widths, 25),
+                ("III", 9, policies.DEPLOY_POLICY_III.widths, 25),
+                ("cartpole", 4, (64, 64), 2)):
             for bits in (8, 4):
                 gen = torch.Generator().manual_seed(cs.SEED + 10)
                 params = networks.init_mlp(
