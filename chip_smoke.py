@@ -41,12 +41,25 @@ cache in place) and times both, then drives the port's four paths:
   running); first, on the card, actor-learner with one actor is held
   bitwise to the fused driver and async in barrier mode bitwise to
   actor-learner;
+* the algorithms -- ``loops.train`` runs PPO and A2C on CartPole and
+  DDPG on Pendulum with their reference defaults: PPO fp32, ActorQ int8
+  (B1 3 a forward), int4 calibrated (B2) and QAT int8 (B5), A2C fp32 and
+  int8, DDPG fp32, int8, int4 calibrated, QAT int8, prioritized, and
+  in the actor-learner and async topologies (4 actors x 8 envs), each
+  with exact launch counts and, where the JAX package clears one, its
+  bar (PPO fp32 > 100, PPO int8 > 50, A2C fp32 > 50); ``quarl_ptq`` on
+  the PPO run; DDPG's three anchors bitwise on the card and one DDPG
+  update replayed on the CPU; DDPG with actor and critic at Policy II's
+  widths (256, 256, 256), fp32 / int8 / int4 calibrated, 100 iterations
+  each in turns and profiled; ``repro_torch.launch.train``'s default
+  run (PPO on CartPole); and B1 / B2 bitwise and timed at every shape
+  these paths gave them (K 2 and 3, N 1 and 3, B2's width-1 head);
 * the conv actor -- the paper's Atari conv actor (3 conv + FC, its
   Policies A, B and C) on pixel Catch: each int8 / int4 actor's forward at
   8 and 256 envs bitwise its plain replay on the card (B1 five times a
   forward: three im2col convs, the fc and the head), fp32 through cuDNN,
   each within 1e-4 of the CPU at 8 envs, timed, profiled and rolled out
-  for 200 steps; ``loops.train`` DQN on Catch at Policy A width (fp32,
+  for 100 steps; ``loops.train`` DQN on Catch at Policy A width (fp32,
   ActorQ int8 and int4, QAT int8 with exact B1 / B5 counts, one TD update
   replayed on the CPU), the async int8 Catch run of
   ``tests/test_async_actor_learner.py:215-228`` held to its bar, the
@@ -229,12 +242,12 @@ LM_LONG_ATOL = 1e-3
 # of Table 10, src/repro/configs/quarl_atari.py:29-32, the port's copy in
 # src/repro_torch/configs/quarl_atari.py) on pixel Catch (10x10x1, 3
 # actions): the forward at DQNConfig's 8 behaviour envs and at the 256 of
-# benchmarks/actor_throughput.py:45-49, a 200-step rollout of each
+# benchmarks/actor_throughput.py:45-49, a 100-step rollout of each
 CONV_ENVS = (8, 256)
 # the rollouts take the backends in this order, reversed at every other
 # (policy, envs) cell, so no backend always runs first
 CONV_BACKENDS = ("fp32", "int8", "int4")
-CONV_ROLL_STEPS = 200
+CONV_ROLL_STEPS = 100
 CONV_CPU_ATOL = 1e-4              # the card's forward against the CPU's
 # DQN on Catch at Policy A width (ATARI_DQN) with DQNConfig's defaults:
 # (name, loops.train keywords); the QAT run's delay is QAT_DELAY
@@ -257,6 +270,57 @@ A7_RUN = dict(topology="async", num_actors=2, sync_every=16,
                                   eps_decay_updates=800,
                                   target_update_every=100))
 A7_BAR = 0.0
+# the algo phase: PPO and A2C on CartPole, DDPG on Pendulum, each with its
+# config's defaults (the reference's PPOConfig, A2CConfig, DDPGConfig):
+# (name, algo, env, bar on max(eval rewards), loops.train keywords;
+# "qat_delay" makes a QAT int8 run).  The bars and their configs are the
+# JAX package's own on the CPU: PPO fp32 > 100 at seed 3 and A2C fp32 > 50
+# at seed 1 (tests/test_rl.py:175-184), PPO int8 > 50 at seed 0
+# (tests/test_actor_learner.py:369-382), QAT PPO with delay 10
+# (tests/test_rl.py:196-202), DDPG 40 iterations finite
+# (tests/test_rl.py:191-194; its int8 bar is red in the JAX package,
+# ROADMAP queue C, so DDPG's rewards are recorded, not held).  DDPG's
+# topologies: 4 actors x 8 envs, a push every 16 learner updates, as the
+# topology phase's.
+ALGO_RUNS = (
+    ("ppo_fp32", "ppo", "cartpole", 100.0,
+     dict(iterations=120, record_every=40, seed=3)),
+    ("ppo_int8", "ppo", "cartpole", 50.0,
+     dict(iterations=120, record_every=40, seed=0, actor_backend="int8")),
+    ("ppo_int4_calib", "ppo", "cartpole", None,
+     dict(iterations=20, record_every=10, seed=0, actor_backend="int4",
+          calib_batch=16)),
+    ("ppo_qat8", "ppo", "cartpole", None,
+     dict(iterations=30, record_every=15, seed=0, qat_delay=10)),
+    ("a2c_fp32", "a2c", "cartpole", 50.0,
+     dict(iterations=500, record_every=250, seed=1)),
+    ("a2c_int8", "a2c", "cartpole", None,
+     dict(iterations=100, record_every=50, seed=0, actor_backend="int8")),
+    ("ddpg_fp32", "ddpg", "pendulum", None,
+     dict(iterations=40, record_every=20, seed=0)),
+    ("ddpg_int8", "ddpg", "pendulum", None,
+     dict(iterations=40, record_every=20, seed=0, actor_backend="int8")),
+    ("ddpg_int4_calib", "ddpg", "pendulum", None,
+     dict(iterations=40, record_every=20, seed=0, actor_backend="int4",
+          calib_batch=8)),
+    ("ddpg_qat8", "ddpg", "pendulum", None,
+     dict(iterations=40, record_every=20, seed=0, qat_delay=100)),
+    ("ddpg_per", "ddpg", "pendulum", None,
+     dict(iterations=40, record_every=20, seed=0, replay="prioritized")),
+    ("ddpg_al_int8", "ddpg", "pendulum", None,
+     dict(iterations=40, record_every=20, seed=0, topology="actor-learner",
+          num_actors=4, sync_every=2, actor_backend="int8",
+          steps_per_call=TRAIN_SPC)),
+    ("ddpg_async_int8", "ddpg", "pendulum", None,
+     dict(iterations=40, record_every=20, seed=0, topology="async",
+          num_actors=4, sync_every=16, actor_backend="int8",
+          steps_per_call=ASYNC_SPC)))
+# DDPG's anchors' config (tests/test_prioritized_replay.py:32)
+SMALL_DDPG = dict(n_envs=4, rollout_steps=4, updates_per_iter=2,
+                  buffer_size=512, batch_size=16, warmup=8)
+# DDPG at Policy II's widths (Table 5): iterations each, in chunks taken
+# in turns
+ALGO_WIDE_ITERS, ALGO_WIDE_CHUNK = 100, 10
 
 
 def quarl_atari():
@@ -667,38 +731,34 @@ def train_phase(torch, dev, smi, counters) -> dict:
         r["launches"] for r in rows if r.get("run") == "qat8"))
 
 
-def td_replay(torch, dev, res, smi: str, label: str) -> dict:
-    """One TD update of the QAT run ``res`` (past its delay) on the card
-    and, from the same state and batch, on the CPU: the loss, |td| and
-    every state tensor's largest difference, printed and held to
-    ``TD_ATOL``."""
+def update_replay(torch, res, update, parts, smi: str, label: str) -> dict:
+    """One learner ``update`` of the QAT run ``res`` (past its delay) on
+    the card and, from the same state and a batch drawn from its replay,
+    on the CPU: the loss, ``|td|`` and the largest difference of each
+    group of state tensors ``parts(state) -> {name: tree}``, printed and
+    held to ``TD_ATOL``."""
     from repro_torch.core import ptq
     from repro_torch.rl import buffer as rb
-    from repro_torch.rl import dqn
-    check(int(res.state.step) >= QAT_DELAY, f"{label}: the QAT run is past "
-                                            f"its delay")
-    td = dqn.make_td_update(res.env, res.net, res.algo_cfg)
-    batch = rb.replay_sample(res.state.extras.replay,
-                             torch.Generator(device=dev).manual_seed(SEED),
-                             res.algo_cfg.batch_size)
-    card_state, (card_loss, card_td) = td(res.state, batch,
-                                          res.state.extras.replay.size)
+    cfg = res.algo_cfg
+    check(int(res.state.step) >= cfg.quant.quant_delay,
+          f"{label}: the QAT run is past its delay")
+    batch = rb.replay_sample(
+        res.state.extras.replay,
+        torch.Generator(device=res.device).manual_seed(SEED),
+        cfg.batch_size)
+    card_state, (card_loss, card_td) = update(res.state, batch,
+                                              res.state.extras.replay.size)
     cpu_in = ptq.tree_to(res.state, "cpu")
-    cpu_state, (cpu_loss, cpu_td) = td(cpu_in, ptq.tree_to(batch, "cpu"),
-                                       cpu_in.extras.replay.size)
-    diffs = {}
-    for what, a, b in (("params", card_state.params, cpu_state.params),
-                       ("target", card_state.extras.target_params,
-                        cpu_state.extras.target_params),
-                       ("adam_m", card_state.opt.m, cpu_state.opt.m),
-                       ("adam_v", card_state.opt.v, cpu_state.opt.v),
-                       ("observers", card_state.observers,
-                        cpu_state.observers)):
-        diffs[what] = max(
-            float((x.cpu().to(torch.float32) - y.to(torch.float32)).abs()
-                  .max())
-            for (_, x), (_, y) in zip(ptq.tree_tensors(a),
-                                      ptq.tree_tensors(b)))
+    cpu_state, (cpu_loss, cpu_td) = update(cpu_in, ptq.tree_to(batch, "cpu"),
+                                           cpu_in.extras.replay.size)
+    card_parts, cpu_parts = parts(card_state), parts(cpu_state)
+    diffs = {
+        what: max(float((x.cpu().to(torch.float32)
+                         - y.to(torch.float32)).abs().max())
+                  for (_, x), (_, y) in zip(ptq.tree_tensors(tree),
+                                            ptq.tree_tensors(
+                                                cpu_parts[what])))
+        for what, tree in card_parts.items()}
     td_diff = (card_td.cpu() - cpu_td).abs()
     replay = dict(step=int(res.state.step),
                   loss_card=float(card_loss), loss_cpu=float(cpu_loss),
@@ -706,11 +766,24 @@ def td_replay(torch, dev, res, smi: str, label: str) -> dict:
                   max_abs_diff=diffs,
                   td_rows_over_1e6=int((td_diff > 1e-6).sum()),
                   td_max_abs_diff=float(td_diff.max()), card=smi)
-    print(f"{label} td_replay " + json.dumps(replay))
+    print(f"{label} " + json.dumps(replay))
     check(replay["loss_abs_diff"] <= TD_ATOL
           and max(diffs.values()) <= TD_ATOL,
-          f"{label}: TD update on the card vs the CPU: {replay}")
+          f"{label}: the update on the card vs the CPU: {replay}")
     return replay
+
+
+def td_replay(torch, dev, res, smi: str, label: str) -> dict:
+    """``update_replay`` of one DQN TD update: params, target, Adam's
+    moments and the observers."""
+    from repro_torch.rl import dqn
+    return update_replay(
+        torch, res, dqn.make_td_update(res.env, res.net, res.algo_cfg),
+        lambda st: {"params": st.params,
+                    "target": st.extras.target_params,
+                    "adam_m": st.opt.m, "adam_v": st.opt.v,
+                    "observers": st.observers},
+        smi, f"{label} td_replay")
 
 
 def profile_iterations(torch, dev, results: dict, label: str) -> list:
@@ -993,6 +1066,498 @@ def topology_phase(torch, dev, smi, counters) -> dict:
         print("topology profile " + json.dumps(prof))
     return dict(rows=rows, launches=next(
         r["launches"] for r in rows if r.get("run") == "async_int8"))
+
+
+def mlp_site_launches(dims, batch: int) -> int:
+    """B5 launches of one QAT forward of the MLP ``dims[0] -> ... ->
+    dims[-1]`` on ``batch`` rows: a weight site and an activation site a
+    layer, each one launch up to 4,096 elements and two above."""
+    def site(n):
+        return 1 if n <= 4096 else 2
+    return sum(site(k * n) + site(batch * n)
+               for k, n in zip(dims[:-1], dims[1:]))
+
+
+def algo_launches(algo: str, res, kw: dict, iters: int, names) -> dict:
+    """The kernel launches ``loops.train(algo, ...)`` with ``kw`` must
+    make in ``iters`` iterations, from its config: B1 a layer of each
+    uncalibrated actor forward (the behaviour steps -- PPO's ``n_steps``
+    and its bootstrap, A2C's ``n_steps``, DDPG's ``rollout_steps`` --
+    the eval steps and the divergence heads, one an actor at each push);
+    calibrated, B2 once a forward and B1 a hidden layer at each
+    calibration (every iteration, or the first mint and every push, and
+    every eval mint); B5 at each QAT site of every forward."""
+    cfg = res.algo_cfg
+    records = len(res.rewards)
+    hidden = (64, 64)
+    per_it = cfg.rollout_steps if algo == "ddpg" \
+        else cfg.n_steps + (algo == "ppo")
+    fwd = iters * per_it
+    topo = kw.get("topology", "fused")
+    pushes = len(res.actor_lags) if topo == "async" else (
+        iters // kw["sync_every"] if topo == "actor-learner" else 0)
+    heads = pushes * kw.get("num_actors", 1)
+    want = dict.fromkeys(names, 0)
+    if kw.get("actor_backend", "fp32") != "fp32":
+        if kw.get("calib_batch"):
+            mints = iters if topo == "fused" else 1 + pushes
+            want["fused_qmlp"] = fwd + res.eval_steps + heads
+            want["int8_matmul"] = len(hidden) * (mints + records)
+        else:
+            want["int8_matmul"] = (len(hidden) + 1) * (
+                fwd + res.eval_steps + heads)
+    if "qat_delay" in kw:
+        obs_dim = res.env.spec.obs_shape[0]
+        envs, evals = cfg.n_envs, kw.get("eval_episodes", 8)
+        if algo == "ddpg":
+            actor = (obs_dim,) + hidden + (1,)
+            critic = (obs_dim + 1,) + hidden + (1,)
+            b = cfg.batch_size
+            want["fake_quant"] = (
+                fwd * mlp_site_launches(actor, envs)
+                + iters * cfg.updates_per_iter * (
+                    2 * mlp_site_launches(actor, b)
+                    + 3 * mlp_site_launches(critic, b))
+                + res.eval_steps * mlp_site_launches(actor, evals))
+        else:
+            net = (obs_dim,) + hidden + (res.env.spec.n_actions + 1,)
+            if algo == "ppo":
+                mb = cfg.n_steps * cfg.n_envs // cfg.n_minibatches
+                learner = cfg.epochs * cfg.n_minibatches \
+                    * mlp_site_launches(net, mb)
+            else:
+                learner = mlp_site_launches(net, cfg.n_steps * cfg.n_envs) \
+                    + mlp_site_launches(net, envs)
+            want["fake_quant"] = (
+                fwd * mlp_site_launches(net, envs) + iters * learner
+                + res.eval_steps * mlp_site_launches(net, evals))
+    return want
+
+
+def _same_learner(torch, a, b) -> bool:
+    """Two ``TrainResult``s with equal rewards and learner states (params,
+    both Adam states, observers, step, and the extras but the replay,
+    which one topology shards), bit for bit."""
+    from repro_torch.core import ptq
+
+    def learner(st):
+        return (st.params, st.opt, st.observers, st.step,
+                st.extras._replace(replay=()))
+    x = list(ptq.tree_tensors(learner(a.state)))
+    y = list(ptq.tree_tensors(learner(b.state)))
+    return a.rewards == b.rewards and len(x) == len(y) and all(
+        torch.equal(u, v) for (_, u), (_, v) in zip(x, y))
+
+
+def ddpg_anchors(torch, smi: str) -> dict:
+    """DDPG's three contracts on the card at ``SMALL_DDPG``, fp32 and int8
+    actors: actor-learner with one actor pushed every iteration is the
+    fused driver, async in barrier mode is actor-learner, and
+    ``priority_exponent=0`` is uniform replay (fused and actor-learner
+    with 2 actors), bit for bit.  Printed and checked."""
+    from repro_torch.rl import loops
+    small = dict(iterations=6, record_every=3, eval_episodes=2, seed=7,
+                 algo_overrides=dict(SMALL_DDPG))
+    anchors = {}
+    for backend in ("fp32", "int8"):
+        kw = dict(small, actor_backend=backend)
+        fused = loops.train("ddpg", "pendulum", **kw)
+        sync = loops.train("ddpg", "pendulum", topology="actor-learner",
+                           num_actors=1, sync_every=1, **kw)
+        barrier = loops.train("ddpg", "pendulum", topology="async",
+                              num_actors=1,
+                              sync_every=SMALL_DDPG["updates_per_iter"],
+                              async_barrier=True, steps_per_call=1, **kw)
+        alpha0 = {}
+        for topo in ({}, dict(topology="actor-learner", num_actors=2,
+                              sync_every=2)):
+            uni = loops.train("ddpg", "pendulum", replay="uniform",
+                              **topo, **kw)
+            per0 = loops.train("ddpg", "pendulum", replay="prioritized",
+                               priority_exponent=0.0, **topo, **kw)
+            alpha0[topo.get("topology", "fused")] = _same_learner(
+                torch, uni, per0)
+        anchors[backend] = dict(
+            actor_learner_is_fused=_same_learner(torch, fused, sync),
+            async_barrier_is_actor_learner=_same_learner(torch, sync,
+                                                         barrier),
+            alpha0_is_uniform=alpha0, rewards=sync.rewards)
+        check(anchors[backend]["actor_learner_is_fused"]
+              and anchors[backend]["async_barrier_is_actor_learner"]
+              and all(alpha0.values()),
+              f"{backend} DDPG anchors on the card: {anchors[backend]}")
+    print("algo ddpg anchors " + json.dumps(dict(anchors, card=smi)))
+    return anchors
+
+
+def ddpg_replay(torch, res, smi: str) -> dict:
+    """``update_replay`` of one DDPG update: both nets, both targets,
+    both Adam states and the observers."""
+    from repro_torch.rl import ddpg
+    return update_replay(
+        torch, res, ddpg.make_update(res.env, res.net, res.algo_cfg),
+        lambda st: {"actor": st.params,
+                    "critic": st.extras.critic_params,
+                    "target_actor": st.extras.target_actor,
+                    "target_critic": st.extras.target_critic,
+                    "adam": st.opt, "critic_adam": st.extras.critic_opt,
+                    "observers": st.observers},
+        smi, "algo ddpg_replay")
+
+
+def b2_path_calls(torch, fn) -> list:
+    """``(x_q, layers)`` of the first B2 launch ``fn()`` makes at each
+    ``(M, K0, N_out, bits)`` (each launched and counted as usual), in
+    order of first launch."""
+    from repro_torch.kernels import fused_qmlp
+    seen, calls, orig = [], [], fused_qmlp.fused_qmlp_cuda
+
+    def record(x_q, layers):
+        key = (int(x_q.shape[0]), int(layers[0].k), int(layers[-1].n),
+               int(layers[0].bits))
+        if key not in seen:
+            seen.append(key)
+            calls.append((x_q.clone(), layers))
+        return orig(x_q, layers)
+    fused_qmlp.fused_qmlp_cuda = record
+    try:
+        fn()
+        torch.cuda.synchronize()
+    finally:
+        fused_qmlp.fused_qmlp_cuda = orig
+    return calls
+
+
+def b2_row(torch, label, x_q, layers) -> dict:
+    """B2 on a path's ``(x_q, layers)``: bitwise against its plain
+    version, and timed beside it with its bound."""
+    from repro_torch.kernels import fused_qmlp
+    got = fused_qmlp.fused_qmlp_cuda(x_q, layers)
+    want = fused_qmlp.fused_qmlp_plain(x_q, layers)
+    torch.cuda.synchronize()
+    same = torch.equal(got, want)
+    err = float((got - want).abs().max())
+    m, k0 = int(x_q.shape[0]), int(layers[0].k)
+    check(same, f"fused_qmlp {label} M={m} K0={k0} N={layers[-1].n} bits="
+                f"{layers[0].bits} bitwise (max abs diff {err})")
+    nbytes = m * k0 + 4 * m * layers[-1].n + sum(
+        la.codes.numel() + 12 * la.n + 8 for la in layers)
+    b_ms, b_by = bound(nbytes, 2.0 * m * sum(la.k * la.n for la in layers))
+    return dict(
+        name="fused_qmlp", label=label, bits=int(layers[0].bits),
+        shape=[m, k0] + [int(la.n) for la in layers],
+        plan=fused_qmlp.plan(m, k0, layers), bitwise=same,
+        max_abs_err=err,
+        ms=device_ms(torch, lambda: fused_qmlp.fused_qmlp_cuda(x_q,
+                                                               layers)),
+        plain_ms=device_ms(torch, lambda: fused_qmlp.fused_qmlp_plain(
+            x_q, layers)),
+        bound_ms=b_ms, bound_by=b_by, library_ms=None)
+
+
+def algo_shape_rows(torch, dev, smi, widths) -> list:
+    """B1 and B2 at every shape the algorithms' paths give them, recorded
+    from one iteration of each (PPO and A2C on CartPole, PPO on
+    MountainCar, DDPG on Pendulum at 64 and at ``widths``, the
+    actor-learner's behaviour step and divergence heads, the calibrated
+    caches), plus B1 at M 4 and 512 on the K 2 / 3 and N 1 / 3 edges:
+    bitwise against the plain versions and timed."""
+    from repro_torch.core.qconfig import QuantConfig
+    from repro_torch.rl import actor_learner, ddpg, loops
+    from repro_torch.rl.envs import make
+    b1_seen, b2_calls = [], []
+
+    def one_iteration(algo, env_name, hidden=(64, 64), **kw):
+        """One fused iteration of ``algo``, as ``loops.train`` builds it."""
+        env = make(env_name)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 90)
+        net, cfg = loops._build(algo, env, QuantConfig.none(),
+                                dict(hidden=hidden), kw, dev)
+        mod = loops.MODULES[algo]
+        state = mod.init(torch.Generator().manual_seed(SEED), env, net, cfg)
+        iteration, _, benv = mod.make_iteration(env, net, cfg, dev)
+        env_state, obs = benv.reset(gen, dev)
+        return lambda: iteration(state, env_state, obs, gen)
+
+    def al_round(backend):
+        env = make("pendulum")
+        nets = ddpg.make_nets(env, device=dev)
+        cfg = ddpg.DDPGConfig(actor_backend=backend)
+        al = actor_learner.ActorLearnerConfig(num_actors=4, sync_every=1)
+        st = actor_learner.init(torch.Generator().manual_seed(SEED), env,
+                                nets, "ddpg", cfg, al)
+        iteration, _, benv = actor_learner.make_actor_learner(
+            "ddpg", env, nets, cfg, al, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 91)
+        env_state, obs = benv.reset(gen, dev)
+        return lambda: iteration(st, env_state, obs, gen)
+
+    for label, fn in (
+            ("ppo cartpole", one_iteration("ppo", "cartpole",
+                                           actor_backend="int8")),
+            ("ppo cartpole", one_iteration("ppo", "cartpole",
+                                           actor_backend="int4")),
+            ("a2c cartpole", one_iteration("a2c", "cartpole",
+                                           actor_backend="int8")),
+            ("ppo mountaincar", one_iteration("ppo", "mountaincar",
+                                              actor_backend="int8")),
+            ("ppo mountaincar", one_iteration("ppo", "mountaincar",
+                                              actor_backend="int4")),
+            ("ddpg pendulum", one_iteration("ddpg", "pendulum",
+                                            actor_backend="int8")),
+            ("ddpg pendulum", one_iteration("ddpg", "pendulum",
+                                            actor_backend="int4")),
+            ("ddpg Policy II", one_iteration("ddpg", "pendulum",
+                                             hidden=widths,
+                                             actor_backend="int8")),
+            ("ddpg actor-learner", al_round("int8")),
+            ("ddpg actor-learner", al_round("int4"))):
+        for shape in b1_path_shapes(torch, dev, fn):
+            if all(shape != s[1:] for s in b1_seen):
+                b1_seen.append((label,) + shape)
+    for label, algo, env_name, hidden, bits, calib in (
+            ("ppo cartpole calibrated", "ppo", "cartpole", (64, 64), "int4",
+             16),
+            ("ppo cartpole calibrated", "ppo", "cartpole", (64, 64), "int8",
+             16),
+            ("ppo mountaincar calibrated", "ppo", "mountaincar", (64, 64),
+             "int4", 16),
+            ("ddpg pendulum calibrated", "ddpg", "pendulum", (64, 64),
+             "int4", 8),
+            ("ddpg pendulum calibrated", "ddpg", "pendulum", (64, 64),
+             "int8", 8),
+            ("ddpg Policy II calibrated", "ddpg", "pendulum", widths,
+             "int4", 8)):
+        for call in b2_path_calls(torch, one_iteration(
+                algo, env_name, hidden=hidden, actor_backend=bits,
+                calib_batch=calib)):
+            b2_calls.append((label,) + call)
+    for m in (4, 512):
+        for k in (2, 3):
+            for n in (1, 3):
+                for bits in (8, 4):
+                    if all((m, k, n, bits) != s[1:] for s in b1_seen):
+                        b1_seen.append(("edge", m, k, n, bits))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 92)
+    rows = [b1_row(torch, dev, gen, label, m, k, n, bits)
+            for label, m, k, n, bits in b1_seen]
+    rows += [b2_row(torch, label, x_q, layers)
+             for label, x_q, layers in b2_calls]
+    shapes = {(r["shape"][1], r["shape"][2]) for r in rows
+              if r["name"] == "int8_matmul"}
+    check(all(any(k == kk for kk, _ in shapes) for k in (2, 3))
+          and all(any(n == nn for _, nn in shapes) for n in (1, 3))
+          and any(r["name"] == "fused_qmlp" and r["shape"][-1] == 1
+                  for r in rows),
+          f"the algorithms' paths gave B1 K 2 and 3, N 1 and 3, and B2 a "
+          f"width-1 head: {sorted(shapes)}")
+    print(f"algo shapes: {len(rows)} rows, B1 and B2 bitwise, card {smi}")
+    return rows
+
+
+def wide_rows(torch, dev, smi, counters, widths) -> list:
+    """DDPG on Pendulum with its actor and critic at ``widths`` (Policy
+    II): the fp32, ActorQ int8 (B1) and int4 calibrated (B2) actors,
+    ``ALGO_WIDE_ITERS`` fused iterations each in chunks of
+    ``ALGO_WIDE_CHUNK``, the three in turns (the order reversed every
+    other chunk).  Each is held to its launch counts; updates/s and
+    env-steps/s from the host clock around its chunks; host and device ms,
+    kernels and device busy an iteration from two further profiled
+    iterations."""
+    from repro_torch.core import ptq
+    from repro_torch.rl import ddpg
+    from repro_torch.rl.envs import make
+    env = make("pendulum")
+    nets = ddpg.make_nets(env, hidden=widths, device=dev)
+    runs = {"fp32": {}, "int8": dict(actor_backend="int8"),
+            "int4_calib": dict(actor_backend="int4", calib_batch=8)}
+    carry, progs = {}, {}
+    for name, kw in runs.items():
+        cfg = ddpg.DDPGConfig(**kw)
+        state = ddpg.init(torch.Generator().manual_seed(SEED + 70), env,
+                          nets, cfg)
+        iteration, _, benv = ddpg.make_iteration(env, nets, cfg, dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 71)
+        env_state, obs = benv.reset(gen, dev)
+        carry[name] = [state, env_state, obs, None]
+        progs[name] = (iteration, gen, cfg)
+    wall = dict.fromkeys(runs, 0.0)
+    launches = {name: dict.fromkeys(counters, 0) for name in runs}
+    rewards = {name: [] for name in runs}
+    for c in counters.values():
+        c.reset()
+    for chunk in range(ALGO_WIDE_ITERS // ALGO_WIDE_CHUNK):
+        order = list(runs) if chunk % 2 == 0 else list(runs)[::-1]
+        for name in order:
+            iteration, gen, _ = progs[name]
+            before = {k: c.value for k, c in counters.items()}
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(ALGO_WIDE_CHUNK):
+                st, es, ob, _ = carry[name]
+                carry[name] = list(iteration(st, es, ob, gen))
+            torch.cuda.synchronize()
+            wall[name] += time.perf_counter() - t
+            for k, c in counters.items():
+                launches[name][k] += c.value - before[k]
+            rewards[name].append(float(carry[name][3]["reward"]))
+    rows = []
+    for name in runs:
+        cfg = progs[name][2]
+        steps = ALGO_WIDE_ITERS * cfg.rollout_steps
+        want = dict.fromkeys(counters, 0)
+        if name == "int8":
+            want["int8_matmul"] = (len(widths) + 1) * steps
+        elif name == "int4_calib":
+            want["fused_qmlp"] = steps
+            want["int8_matmul"] = len(widths) * ALGO_WIDE_ITERS
+        check(launches[name] == want,
+              f"DDPG Policy II {name}: launches {launches[name]}, the "
+              f"config implies {want}")
+        state = carry[name][0]
+        check(all(bool(torch.isfinite(t).all())
+                  for _, t in ptq.tree_tensors((state.params,
+                                                state.extras.critic_params))),
+              f"DDPG Policy II {name}: finite params")
+        iteration, gen, _ = progs[name]
+
+        def one(name=name, iteration=iteration, gen=gen):
+            st, es, ob, _ = carry[name]
+            carry[name] = list(iteration(st, es, ob, gen))
+        prof = profile_calls(torch, one, n=2)
+        row = dict(run=f"ddpg_policy_ii_{name}", widths=list(widths),
+                   iterations=ALGO_WIDE_ITERS, wall_s=wall[name],
+                   updates_per_s=ALGO_WIDE_ITERS * cfg.updates_per_iter
+                   / wall[name],
+                   env_steps_per_s=steps * cfg.n_envs / wall[name],
+                   launches=launches[name],
+                   reward_per_episode_last=rewards[name][-1],
+                   host_ms_per_iteration=prof["host_ms_per_call"],
+                   device_ms_per_iteration=prof["device_ms_per_call"],
+                   kernels_per_iteration=prof["kernels_per_call"],
+                   device_busy_share=prof["device_busy_share"],
+                   top=prof["top"], card=smi)
+        rows.append(row)
+        print("algo " + json.dumps(row))
+    return rows
+
+
+def algo_phase(torch, dev, smi, counters, widths) -> dict:
+    """The other three algorithms through ``loops.train``: PPO and A2C on
+    CartPole and DDPG on Pendulum (``ALGO_RUNS``), each driven with every
+    kernel count set to 0 just before it and read just after, held to
+    its launch counts, finite rewards and, where the JAX package has one,
+    its bar; ``quarl_ptq`` on the PPO run; DDPG's three anchors bitwise
+    and one DDPG update replayed on the CPU; DDPG at Policy II's width
+    (``wide_rows``); ``launch.train``'s default run; B1 and B2 at every
+    shape these paths gave them (``algo_shape_rows``)."""
+    from repro_torch.core.qconfig import QuantConfig
+    from repro_torch.launch import train as launch_train
+    from repro_torch.rl import loops
+    rows, results, seconds = [], {}, {}
+    t_part = time.perf_counter()
+    for name, algo, env_name, bar, spec in ALGO_RUNS:
+        kw = dict(spec)
+        if "qat_delay" in kw:
+            kw["quant"] = QuantConfig.qat(8, quant_delay=kw.pop("qat_delay"))
+        for c in counters.values():
+            c.reset()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res = loops.train(algo, env_name, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        n = {k: c.value for k, c in counters.items()}
+        iters = kw["iterations"]
+        want = algo_launches(algo, res, spec, iters, counters)
+        check(n == want, f"algo {name}: launches {n}, the config implies "
+                         f"{want}")
+        check(len(res.rewards) == iters // kw["record_every"]
+              and all(np.isfinite(res.rewards)),
+              f"algo {name}: rewards {res.rewards}")
+        check(bar is None or max(res.rewards) > bar,
+              f"algo {name}: max eval reward {max(res.rewards)} does not "
+              f"clear its bar {bar} ({res.rewards})")
+        cfg = res.algo_cfg
+        if "quant" in kw:
+            n_obs = 6 if algo == "ddpg" else 3
+            check(len(res.state.observers) == n_obs and all(
+                bool(o.initialized) for o in res.state.observers.values()),
+                f"algo {name}: observers {sorted(res.state.observers)}")
+        topo = kw.get("topology", "fused")
+        actors = kw.get("num_actors", 1)
+        divs = np.asarray(res.divergences, dtype=np.float64)
+        if topo != "fused":
+            check(divs.ndim == 2 and divs.shape[1] == actors
+                  and divs.shape[0] > 0 and np.isfinite(divs).all()
+                  and bool((divs > 0).any()),
+                  f"algo {name}: divergences {res.divergences}")
+        if topo == "async":
+            check(len(res.actor_lags) > 0 and all(
+                lag == kw["sync_every"] for lag in res.actor_lags),
+                f"algo {name}: actor lags {sorted(set(res.actor_lags))}")
+        if algo == "ddpg":
+            per_it, updates = cfg.rollout_steps, iters * cfg.updates_per_iter
+        elif algo == "ppo":
+            per_it = cfg.n_steps
+            updates = iters * cfg.epochs * cfg.n_minibatches
+        else:
+            per_it, updates = cfg.n_steps, iters
+        row = dict(run=name, algo=algo, env=env_name, rewards=res.rewards,
+                   bar=bar, wall_s=wall, updates_per_s=updates / wall,
+                   env_steps_per_s=iters * per_it * cfg.n_envs * actors
+                   / wall,
+                   eval_env_steps=res.eval_steps, launches=n,
+                   action_variances=res.action_variances,
+                   divergence_last=divs[-1].tolist() if divs.size else None,
+                   actor_lags=sorted(set(res.actor_lags)), card=smi)
+        rows.append(row)
+        print("algo " + json.dumps(row))
+        results[name] = res
+    seconds["runs"] = time.perf_counter() - t_part
+
+    # quarl_ptq on the PPO fp32 run: the int8 weights through B5
+    t_part = time.perf_counter()
+    for c in counters.values():
+        c.reset()
+    ptq_rows = loops.quarl_ptq("ppo", "cartpole", bits_list=(8, 16),
+                               result=results["ppo_fp32"], seed=SEED)
+    n = {k: c.value for k, c in counters.items()}
+    check(n["fake_quant"] == 3 and n["int8_matmul"] == n["fused_qmlp"] == 0,
+          f"algo quarl_ptq: launches {n} (want 3 fake_quant: the ptq_int8 "
+          f"weights)")
+    for r in ptq_rows:
+        check(np.isfinite(r.quant_reward), f"algo quarl_ptq {r.label}: {r}")
+        rows.append(dict(ptq=r.label, algo="ppo", fp32_reward=r.fp32_reward,
+                         quant_reward=r.quant_reward, error_pct=r.error_pct,
+                         launches=n, card=smi))
+        print("algo " + json.dumps(rows[-1]))
+    rows.append(dict(anchors=ddpg_anchors(torch, smi)))
+    rows.append(dict(ddpg_replay=ddpg_replay(torch, results["ddpg_qat8"],
+                                             smi)))
+    seconds["ptq_anchors_replay"] = time.perf_counter() - t_part
+
+    t_part = time.perf_counter()
+    rows += wide_rows(torch, dev, smi, counters, widths)
+    seconds["policy_ii"] = time.perf_counter() - t_part
+
+    # the launcher's default run: PPO on CartPole, 200 iterations
+    t_part = time.perf_counter()
+    for c in counters.values():
+        c.reset()
+    check(launch_train.main([]) == 0, "launch.train's default run")
+    n = {k: c.value for k, c in counters.items()}
+    check(not any(n.values()), f"the default fp32 PPO run: launches {n}")
+    seconds["launch_train"] = time.perf_counter() - t_part
+
+    t_part = time.perf_counter()
+    shape_rows = algo_shape_rows(torch, dev, smi, widths)
+    seconds["shapes"] = time.perf_counter() - t_part
+    print("algo seconds " + json.dumps(seconds))
+    launches = {r["run"]: r["launches"] for r in rows if "launches" in r
+                and "run" in r}
+    return dict(rows=rows, shape_rows=shape_rows, launches=launches,
+                seconds=seconds)
 
 
 def conv_boards(torch, dev, n: int, seed: int):
@@ -2241,6 +2806,15 @@ def main() -> int:
                             fake_quant.launches)})
     print(f"topology phase: {time.perf_counter() - t_topo:.1f}s")
 
+    # ---- algo phase (DDPG, PPO and A2C) -----------------------------------
+    t_algo = time.perf_counter()
+    algo = algo_phase(torch, dev, smi, {
+        c.name: c for c in (int8_matmul.launches, fused_qmlp.launches,
+                            int8_cache_attention.launches,
+                            fake_quant.launches)}, POLICY_II)
+    rows += algo["shape_rows"]
+    print(f"algo phase: {time.perf_counter() - t_algo:.1f}s")
+
     # ---- conv phase (the paper's Atari conv actor on pixel Catch) --------
     t_conv = time.perf_counter()
     conv = conv_phase(torch, dev, smi, {
@@ -2300,6 +2874,9 @@ def main() -> int:
         dict(card=smi, kernel_rows=rows, serve_rows=serve_rows,
              rollout_rows=roll_rows, eval_row=eval_row,
              train_rows=train["rows"], topology_rows=topo["rows"],
+             algo_rows=dict(runs=algo["rows"],
+                            shapes=algo["shape_rows"],
+                            seconds=algo["seconds"]),
              conv_rows=dict(forward=conv["forward"],
                             rollout=conv["rollout"], train=conv["train"],
                             seconds=conv["seconds"]),
@@ -2307,6 +2884,7 @@ def main() -> int:
              path_launches=dict(serve=launches, rollout=roll_launches,
                                 train_qat=train["qat_launches"],
                                 topology_async_int8=topo["launches"],
+                                algo=algo["launches"],
                                 lm_prefill=lm["prefill"]["launches"]),
              kernels=report, seconds=time.perf_counter() - t0), indent=1))
     print(f"total {time.perf_counter() - t0:.1f}s")

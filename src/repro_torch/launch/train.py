@@ -1,10 +1,15 @@
 """Training launcher of the port: the ``--mode rl`` path.
 
-Counterpart of ``repro/launch/train.py:26-101``, with the same flags.
-Trains a DQN policy with the fused driver on the card (``--device cpu``
-runs the plain versions on the CPU) and prints the recorded eval
-rewards:
+Counterpart of ``repro/launch/train.py:26-101``, with the same flags and
+``--actor-backend`` (the ActorQ actor: ``fp32``, ``int8`` or ``int4``).
+Trains any of the four algorithms with the fused driver on the card
+(``--device cpu`` runs the plain versions on the CPU) and prints the
+recorded eval rewards.  The defaults, as the reference's, train PPO on
+CartPole for 200 iterations:
 
+    PYTHONPATH=src python -m repro_torch.launch.train
+    PYTHONPATH=src python -m repro_torch.launch.train --algo ddpg \\
+        --env pendulum --actor-backend int8
     PYTHONPATH=src python -m repro_torch.launch.train --mode rl \\
         --algo dqn --env cartpole --quant qat8:delay=200 --iterations 400
 
@@ -26,6 +31,9 @@ def main(argv=None) -> int:
     ap.add_argument("--env", default="cartpole")
     ap.add_argument("--iterations", type=int, default=200)
     ap.add_argument("--quant", default="none")
+    ap.add_argument("--actor-backend", default="fp32",
+                    choices=("fp32", "int8", "int4"),
+                    help="the rollout and eval actor (ActorQ)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
@@ -55,9 +63,9 @@ def run_rl(args) -> int:
     res = loops.train(args.algo, args.env, iterations=args.iterations,
                       quant=quant, seed=args.seed,
                       record_every=max(args.iterations // 10, 1),
-                      device=args.device)
+                      actor_backend=args.actor_backend, device=args.device)
     print(f"[train/rl] {args.algo} on {args.env} quant={quant.label()} "
-          f"device={res.device}: eval rewards "
+          f"actor={args.actor_backend} device={res.device}: eval rewards "
           f"{['%.1f' % r for r in res.rewards]} ({res.wall_time_s:.0f}s)")
     return 0
 

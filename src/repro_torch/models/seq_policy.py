@@ -13,8 +13,10 @@ all-zero rows that predate the episode, and the in-row time feature is
 the only positional signal, so the windowed form here and the
 incremental cached form attend over the same tokens.
 
-The reference threads a QAT context through every dense site; QAT is not
-ported yet (ROADMAP queue A, item 8), so ``seq_apply`` takes none.
+The reference threads a QAT context through every dense site; the port
+has QAT for the MLP and conv nets, but the sequence actor's QAT sites
+come with its training (ROADMAP queue A, item 12), so ``seq_apply``
+takes none.
 """
 from __future__ import annotations
 

@@ -1,7 +1,9 @@
 """ActorQ's actor-learner topologies: quantized actors fill a replay
 buffer, an fp32 learner trains on it and pushes its params back.
 
-Counterpart of ``repro/rl/actor_learner.py`` for ``algo="dqn"`` on one
+Counterpart of ``repro/rl/actor_learner.py`` for its two replay
+algorithms, ``"dqn"`` and ``"ddpg"`` (the paper's D4PG-style split: the
+actors run DDPG's mu head, the critic stays with the learner), on one
 device, the reference's no-mesh mode: the ``num_actors`` actors are one
 batched env of ``num_actors * n_envs`` rows (actor-major), stepped by one
 behaviour policy, so an int8/int4 actor runs one B1 launch a layer (or one
@@ -24,7 +26,8 @@ scale, as the reference's folded batch does.
 **Divergence** is recorded at true pushes only: per actor, the mean
 absolute gap between the actors' behaviour head (the packed cache, or the
 pushed fp32 params) and the learner's fp32 head on that actor's current
-observations.  The reference ``vmap``s the quantized head over actors, so
+observations (DQN's Q-values, DDPG's ``tanh`` actions).  The reference
+``vmap``s the quantized head over actors, so
 each actor's activations get their own dynamic scale: the port runs one
 head call per actor (one B1 launch per actor and layer, or one B2 launch
 per actor), never one over all actors' rows.
@@ -60,11 +63,12 @@ import torch
 
 from repro_torch.core.ptq import tree_map, tree_tensors
 from repro_torch.device import resolve_device
-from repro_torch.rl import actorq, common, dqn
+from repro_torch.rl import actorq, common, ddpg, dqn
 from repro_torch.rl import buffer as rb
 from repro_torch.rl.env import Env, batched_env, rollout
 
 ALGOS = ("dqn", "ddpg")
+_MODULES = {"dqn": dqn, "ddpg": ddpg}
 TOPOLOGIES = ("fused", "actor-learner", "async")
 
 
@@ -197,40 +201,57 @@ class AsyncPrograms(NamedTuple):
 class _AlgoParts(NamedTuple):
     build_policy: Callable        # (params, observers, step, updates,
     #                                cache) -> policy
-    learn: Callable               # the algorithm's TD update
-    fp32_head: Callable           # (params, obs, observers, step) -> Q
-    cache_head: Callable          # (packed cache, obs) -> behaviour Q
-    act_fn: Callable              # greedy eval policy
+    learn: Callable               # the algorithm's learner update
+    fp32_head: Callable           # (params, obs, observers, step) -> head
+    cache_head: Callable          # (packed cache, obs) -> behaviour head
+    act_fn: Callable              # deterministic eval policy
 
 
 def _check_algo(algo: str) -> None:
     if algo not in ALGOS:
         raise ValueError(f"actor-learner supports {ALGOS}, got {algo!r}")
-    if algo != "dqn":
-        raise NotImplementedError(
-            "the actor-learner topologies for DDPG are not ported yet "
-            "(ROADMAP queue A, item 8)")
 
 
 def _algo_parts(algo: str, env: Env, net, cfg) -> _AlgoParts:
-    """Behaviour, learner and head builders shared by both topologies
-    (DQN's; DDPG's come with ROADMAP queue A, item 8)."""
+    """Behaviour, learner and head builders shared by both topologies:
+    DQN's Q head and greedy actions, or DDPG's ``tanh`` mu head (the
+    packed cache's through ``tanh(quantized_apply)``) and its actions
+    scaled by ``action_scale``."""
     _check_algo(algo)
-    build = dqn.make_behaviour_policy(env, net, cfg)
+    if algo == "dqn":
+        build = dqn.make_behaviour_policy(env, net, cfg)
+
+        def build_policy(params, observers, step, updates, cache):
+            return build(params, observers, step, updates, qparams=cache)
+
+        def fp32_head(params, obs, observers, step):
+            return dqn._q_values(net, cfg, params, obs, observers, step)[0]
+
+        def act_fn(params, obs, observers=None, step=1 << 30):
+            step = torch.as_tensor(step, device=obs.device)
+            q = fp32_head(params, obs, observers or {}, step)
+            return torch.argmax(q, dim=-1).to(torch.int32)
+
+        return _AlgoParts(build_policy, dqn.make_td_update(env, net, cfg),
+                          fp32_head, actorq.quantized_apply, act_fn)
+    build = ddpg.make_behaviour_policy(env, net, cfg)
 
     def build_policy(params, observers, step, updates, cache):
-        return build(params, observers, step, updates, qparams=cache)
+        return build(params, observers, step, qparams=cache)
 
     def fp32_head(params, obs, observers, step):
-        return dqn._q_values(net, cfg, params, obs, observers, step)[0]
+        return ddpg._actor_out(net, cfg, params, obs, observers, step)[0]
+
+    def cache_head(cache, obs):
+        return torch.tanh(actorq.quantized_apply(cache, obs))
 
     def act_fn(params, obs, observers=None, step=1 << 30):
         step = torch.as_tensor(step, device=obs.device)
-        q = fp32_head(params, obs, observers or {}, step)
-        return torch.argmax(q, dim=-1).to(torch.int32)
+        return fp32_head(params, obs, observers or {}, step) \
+            * env.spec.action_scale
 
-    return _AlgoParts(build_policy, dqn.make_td_update(env, net, cfg),
-                      fp32_head, actorq.quantized_apply, act_fn)
+    return _AlgoParts(build_policy, ddpg.make_update(env, net, cfg),
+                      fp32_head, cache_head, act_fn)
 
 
 def _validate(algo: str, cfg, al: ActorLearnerConfig, mesh) -> int:
@@ -326,16 +347,18 @@ def _make_divergence(parts: _AlgoParts, quantized: bool, n_actors: int,
     return divergence
 
 
-def _sharded_init(env: Env, cfg):
+def _sharded_init(algo: str, env: Env, cfg):
     """``make_slot(n_shards, capacity, device)`` of the run's replay
-    discipline."""
+    discipline (DDPG's slots hold float ``(action_dim,)`` actions)."""
     init_sharded = rb.per_init_sharded \
         if rb.use_prioritized(cfg.replay, cfg.priority_exponent) \
         else rb.replay_init_sharded
+    action = dict(action_shape=(env.spec.action_dim,),
+                  action_dtype=torch.float32) if algo == "ddpg" else {}
 
     def make_slot(n_shards: int, capacity: int, device):
         return init_sharded(n_shards, capacity, env.spec.obs_shape,
-                            device=device)
+                            device=device, **action)
     return make_slot
 
 
@@ -353,7 +376,8 @@ def init(generator: torch.Generator, env: Env, net, algo: str, cfg,
     """Learner state, the actors' copy (and its packed cache) and the
     sharded replay (``buffer_size / num_actors`` a shard).
 
-    ``generator`` is the CPU generator of ``dqn.init``'s params; with
+    ``generator`` is the CPU generator of the algorithm's ``init``
+    (``dqn.init`` or ``ddpg.init``) params; with
     ``calib_batch > 0`` the first cache calibrates on a fresh reset of
     ``calib_batch`` envs drawn from it next (no rollout exists yet).
     """
@@ -362,9 +386,9 @@ def init(generator: torch.Generator, env: Env, net, algo: str, cfg,
     if n < 1 or cfg.buffer_size % n:
         raise ValueError(f"buffer_size {cfg.buffer_size} must divide by "
                          f"num_actors {n}")
-    state = dqn.init(generator, env, net, cfg)
+    state = _MODULES[algo].init(generator, env, net, cfg)
     dev = state.step.device
-    sharded = _sharded_init(env, cfg)(n, cfg.buffer_size // n, dev)
+    sharded = _sharded_init(algo, env, cfg)(n, cfg.buffer_size // n, dev)
     state = state._replace(extras=state.extras._replace(replay=sharded))
     actor_params = tree_map(torch.clone, state.params)
     cache = ()
@@ -392,9 +416,9 @@ def init_async(generator: torch.Generator, env: Env, net, algo: str, cfg,
         raise ValueError(
             f"buffer_size {cfg.buffer_size} must divide by num_actors x "
             f"slots = {n} x {slots} (double-buffered async replay)")
-    state = dqn.init(generator, env, net, cfg)
+    state = _MODULES[algo].init(generator, env, net, cfg)
     dev = state.step.device
-    make_slot = _sharded_init(env, cfg)
+    make_slot = _sharded_init(algo, env, cfg)
     cap = cfg.buffer_size // (n * slots)
     if double:
         db = rb.double_buffer_init(make_slot, n, cap, dev)

@@ -426,3 +426,30 @@ def make_act_fn(env_spec) -> Callable:
             out = quantized_apply(qparams, obs)
             return torch.argmax(out[..., :n_act], dim=-1).to(torch.int32)
     return act
+
+
+def sample_categorical(logits: torch.Tensor,
+                       generator: torch.Generator) -> torch.Tensor:
+    """One int32 draw per row from ``softmax(logits)`` by the Gumbel-max
+    trick, as ``jax.random.categorical``: the uniforms are drawn on the
+    generator's device (in ``[tiny, 1)``), the argmax on the logits'."""
+    u = torch.rand(logits.shape, generator=generator,
+                   device=generator.device).clamp_min(
+                       torch.finfo(torch.float32).tiny).to(logits.device)
+    return torch.argmax(logits - torch.log(-torch.log(u)),
+                        dim=-1).to(torch.int32)
+
+
+def make_sampling_policy(env_spec) -> Callable:
+    """The stochastic rollout policy of the packed actor (ActorQ data
+    collection for A2C): ``policy(qparams, obs, generator) -> (action,
+    logits)``, an int32 action drawn from the categorical head over the
+    first ``n_actions`` outputs, the logits kept as the trajectory's
+    ``aux``."""
+    n_act = env_spec.n_actions
+
+    def policy(qparams, obs, generator):
+        """Sample from the packed actor's categorical head."""
+        logits = quantized_apply(qparams, obs)[..., :n_act]
+        return sample_categorical(logits, generator), logits
+    return policy

@@ -2,8 +2,9 @@
 wiring, evaluation-time quantization and the loss and schedule helpers.
 
 Counterpart of ``repro/rl/common.py:15-126``.  ``state_from_jax``
-carries a JAX ``TrainState`` across (as numpy arrays), so a learner step
-can start from the same state in both packages.
+carries a JAX ``TrainState`` of any of the four algorithms across (as
+numpy arrays), so a learner step can start from the same state in both
+packages.
 """
 from __future__ import annotations
 
@@ -16,6 +17,7 @@ from repro_torch.core import affine, fake_quant, ptq
 from repro_torch.core.qconfig import QuantConfig
 from repro_torch.device import resolve_device
 from repro_torch.optim.adam import AdamState
+from repro_torch.rl import actorq
 from repro_torch.rl import buffer as rb
 
 
@@ -28,6 +30,17 @@ class TrainState(NamedTuple):
     observers: Dict[str, fake_quant.ObserverState]
     step: torch.Tensor
     extras: Any = ()
+
+
+def check_config(cfg) -> None:
+    """Raise ``ValueError`` for an algorithm config whose actor backend is
+    unknown or whose ``kernel_backend`` is not ``"auto"``: the port
+    dispatches its kernels by device."""
+    actorq.validate_actor_backend(cfg.actor_backend)
+    if cfg.kernel_backend != "auto":
+        raise ValueError("the port dispatches kernels by device; "
+                         f"kernel_backend must be 'auto', got "
+                         f"{cfg.kernel_backend!r}")
 
 
 def make_ctx(quant: QuantConfig, observers, step):
@@ -64,6 +77,31 @@ class PrefixCtx:
     def merged_collection(self):
         """The wrapped context's merged collection."""
         return self._ctx.merged_collection()
+
+
+def make_heads(net, quant: QuantConfig, n_actions: int):
+    """``heads(params, obs, observers, step) -> (logits, value,
+    observers)`` of an actor-critic net (A2C, PPO): the first
+    ``n_actions`` outputs and the one after them, under the QAT context
+    at ``step``, with the observers that forward leaves behind."""
+    def heads(params, obs, observers, step):
+        ctx = make_ctx(quant, observers, step)
+        out = net.apply(params, obs, ctx=ctx)
+        return out[..., :n_actions], out[..., n_actions], \
+            ctx.merged_collection()
+    return heads
+
+
+def log_prob(logits: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
+    """``log softmax(logits)`` at the integer ``action`` of each row."""
+    return torch.gather(torch.log_softmax(logits, dim=-1), -1,
+                        action[..., None].to(torch.int64))[..., 0]
+
+
+def entropy(logits: torch.Tensor) -> torch.Tensor:
+    """Mean entropy of the categorical rows of ``logits``."""
+    return -torch.sum(torch.softmax(logits, dim=-1)
+                      * torch.log_softmax(logits, dim=-1), dim=-1).mean()
 
 
 def eval_params(params: Any, quant: QuantConfig) -> Any:
@@ -123,6 +161,34 @@ def per_learner_step(state: TrainState, generator: torch.Generator, cfg,
     return state._replace(extras=state.extras._replace(replay=per)), loss
 
 
+def soft_update(target: Any, online: Any, tau: float) -> Any:
+    """Polyak averaging, leaf by leaf: ``(1 - tau) * target + tau *
+    online`` (DDPG's target nets)."""
+    return ptq.tree_map(lambda t, o: (1 - tau) * t + tau * o, target,
+                        online)
+
+
+def grad_leaves(params: Any) -> Any:
+    """``params`` as fresh autograd leaves (detached copies that require
+    grad), for one learner step's forward."""
+    return ptq.tree_map(lambda p: p.detach().requires_grad_(True), params)
+
+
+def tree_grad(loss: torch.Tensor, leaves: Any) -> Any:
+    """The gradient of ``loss`` for every leaf of ``leaves`` (from
+    ``grad_leaves``), as a tree of the same structure."""
+    flat = [t for _, t in ptq.tree_tensors(leaves)]
+    return _unflatten(leaves, iter(torch.autograd.grad(loss, flat)))
+
+
+def _unflatten(tree, it):
+    """``tree`` (nested dicts) with its leaves replaced, in sorted-key
+    order, by the next items of ``it`` (``tree_tensors``' order)."""
+    if isinstance(tree, dict):
+        return {k: _unflatten(tree[k], it) for k in sorted(tree)}
+    return next(it)
+
+
 def huber(x: torch.Tensor, delta: float = 1.0) -> torch.Tensor:
     """Elementwise Huber loss."""
     a = torch.abs(x)
@@ -133,11 +199,13 @@ def state_from_jax(state: Any, device=None) -> TrainState:
     """The port's ``TrainState`` from a JAX one (fields read as numpy).
 
     Carries the params, Adam's step and moments, the observers, the step
-    and, for DQN, the extras (target params, the uniform or prioritized
-    replay, single or sharded, and the update count), with dtypes kept,
-    onto ``device`` (``None`` is ``cuda``).
+    and the extras -- DQN's (target params, the uniform or prioritized
+    replay, single or sharded, and the update count), DDPG's (critic
+    params, both target nets, the critic's Adam state, the replay and
+    the update count) or PPO's and A2C's ``()`` -- with dtypes kept, onto
+    ``device`` (``None`` is ``cuda``).
     """
-    from repro_torch.rl import dqn          # dqn imports this module
+    from repro_torch.rl import ddpg, dqn     # both import this module
     device = resolve_device(device)
 
     def t(a):
@@ -148,9 +216,13 @@ def state_from_jax(state: Any, device=None) -> TrainState:
             return {k: tree(v) for k, v in x.items()}
         return t(x)
 
+    def adam(o):
+        return AdamState(t(o.step), tree(o.m), tree(o.v))
+
     observers = {k: fake_quant.ObserverState(t(o.vmin), t(o.vmax),
                                              t(o.initialized))
                  for k, o in state.observers.items()}
+
     def replay(r):
         if hasattr(r, "tree"):
             return rb.PrioritizedReplayState(replay(r.replay), t(r.tree),
@@ -159,14 +231,18 @@ def state_from_jax(state: Any, device=None) -> TrainState:
                               t(r.index), t(r.size))
 
     extras = state.extras
-    if hasattr(extras, "target_params"):
+    if hasattr(extras, "critic_params"):
+        extras = ddpg.DDPGExtras(
+            critic_params=tree(extras.critic_params),
+            target_actor=tree(extras.target_actor),
+            target_critic=tree(extras.target_critic),
+            critic_opt=adam(extras.critic_opt),
+            replay=replay(extras.replay), updates=t(extras.updates))
+    elif hasattr(extras, "target_params"):
         extras = dqn.DQNExtras(target_params=tree(extras.target_params),
                                replay=replay(extras.replay),
                                updates=t(extras.updates))
     elif extras != ():
-        raise NotImplementedError("state_from_jax carries DQN extras only "
-                                  "(ROADMAP queue A, item 8)")
-    return TrainState(params=tree(state.params),
-                      opt=AdamState(t(state.opt.step), tree(state.opt.m),
-                                    tree(state.opt.v)),
+        raise TypeError(f"unknown extras {type(extras).__name__}")
+    return TrainState(params=tree(state.params), opt=adam(state.opt),
                       observers=observers, step=t(state.step), extras=extras)

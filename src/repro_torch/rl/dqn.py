@@ -85,13 +85,6 @@ class DQNExtras(NamedTuple):
     updates: torch.Tensor
 
 
-def _check_kernel_backend(cfg: DQNConfig) -> None:
-    if cfg.kernel_backend != "auto":
-        raise ValueError("the port dispatches kernels by device; "
-                         f"kernel_backend must be 'auto', got "
-                         f"{cfg.kernel_backend!r}")
-
-
 def init(generator: torch.Generator, env: Env, net: Network,
          cfg: DQNConfig) -> common.TrainState:
     """A fresh train state: params from the CPU ``generator`` (on the
@@ -137,8 +130,7 @@ def make_behaviour_policy(env: Env, net: Network, cfg: DQNConfig):
     Exploration draws on the generator's device (on the card, a CUDA
     generator keeps the step free of host syncs).
     """
-    actorq.validate_actor_backend(cfg.actor_backend)
-    _check_kernel_backend(cfg)
+    common.check_config(cfg)
     seq_cfg = getattr(net, "seq_cfg", None)
     quantized = actorq.is_quantized(cfg.actor_backend)
     n_actions = env.spec.n_actions
@@ -207,8 +199,7 @@ def make_td_update(env: Env, net: Network, cfg: DQNConfig):
                   ) -> Tuple[common.TrainState, Tuple[torch.Tensor,
                                                       torch.Tensor]]:
         with torch.enable_grad():
-            leaves = tree_map(lambda p: p.detach().requires_grad_(True),
-                              state.params)
+            leaves = common.grad_leaves(state.params)
             q, new_coll = _q_values(net, cfg, leaves, batch.obs,
                                     state.observers, state.step)
             q_sel = torch.gather(q, 1, batch.action[:, None].to(
@@ -224,9 +215,7 @@ def make_td_update(env: Env, net: Network, cfg: DQNConfig):
                 loss = torch.mean(common.huber(td))
             else:
                 loss = torch.mean(weights * common.huber(td))
-            flat = [t for _, t in tree_tensors(leaves)]
-            grads_flat = torch.autograd.grad(loss, flat)
-        grads = _unflatten(leaves, iter(grads_flat))
+            grads = common.tree_grad(loss, leaves)
         new_params, new_opt, _ = adam_update(grads, state.opt, state.params,
                                              adam_cfg)
         updates = state.extras.updates + 1
@@ -247,14 +236,6 @@ def make_td_update(env: Env, net: Network, cfg: DQNConfig):
     return td_update
 
 
-def _unflatten(tree, it):
-    """``tree`` (nested dicts) with its leaves replaced, in sorted-key
-    order, by the next items of ``it`` (``tree_tensors``' order)."""
-    if isinstance(tree, dict):
-        return {k: _unflatten(tree[k], it) for k in sorted(tree)}
-    return next(it)
-
-
 def make_iteration(env: Env, net: Network, cfg: DQNConfig, device=None):
     """``(iteration, act_fn, benv)`` of the fused driver.
 
@@ -271,8 +252,7 @@ def make_iteration(env: Env, net: Network, cfg: DQNConfig, device=None):
     ``reset(generator, device)`` starts a run.  ``device=None`` is
     ``cuda``.
     """
-    actorq.validate_actor_backend(cfg.actor_backend)
-    _check_kernel_backend(cfg)
+    common.check_config(cfg)
     use_per = rb.use_prioritized(cfg.replay, cfg.priority_exponent)
     device = resolve_device(device)
     benv = actorq.maybe_attach_seq_state(

@@ -146,7 +146,8 @@ def rollout(env: Env, policy_fn, params, state, obs,
     when it is done (``auto_reset_step``).
 
     ``policy_fn(params, obs, generator) -> (action, aux)``; ``aux`` (the
-    Q-values, logits or values) is kept in the trajectory.  A
+    Q-values, logits or mu, or a tuple of tensors) is kept in the
+    trajectory, stacked over time.  A
     ``StatefulPolicy`` needs ``env`` wrapped by ``attach_policy_state``:
     it reads and writes the ``pstate`` half of the env state each step.
     Returns ``(final_state, final_obs, traj)``, ``traj`` a ``StepOut`` of
@@ -166,9 +167,19 @@ def rollout(env: Env, policy_fn, params, state, obs,
         state, next_obs, reward, done = stepper(state, action, generator)
         outs.append(StepOut(obs, action, reward, done, next_obs, aux))
         obs = next_obs
-    traj = StepOut(*(None if field[0] is None else torch.stack(field)
-                     for field in zip(*outs))) if outs else None
+    traj = StepOut(*(_stack(field) for field in zip(*outs))) \
+        if outs else None
     return state, obs, traj
+
+
+def _stack(field):
+    """One ``StepOut`` field stacked over time: a tensor, a tuple of
+    tensors (PPO's ``(logits, value, logp)``) or ``None``."""
+    if field[0] is None:
+        return None
+    if isinstance(field[0], tuple):
+        return tuple(torch.stack(f) for f in zip(*field))
+    return torch.stack(field)
 
 
 def evaluate(env: Env, act_fn, params, generator: torch.Generator,

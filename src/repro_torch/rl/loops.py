@@ -1,19 +1,22 @@
 """The training loops and the QuaRL pipelines (paper Algorithms 1 and 2).
 
-Counterpart of ``repro/rl/loops.py`` for ``algo="dqn"``:
+Counterpart of ``repro/rl/loops.py`` for its four algorithms, ``"dqn"``,
+``"ddpg"``, ``"a2c"`` and ``"ppo"``:
 
 * ``train`` -- one learner and its actors in one of three topologies:
   ``"fused"`` (``n_envs`` batched envs stepped by the learner's own
-  behaviour policy), ``"actor-learner"`` (``num_actors`` actors with a
-  sharded replay and a push every ``sync_every`` iterations) or
-  ``"async"`` (actor and learner chunks on two CUDA streams over a
-  double-buffered replay, a push every ``sync_every`` learner updates);
-  see ``rl.actor_learner``.  Rollouts run the fp32 policy under the QAT
-  context or the ActorQ int8/int4 actor; the replay is uniform or
-  prioritized; an evaluation runs every ``record_every`` iterations
-  (through the packed actor when the backend is quantized -- calibrated,
-  and so kernel B2, with ``calib_batch`` -- else the greedy fp32 policy
-  under the QAT context);
+  behaviour policy; every algorithm), ``"actor-learner"``
+  (``num_actors`` actors with a sharded replay and a push every
+  ``sync_every`` iterations) or ``"async"`` (actor and learner chunks on
+  two CUDA streams over a double-buffered replay, a push every
+  ``sync_every`` learner updates), the last two for the replay
+  algorithms DQN and DDPG (``rl.actor_learner``).  Rollouts run the
+  fp32 policy under the QAT context or the ActorQ int8/int4 actor; the
+  replay of DQN and DDPG is uniform or prioritized; an evaluation runs
+  every ``record_every`` iterations (through the packed actor when the
+  backend is quantized -- calibrated, and so kernel B2, with
+  ``calib_batch`` -- else the deterministic fp32 policy under the QAT
+  context);
 * ``make_scan_iteration`` -- the ``steps_per_call`` chunk: a host loop
   over that many iterations, with the metrics kept on the device until
   the chunk ends.  Chunks are clipped to ``record_every`` boundaries, so
@@ -29,8 +32,8 @@ resets, one for the loop (exploration and replay draws, in turn, in every
 topology) and one for evaluations.  ``device=None`` is ``cuda``.
 
 Not ported yet, and raising ``NotImplementedError`` naming the ROADMAP
-queue A item: the other algorithms (item 8), a device mesh (item 14),
-checkpointing and resume (item 9), and the resilience hooks (item 11).
+queue A item: a device mesh (item 14), checkpointing and resume (item
+9), and the resilience hooks (item 11).
 """
 from __future__ import annotations
 
@@ -44,13 +47,15 @@ from repro_torch.core import fake_quant
 from repro_torch.core import metrics as metrics_lib
 from repro_torch.core.qconfig import QuantConfig, QuantMode
 from repro_torch.device import resolve_device
-from repro_torch.rl import actor_learner, actorq, common, dqn
+from repro_torch.rl import a2c, actor_learner, actorq, common, ddpg, dqn, \
+    ppo
 from repro_torch.rl import buffer as rb
 from repro_torch.rl.env import Env, evaluate
 from repro_torch.rl.envs import make as make_env
 from repro_torch.rl.networks import make_network
 
 ALGOS = ("dqn", "a2c", "ppo", "ddpg")
+MODULES = {"dqn": dqn, "a2c": a2c, "ppo": ppo, "ddpg": ddpg}
 
 
 def _not_ported(what: str, item: int) -> NotImplementedError:
@@ -58,13 +63,24 @@ def _not_ported(what: str, item: int) -> NotImplementedError:
                                f"A, item {item})")
 
 
-def _bootstrap_observers(env: Env, net, state: common.TrainState,
-                         quant: QuantConfig):
-    """Every QAT observer slot, fresh, found by one forward on zeros."""
+def _bootstrap_observers(algo: str, env: Env, net,
+                         state: common.TrainState, quant: QuantConfig):
+    """Every QAT observer slot, fresh, found by one forward on zeros
+    (DDPG's actor under ``actor/`` and its critic, on the actor's
+    actions, under ``critic/``)."""
     device = state.step.device
     obs0 = torch.zeros((2,) + tuple(env.spec.obs_shape), device=device)
-    return fake_quant.discover_observers(
-        quant, lambda rec: net.apply(state.params, obs0, ctx=rec))
+    if algo == "ddpg":
+        def trace(rec):
+            a = torch.tanh(net.actor.apply(
+                state.params, obs0, ctx=common.PrefixCtx(rec, "actor/")))
+            net.critic.apply(state.extras.critic_params,
+                             torch.cat([obs0.reshape(2, -1), a], dim=-1),
+                             ctx=common.PrefixCtx(rec, "critic/"))
+    else:
+        def trace(rec):
+            net.apply(state.params, obs0, ctx=rec)
+    return fake_quant.discover_observers(quant, trace)
 
 
 @dataclasses.dataclass
@@ -120,8 +136,6 @@ def _check_supported(algo, topology, num_actors, sync_every, mesh,
     if topology != "fused" and algo not in actor_learner.ALGOS:
         raise ValueError(f"topology={topology!r} needs a replay algorithm "
                          f"{actor_learner.ALGOS}, got {algo!r}")
-    if algo != "dqn":
-        raise _not_ported(f"algo={algo!r}", 8)
     if async_barrier and topology != "async":
         raise ValueError("async_barrier is an async-topology knob: pass "
                          "topology='async'")
@@ -139,6 +153,26 @@ def _check_supported(algo, topology, num_actors, sync_every, mesh,
         raise _not_ported("checkpointing and resume", 9)
     if resilience is not None:
         raise _not_ported("the resilience hooks", 11)
+
+
+def _build(algo: str, env: Env, quant: QuantConfig, net_kwargs: Dict,
+           overrides: Dict, device):
+    """``(net, cfg)`` of ``algo`` on ``env``: DDPG's actor and critic
+    (``ddpg.DDPGNets``), else one network whose head is ``n_actions``
+    wide, one more for the value of A2C and PPO."""
+    if algo == "ddpg":
+        if not env.spec.continuous:
+            raise ValueError(f"DDPG needs a continuous env, got "
+                             f"{env.spec.name!r}")
+        nets = ddpg.make_nets(env, device=device, **net_kwargs)
+        return nets, dataclasses.replace(ddpg.DDPGConfig(quant=quant),
+                                         **overrides)
+    out_dim = env.spec.n_actions + (1 if algo in ("a2c", "ppo") else 0)
+    net = make_network(env.spec.obs_shape, out_dim, device=device,
+                       **net_kwargs)
+    config = {"dqn": dqn.DQNConfig, "a2c": a2c.A2CConfig,
+              "ppo": ppo.PPOConfig}[algo]
+    return net, dataclasses.replace(config(quant=quant), **overrides)
 
 
 def _evaluator(env: Env, cfg, act_fn, g_eval: torch.Generator,
@@ -199,9 +233,10 @@ def train(algo: str, env_name: str, *, iterations: int = 200,
     that cache from the live observations at every refresh, so both run
     the fused kernel.  ``quant`` is the learner's QAT config
     (``QuantConfig.qat``, fused topology only); its ``quant_delay`` counts
-    TD updates (the state's ``step``, ``updates_per_iter`` per
-    iteration).  ``replay="prioritized"`` samples by priority (a sum-tree
-    a shard), ``priority_exponent=0`` being bitwise uniform.
+    the state's ``step``: learner updates for DQN and DDPG
+    (``updates_per_iter`` an iteration), iterations for A2C and PPO.
+    ``replay="prioritized"`` (DQN and DDPG) samples by priority (a
+    sum-tree a shard), ``priority_exponent=0`` being bitwise uniform.
 
     ``topology="actor-learner"`` runs ``num_actors`` actors pushed every
     ``sync_every`` iterations; ``topology="async"`` runs a round of
@@ -222,18 +257,21 @@ def train(algo: str, env_name: str, *, iterations: int = 200,
     overrides = dict(algo_overrides or {})
     overrides.setdefault("actor_backend", actor_backend)
     overrides.setdefault("calib_batch", calib_batch)
-    overrides.setdefault("replay", replay)
-    overrides.setdefault("priority_exponent", priority_exponent)
-    overrides.setdefault("is_beta", is_beta)
-    net = make_network(env.spec.obs_shape, env.spec.n_actions,
-                       device=device, **(net_kwargs or {}))
-    cfg = dataclasses.replace(dqn.DQNConfig(quant=quant), **overrides)
+    if algo in actor_learner.ALGOS:
+        overrides.setdefault("replay", replay)
+        overrides.setdefault("priority_exponent", priority_exponent)
+        overrides.setdefault("is_beta", is_beta)
+    elif rb.validate_replay(overrides.get("replay", replay)) != "uniform":
+        raise ValueError(f"replay='prioritized' needs a replay algorithm "
+                         f"{actor_learner.ALGOS}; {algo!r} is on-policy")
+    net, cfg = _build(algo, env, quant, net_kwargs or {}, overrides, device)
+    mod = MODULES[algo]
 
     def gen(offset):
         return torch.Generator(device=device).manual_seed(seed + offset)
     g_params = torch.Generator().manual_seed(seed)
     if topology == "async":
-        return _train_async(env, net, cfg, g_params, gen,
+        return _train_async(algo, env, net, cfg, g_params, gen,
                             iterations=iterations,
                             record_every=record_every,
                             eval_episodes=eval_episodes,
@@ -247,11 +285,11 @@ def train(algo: str, env_name: str, *, iterations: int = 200,
         iteration, act_fn, benv = actor_learner.make_actor_learner(
             algo, env, net, cfg, al, device=device)
     else:
-        state = dqn.init(g_params, env, net, cfg)
+        state = mod.init(g_params, env, net, cfg)
         if quant.is_qat:
-            state = state._replace(
-                observers=_bootstrap_observers(env, net, state, quant))
-        iteration, act_fn, benv = dqn.make_iteration(env, net, cfg, device)
+            state = state._replace(observers=_bootstrap_observers(
+                algo, env, net, state, quant))
+        iteration, act_fn, benv = mod.make_iteration(env, net, cfg, device)
     env_state, obs = benv.reset(gen(1), device)
     g_run = gen(2)
     eval_steps = [0]
@@ -274,8 +312,10 @@ def train(algo: str, env_name: str, *, iterations: int = 200,
                 state, actor_learner.ActorLearnerState) else state
             rewards.append(evaluate_at(learner.params, learner.observers,
                                        learner.step, obs))
-            variances.append(float(metrics["mean_q_var"][-1])
-                             if "mean_q_var" in metrics else 0.0)
+            variances.append(next(
+                (float(metrics[k][-1]) for k in ("action_dist_variance",
+                                                 "mean_q_var")
+                 if k in metrics), 0.0))
             # the first push is at iteration sync_every: a record point
             # before it would only see the init-time zeros
             if "divergence" in metrics and i >= sync_every:
@@ -289,7 +329,8 @@ def train(algo: str, env_name: str, *, iterations: int = 200,
                        eval_steps=eval_steps[0], divergences=divergences)
 
 
-def _train_async(env: Env, net, cfg, g_params: torch.Generator, gen, *,
+def _train_async(algo: str, env: Env, net, cfg, g_params: torch.Generator,
+                 gen, *,
                  iterations: int, record_every: int, eval_episodes: int,
                  steps_per_call: int, num_actors: int, sync_every: int,
                  barrier: bool, device) -> TrainResult:
@@ -309,9 +350,9 @@ def _train_async(env: Env, net, cfg, g_params: torch.Generator, gen, *,
     """
     al = actor_learner.ActorLearnerConfig(num_actors=num_actors,
                                           sync_every=sync_every)
-    progs = actor_learner.make_async_actor_learner("dqn", env, net, cfg, al,
+    progs = actor_learner.make_async_actor_learner(algo, env, net, cfg, al,
                                                    device=device)
-    learner, wbuf = actor_learner.init_async(g_params, env, net, "dqn", cfg,
+    learner, wbuf = actor_learner.init_async(g_params, env, net, algo, cfg,
                                              al, double=not barrier)
     env_state, obs = progs.benv_global.reset(gen(1), device)
     g_run = gen(2)

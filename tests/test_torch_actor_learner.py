@@ -426,13 +426,14 @@ def test_async_rejects_invalid_configs():
 
 
 def test_unported_topology_options_raise():
-    """DDPG (ROADMAP queue A, item 8), a mesh (item 14), checkpointing
-    (item 9) and the resilience hooks (item 11) still raise in the
-    topologies."""
+    """A mesh (item 14; for DDPG too, whose topologies are ported),
+    checkpointing (item 9) and the resilience hooks (item 11) still
+    raise in the topologies."""
     kw = dict(iterations=2, device="cpu", num_actors=2)
     for topo in ("actor-learner", "async"):
-        with pytest.raises(NotImplementedError, match="item 8"):
-            loops.train("ddpg", "pendulum", topology=topo, **kw)
+        with pytest.raises(NotImplementedError, match="item 14"):
+            loops.train("ddpg", "pendulum", topology=topo, mesh=object(),
+                        **kw)
         for extra, item in ((dict(mesh=object()), 14),
                             (dict(checkpoint_dir="x"), 9),
                             (dict(resilience=object()), 11)):

@@ -891,3 +891,79 @@ def test_conv_topology_anchors_on_card(cuda, backend):
     assert _same_run(fused, sync)
     assert _same_run(sync, barrier)
     assert _same_run(fused, chunked)
+
+
+# ---------------------------------------------------------------------------
+# the DDPG / PPO / A2C slice (``-k algo``)
+# ---------------------------------------------------------------------------
+
+# B1's new edge rows on the algorithms' paths: K 2 (MountainCar) and 3
+# (Pendulum), N 1 (DDPG's mu head) and 3 (CartPole's logits and value)
+ALGO_B1_ROWS = [(m, k, n) for m in (4, 8, 64, 512) for k in (2, 3)
+                for n in (1, 3, 64)] + [(m, 64, n) for m in (4, 128, 512)
+                                         for n in (1, 3)]
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("mkn", ALGO_B1_ROWS)
+def test_int8_matmul_algo_edge_rows_on_card(cuda, bits, mkn):
+    """B1 at the K and N edges the algorithms give it: bitwise, one
+    launch."""
+    m, k, n = mkn
+    args = [a.to(cuda) for a in _gemm_inputs(m, k, n, bits, seed=m + k + n)]
+    before = int8_matmul.launches.value
+    got = int8_matmul.int8_matmul_cuda(*args, w_bits=bits)
+    want = int8_matmul.int8_matmul_plain(*args, w_bits=bits)
+    torch.cuda.synchronize()
+    assert int8_matmul.launches.value == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("bits", [4, 8])
+@pytest.mark.parametrize("net", [(3, 1), (2, 4), (4, 3)],
+                         ids=["ddpg-pendulum", "ppo-mountaincar",
+                              "ppo-cartpole"])
+@pytest.mark.parametrize("m", [1, 8, 16, 32, 128])
+def test_fused_qmlp_algo_heads_on_card(cuda, bits, net, m):
+    """B2 on the algorithms' calibrated actors: DDPG's 3-64-64-1 (a head
+    of width 1), PPO's 2-64-64-4 and 4-64-64-3: bitwise, one launch."""
+    k0, n_out = net
+    _fused_one_launch(*_fused_case(cuda, k0, (64, 64), n_out, bits, m,
+                                   seed=k0 * 10 + n_out + m))
+
+
+@pytest.mark.parametrize("algo,env,kw", [
+    ("ppo", "cartpole", dict(actor_backend="int8")),
+    ("a2c", "cartpole", dict(actor_backend="int4", calib_batch=8)),
+    ("ddpg", "pendulum", dict(actor_backend="int8")),
+    ("ddpg", "pendulum", dict(actor_backend="int4", calib_batch=8)),
+    ("ppo", "cartpole", dict(quant=QuantConfig.qat(8, quant_delay=1)))],
+    ids=str)
+def test_algo_train_on_card_launches_its_kernels(cuda, algo, env, kw):
+    """Two iterations of each algorithm on the card: B1 3 a forward of the
+    uncalibrated actor, B2 once a calibrated forward and 2 B1 a
+    calibration, B5 6 a QAT forward, as ``chip_smoke.py`` counts them."""
+    b1, b2, b5 = (c.value for c in (int8_matmul.launches,
+                                    fused_qmlp.launches,
+                                    fake_quant.launches))
+    small = dict(n_envs=4, n_steps=8) if algo != "ddpg" else dict(
+        n_envs=4, rollout_steps=4, updates_per_iter=2, buffer_size=512,
+        batch_size=16, warmup=8)
+    res = loops.train(algo, env, iterations=2, record_every=2,
+                      eval_episodes=4, algo_overrides=small, **kw)
+    torch.cuda.synchronize()
+    cfg = res.algo_cfg
+    fwd = 2 * (cfg.rollout_steps if algo == "ddpg"
+               else cfg.n_steps + (algo == "ppo"))
+    got = [c.value - v for c, v in zip(
+        (int8_matmul.launches, fused_qmlp.launches, fake_quant.launches),
+        (b1, b2, b5))]
+    if "quant" in kw:
+        learner = 2 * cfg.epochs * cfg.n_minibatches
+        want = [0, 0, 6 * (fwd + learner + res.eval_steps)]
+    elif cfg.calib_batch:
+        want = [2 * (2 + 1), fwd + res.eval_steps, 0]
+    else:
+        want = [3 * (fwd + res.eval_steps), 0, 0]
+    assert got == want
+    assert res.device.type == "cuda" and all(np.isfinite(res.rewards))

@@ -36,7 +36,7 @@ def test_scan_sees_the_port():
             "flash_attention.py", "attention.py", "blocks.py",
             "transformer.py", "serve.py", "base.py", "h2o_danube_1_8b.py",
             "gemma2_9b.py", "quarl_atari.py", "mountaincar.py",
-            "pendulum.py"} <= names
+            "pendulum.py", "ddpg.py", "ppo.py", "a2c.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -57,7 +57,8 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.kernels.flash_attention, repro_torch.configs.base, "
             "repro_torch.models.transformer, repro_torch.launch.serve, "
             "repro_torch.configs.quarl_atari, "
-            "repro_torch.rl.envs.mountaincar, repro_torch.rl.envs.pendulum\n"
+            "repro_torch.rl.envs.mountaincar, repro_torch.rl.envs.pendulum, "
+            "repro_torch.rl.ddpg, repro_torch.rl.ppo, repro_torch.rl.a2c\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
@@ -74,7 +75,7 @@ def _entry_points():
     from repro_torch.launch import serve as launch_serve
     from repro_torch.launch import train as launch_train
     from repro_torch.models import transformer
-    from repro_torch.rl import actorq, buffer, dqn, loops, networks
+    from repro_torch.rl import actorq, buffer, ddpg, dqn, loops, networks, ppo
     from repro_torch.rl.env import batched_env
     from repro_torch.rl.envs import make
     from repro_torch.serving import PolicyServer
@@ -115,6 +116,19 @@ def _entry_points():
                                            iterations=1).device,
         "launch_train": lambda: launch_train.main(
             ["--algo", "dqn", "--iterations", "1"]),
+        "launch_train_defaults": lambda: launch_train.main(
+            ["--iterations", "1"]),
+        "ddpg_make_nets": lambda: ddpg.make_nets(make("pendulum")).actor
+        .init(gen)["fc0"]["w"],
+        "ddpg_train": lambda: loops.train("ddpg", "pendulum",
+                                          iterations=1).device,
+        "ppo_make_iteration": lambda: ppo.make_iteration(
+            make("cartpole"), networks.make_network((4,), 3, device="cpu"),
+            ppo.PPOConfig(n_envs=2))[2].reset(gen)[1],
+        "ppo_train": lambda: loops.train("ppo", "cartpole",
+                                         iterations=1).device,
+        "a2c_train": lambda: loops.train("a2c", "cartpole",
+                                         iterations=1).device,
         "transformer_init_params": lambda: transformer.init_params(
             cfgs.get_reduced("h2o-danube-1.8b"), gen)["embed"]["w"],
         "transformer_init_caches": lambda: transformer.init_caches(
@@ -135,6 +149,9 @@ def _entry_points():
                                   "conv_network_init",
                                   "replay_init", "make_iteration",
                                   "loops_train", "launch_train",
+                                  "launch_train_defaults", "ddpg_make_nets",
+                                  "ddpg_train", "ppo_make_iteration",
+                                  "ppo_train", "a2c_train",
                                   "transformer_init_params",
                                   "transformer_init_caches",
                                   "launch_serve"])
@@ -145,7 +162,7 @@ def test_entry_points_default_to_the_card(name):
     call = _entry_points()[name]
     if torch.cuda.is_available():
         out = call()
-        if name in ("launch_train", "launch_serve"):  # an exit code
+        if name.startswith(("launch_train", "launch_serve")):  # exit code
             assert out == 0
             return
         assert (out if isinstance(out, torch.device) else out.device

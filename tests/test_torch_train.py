@@ -408,8 +408,9 @@ def test_unported_options_raise():
             loops.train("dqn", "cartpole", **kw, **extra)
     with pytest.raises(ValueError, match="actor-learner knobs"):
         loops.train("dqn", "cartpole", num_actors=2, **kw)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        loops.train("ppo", "cartpole", **kw)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        loops.train("ddpg", "pendulum", topology="actor-learner",
+                    mesh=object(), **kw)
     with pytest.raises(ValueError, match="algo"):
         loops.train("sac", "cartpole", **kw)
     net = networks.make_network((6, 27), 3, transformer={"d_model": 8,
