@@ -23,8 +23,9 @@ cache in place) and times both, then drives the port's four paths:
   evaluation, and the windowed and cached actors held to the reference's
   contract on a catch_seq episode (and compared on an airnav_seq one);
 * training -- ``loops.train`` runs DQN on CartPole (MLP 4-64-64-2, the
-  reference's defaults, 400 iterations): QAT int8 (every fake-quant site
-  one launch of kernel B5's site kernel), the ActorQ int4 and int8 actors with calibrated
+  reference's defaults, 200 iterations, the QAT run 100): QAT int8
+  (every fake-quant site one launch of kernel B5's site kernel), the
+  ActorQ int4 and int8 actors with calibrated
   caches (rollouts through kernel B2) and the fp32 baseline, then
   ``quarl_ptq`` evaluates the fp32 run at int8 and fp16; the eval
   rewards are held to the bars stated in ``PERF.md``, one TD update of
@@ -32,7 +33,7 @@ cache in place) and times both, then drives the port's four paths:
   iteration launches at most ``QAT_KERNEL_RATIO`` times the kernels of
   an fp32 one;
 * the topologies -- ``loops.train`` runs the same DQN CartPole net with 4
-  actors of 8 envs for 400 iterations, a push every 16 learner updates:
+  actors of 8 envs for 200 iterations, a push every 16 learner updates:
   the actor-learner topology with int8 actors (kernel B1), async with
   int8 actors (B1), int4 calibrated actors (B2) and fp32 actors, each
   held to its launch counts, a reward bar of 100, finite per-actor
@@ -54,6 +55,23 @@ cache in place) and times both, then drives the port's four paths:
   each in turns and profiled; ``repro_torch.launch.train``'s default
   run (PPO on CartPole); and B1 / B2 bitwise and timed at every shape
   these paths gave them (K 2 and 3, N 1 and 3, B2's width-1 head);
+* the sequence actor in training -- ``loops.train`` runs DQN with the
+  sequence actor (``d_model`` 32, 2 layers) on masked Catch at the
+  reference's configs: the fused smoke and the convergence bar
+  (``rewards[-1] >= 0.5`` after 300 iterations) in the fused,
+  actor-learner and async topologies with int8 actors (B1 at each dense
+  layer, B3 once a block a cached behaviour step), a fused QAT int8 run
+  (B5 at the 28 sites of each TD forward), each with exact launch
+  counts; the anchors bitwise on the card; one TD update of the QAT and
+  of an fp32 run replayed on the CPU within 1e-5; the fp32 windowed,
+  int8 and int4 cached and QAT actors timed in turns and profiled;
+* checkpoints -- the reference's resume set (DQN on Catch and DDPG on
+  Pendulum in the three topologies, prioritized replay, the sequence
+  actor fused and async) trained to 3 with checkpoints, resumed to 6,
+  and held bit for bit to the run to 6 that saved nothing, with the
+  host time of each save and restore and the bytes of each checkpoint;
+  ``repro_torch.launch.train`` with ``--ckpt-dir`` and then
+  ``--resume``;
 * the conv actor -- the paper's Atari conv actor (3 conv + FC, its
   Policies A, B and C) on pixel Catch: each int8 / int4 actor's forward at
   8 and 256 envs bitwise its plain replay on the card (B1 five times a
@@ -152,15 +170,30 @@ SITE_ROWS = (("cartpole fc0/w", "weight", (4, 64)),
              ("rollout fc/out", "activation", (8, 64)),
              ("rollout out/out", "activation", (8, 2)),
              ("Policy II", "activation", (512, 256)),
-             ("Policy II", "weight", (512, 256)))
+             ("Policy II", "weight", (512, 256)),
+             # the sequence actor's sites (SEQ_NET on catch_seq's 6 x 27
+             # stacks) at the TD batch of 32 and the 8 behaviour envs
+             ("seq td embed/out", "activation", (32, 6, 32)),
+             ("seq td fc/out", "activation", (32, 6, 64)),
+             ("seq td head/out", "activation", (32, 3)),
+             ("seq rollout blk/q/out", "activation", (8, 6, 32)),
+             ("seq embed/w", "weight", (27, 32)),
+             ("seq fc/w", "weight", (32, 64)),
+             ("seq head/w", "weight", (32, 3)))
 SITE_DELAY = 6                    # steps 5, 6, 9: before, at, after it
 # kernels a profiled QAT iteration may launch per fp32 iteration: fp32's
 # plus 6 site launches a forward (PERF.md, sections 2 and 5)
 QAT_KERNEL_RATIO = 1.15
 # the training phase: DQN on CartPole with the reference's defaults and
 # the bar run of tests/test_fused_qmlp.py:300-307
-TRAIN_ITERS, TRAIN_RECORD, TRAIN_SPC = 400, 50, 5
-QAT_DELAY = 200                   # TD updates: iteration 25 of 400
+# (200 of the reference's 400 iterations, to hold the script's time: the
+# records at 50-200 are the same, bit for bit, and each run clears its bar
+# by iteration 200, PERF.md)
+TRAIN_ITERS, TRAIN_RECORD, TRAIN_SPC = 200, 50, 5
+QAT_DELAY = 200                   # TD updates: iteration 25
+# the QAT run takes 100 iterations, for time: quantization still turns
+# on at iteration 25, and its bar is 9.0
+QAT_TRAIN_ITERS = 100
 # bars on max(eval rewards), stated in PERF.md before the first chip run:
 # 100 where the JAX package clears it on the CPU with this config; the
 # JAX package's QAT run collapses to about 9.4 once quantization turns
@@ -169,11 +202,12 @@ TRAIN_BARS = {"qat8": 9.0, "actorq_int4": 100.0, "actorq_int8": 100.0,
               "fp32": 100.0}
 TD_ATOL = 1e-5
 # the topology phase: DQN on CartPole at full width with the reference's
-# defaults, 4 actors x 8 envs, 400 iterations, seed SEED, and one
+# defaults, 4 actors x 8 envs, 200 iterations, seed SEED, and one
 # staleness in both topologies: a push every 16 learner updates (the
 # actor-learner topology's 2 iterations of 8; async rounds of 2 rollouts
 # and 16 updates)
-TOPO_ACTORS, TOPO_ITERS, TOPO_RECORD, ASYNC_SPC = 4, 400, 50, 2
+# (200 of the reference's 400 iterations, for time, as TRAIN_ITERS)
+TOPO_ACTORS, TOPO_ITERS, TOPO_RECORD, ASYNC_SPC = 4, 200, 50, 2
 TOPO_RUNS = (
     ("al_int8", dict(topology="actor-learner", sync_every=2,
                      actor_backend="int8", steps_per_call=TRAIN_SPC)),
@@ -229,6 +263,10 @@ CACHE_ROWS = (
     ("airnav_seq", 1, ROLL_ENVS, 1, 121, 32, 8, "ragged", "rows"),
     ("airnav_seq", 1, ROLL_ENVS, 1, 121, 32, 8, "last", "rows"),
     ("catch_seq", 1, ROLL_ENVS, 1, 8, 32, 6, "ragged", "rows"),
+    # the seq_train phase's behaviour steps: SEQ_ALGO's 8 envs, and 2
+    # actors of 8
+    ("catch_seq train", 1, 8, 1, 8, 32, 6, "ragged", "rows"),
+    ("catch_seq train 2 actors", 1, 16, 1, 8, 32, 6, "ragged", "rows"),
     ("long", 1, 8, 4, 4096, 128, None, "last", "rows"),
     ("danube decode", 4, 8, 4, 4096, 80, None, "last", "lm"),
     ("danube serve", 4, 8, 4, 64, 80, None, "ragged", "lm"))
@@ -247,11 +285,12 @@ CONV_ENVS = (8, 256)
 # the rollouts take the backends in this order, reversed at every other
 # (policy, envs) cell, so no backend always runs first
 CONV_BACKENDS = ("fp32", "int8", "int4")
-CONV_ROLL_STEPS = 100
+CONV_ROLL_STEPS = 50
 CONV_CPU_ATOL = 1e-4              # the card's forward against the CPU's
 # DQN on Catch at Policy A width (ATARI_DQN) with DQNConfig's defaults:
 # (name, loops.train keywords); the QAT run's delay is QAT_DELAY
-CONV_TRAIN_ITERS, CONV_TRAIN_RECORD = 50, 25
+# (30 iterations, for time: the QAT run is 40 TD updates past its delay)
+CONV_TRAIN_ITERS, CONV_TRAIN_RECORD = 30, 15
 CONV_TRAIN_RUNS = (("qat8", {}), ("actorq_int4", dict(actor_backend="int4")),
                    ("actorq_int8", dict(actor_backend="int8")),
                    ("fp32", {}))
@@ -277,16 +316,19 @@ A7_BAR = 0.0
 # JAX package's own on the CPU: PPO fp32 > 100 at seed 3 and A2C fp32 > 50
 # at seed 1 (tests/test_rl.py:175-184), PPO int8 > 50 at seed 0
 # (tests/test_actor_learner.py:369-382), QAT PPO with delay 10
-# (tests/test_rl.py:196-202), DDPG 40 iterations finite
+# (tests/test_rl.py:196-202), DDPG finite (40 iterations there; 20 here,
+# for time)
 # (tests/test_rl.py:191-194; its int8 bar is red in the JAX package,
 # ROADMAP queue C, so DDPG's rewards are recorded, not held).  DDPG's
 # topologies: 4 actors x 8 envs, a push every 16 learner updates, as the
 # topology phase's.
 ALGO_RUNS = (
+    # (80 of their 120 iterations, for time: the records at 40 and 80 are
+    # the same, bit for bit, and clear the bars, PERF.md)
     ("ppo_fp32", "ppo", "cartpole", 100.0,
-     dict(iterations=120, record_every=40, seed=3)),
+     dict(iterations=80, record_every=40, seed=3)),
     ("ppo_int8", "ppo", "cartpole", 50.0,
-     dict(iterations=120, record_every=40, seed=0, actor_backend="int8")),
+     dict(iterations=80, record_every=40, seed=0, actor_backend="int8")),
     ("ppo_int4_calib", "ppo", "cartpole", None,
      dict(iterations=20, record_every=10, seed=0, actor_backend="int4",
           calib_batch=16)),
@@ -297,22 +339,22 @@ ALGO_RUNS = (
     ("a2c_int8", "a2c", "cartpole", None,
      dict(iterations=100, record_every=50, seed=0, actor_backend="int8")),
     ("ddpg_fp32", "ddpg", "pendulum", None,
-     dict(iterations=40, record_every=20, seed=0)),
+     dict(iterations=20, record_every=10, seed=0)),
     ("ddpg_int8", "ddpg", "pendulum", None,
-     dict(iterations=40, record_every=20, seed=0, actor_backend="int8")),
+     dict(iterations=20, record_every=10, seed=0, actor_backend="int8")),
     ("ddpg_int4_calib", "ddpg", "pendulum", None,
-     dict(iterations=40, record_every=20, seed=0, actor_backend="int4",
+     dict(iterations=20, record_every=10, seed=0, actor_backend="int4",
           calib_batch=8)),
     ("ddpg_qat8", "ddpg", "pendulum", None,
-     dict(iterations=40, record_every=20, seed=0, qat_delay=100)),
+     dict(iterations=20, record_every=10, seed=0, qat_delay=100)),
     ("ddpg_per", "ddpg", "pendulum", None,
-     dict(iterations=40, record_every=20, seed=0, replay="prioritized")),
+     dict(iterations=20, record_every=10, seed=0, replay="prioritized")),
     ("ddpg_al_int8", "ddpg", "pendulum", None,
-     dict(iterations=40, record_every=20, seed=0, topology="actor-learner",
+     dict(iterations=20, record_every=10, seed=0, topology="actor-learner",
           num_actors=4, sync_every=2, actor_backend="int8",
           steps_per_call=TRAIN_SPC)),
     ("ddpg_async_int8", "ddpg", "pendulum", None,
-     dict(iterations=40, record_every=20, seed=0, topology="async",
+     dict(iterations=20, record_every=10, seed=0, topology="async",
           num_actors=4, sync_every=16, actor_backend="int8",
           steps_per_call=ASYNC_SPC)))
 # DDPG's anchors' config (tests/test_prioritized_replay.py:32)
@@ -320,7 +362,48 @@ SMALL_DDPG = dict(n_envs=4, rollout_steps=4, updates_per_iter=2,
                   buffer_size=512, batch_size=16, warmup=8)
 # DDPG at Policy II's widths (Table 5): iterations each, in chunks taken
 # in turns
-ALGO_WIDE_ITERS, ALGO_WIDE_CHUNK = 100, 10
+ALGO_WIDE_ITERS, ALGO_WIDE_CHUNK = 40, 10
+# the launcher's default run (PPO on CartPole), these of its default 200
+# iterations, for time
+ALGO_LAUNCH_ITERS = 40
+# the seq_train phase: DQN with the sequence actor (SEQ_NET) on catch_seq
+# at the reference's configs (tests/test_seq_policy.py:318-351): the
+# fused smoke, then the convergence bar in the three topologies, held to
+# rewards[-1] >= SEQ_BAR (the JAX package clears it on the CPU in all
+# three: PERF.md)
+SEQ_ALGO = dict(n_envs=8, rollout_steps=8, updates_per_iter=4,
+                buffer_size=4096, batch_size=32, warmup=64,
+                eps_decay_updates=600, target_update_every=50, lr=1e-3)
+SEQ_SMOKE = dict(n_envs=2, rollout_steps=2, updates_per_iter=1,
+                 buffer_size=64, batch_size=8, warmup=8)
+SEQ_BAR_ITERS, SEQ_BAR = 300, 0.5
+# the fused QAT int8 run that counts B5: quantization on from TD update
+# SEQ_QAT_DELAY (iteration 10 of 30)
+SEQ_QAT_ITERS, SEQ_QAT_DELAY = 30, 40
+# fp32 (windowed), int8 and int4 (cached) and QAT (the windowed fp32 actor
+# under the context) at SEQ_ALGO, iterations each in chunks taken in turns
+SEQ_TIME_RUNS = (("fp32", {}), ("int8", dict(actor_backend="int8")),
+                 ("int4", dict(actor_backend="int4")),
+                 ("qat8", dict(qat_delay=SEQ_QAT_DELAY)))
+SEQ_TIME_ITERS, SEQ_TIME_CHUNK = 20, 10
+# the resume phase: tests/test_resume.py:31-99 at its small config (Catch
+# with hidden=(16,) is the default conv net), each case trained to
+# RESUME_AT with checkpoints, resumed to RESUME_TO, and held bitwise to the
+# run to RESUME_TO that had no checkpoint directory
+RESUME_SMALL = dict(n_envs=2, rollout_steps=2, updates_per_iter=2,
+                    buffer_size=64, batch_size=8, warmup=8)
+RESUME_SEQ = {"transformer": dict(d_model=16, n_layers=1, d_ff=32)}
+RESUME_CASES = tuple(
+    (f"{algo} {env} {topo}", algo, env, topo, {})
+    for algo, env in (("dqn", "catch"), ("ddpg", "pendulum"))
+    for topo in ("fused", "actor-learner", "async")) + (
+    ("dqn catch actor-learner prioritized", "dqn", "catch", "actor-learner",
+     dict(replay="prioritized", priority_exponent=0.6)),
+    ("dqn catch_seq fused", "dqn", "catch_seq", "fused",
+     dict(net_kwargs=RESUME_SEQ)),
+    ("dqn catch_seq async", "dqn", "catch_seq", "async",
+     dict(net_kwargs=RESUME_SEQ)))
+RESUME_AT, RESUME_TO = 3, 6
 
 
 def quarl_atari():
@@ -343,7 +426,7 @@ def bound(nbytes: float, ops: float, ops_per_s: float = INT8_OPS_PER_S):
                                        else "operations")
 
 
-def device_ms(torch, fn, reps: int = 25, per_rep: int = 10) -> float:
+def device_ms(torch, fn, reps: int = 15, per_rep: int = 10) -> float:
     """Median device time of one call of ``fn`` (ms), by CUDA events.
 
     Each rep first parks the stream on a sleep kernel so the host can
@@ -579,7 +662,7 @@ def site_rows(torch, dev, gen) -> list:
     return rows
 
 
-def b1_row(torch, dev, gen, label, m, k, n, bits, reps=25) -> dict:
+def b1_row(torch, dev, gen, label, m, k, n, bits, reps=15) -> dict:
     """B1 at ``(m, k, n)``, ``bits``-bit weights, on seeded random inputs
     (drawn on ``gen``'s device): bitwise against its plain version, and
     timed beside it and ``torch._int_mm`` (where that takes the shape: M
@@ -656,15 +739,16 @@ def train_phase(torch, dev, smi, counters) -> dict:
             c.reset()
         torch.cuda.synchronize()
         t = time.perf_counter()
-        res = loops.train("dqn", "cartpole", iterations=TRAIN_ITERS,
+        iters = QAT_TRAIN_ITERS if name == "qat8" else TRAIN_ITERS
+        res = loops.train("dqn", "cartpole", iterations=iters,
                           record_every=TRAIN_RECORD,
                           steps_per_call=TRAIN_SPC, seed=SEED, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
         n = {k: c.value for k, c in counters.items()}
         cfg = res.algo_cfg
-        steps = TRAIN_ITERS * cfg.rollout_steps          # batched env steps
-        updates = TRAIN_ITERS * cfg.updates_per_iter
+        steps = iters * cfg.rollout_steps          # batched env steps
+        updates = iters * cfg.updates_per_iter
         records = len(res.rewards)
         if name == "qat8":
             want = {"fake_quant": 6 * (steps + res.eval_steps) + 12 * updates,
@@ -673,14 +757,14 @@ def train_phase(torch, dev, smi, counters) -> dict:
             # calibration runs the per-layer path over the 2 hidden layers
             # at every refresh: each iteration and each eval mint
             want = {"fused_qmlp": steps + res.eval_steps,
-                    "int8_matmul": 2 * (TRAIN_ITERS + records),
+                    "int8_matmul": 2 * (iters + records),
                     "fake_quant": 0}
         else:
             want = {"fake_quant": 0, "int8_matmul": 0, "fused_qmlp": 0}
         want["int8_cache_attention"] = 0
         check(n == want, f"train {name}: launches {n}, the config implies "
                          f"{want}")
-        check(len(res.rewards) == TRAIN_ITERS // TRAIN_RECORD
+        check(len(res.rewards) == iters // TRAIN_RECORD
               and all(np.isfinite(res.rewards)),
               f"train {name}: rewards {res.rewards}")
         check(max(res.rewards) > TRAIN_BARS[name],
@@ -731,12 +815,18 @@ def train_phase(torch, dev, smi, counters) -> dict:
         r["launches"] for r in rows if r.get("run") == "qat8"))
 
 
-def update_replay(torch, res, update, parts, smi: str, label: str) -> dict:
-    """One learner ``update`` of the QAT run ``res`` (past its delay) on
-    the card and, from the same state and a batch drawn from its replay,
-    on the CPU: the loss, ``|td|`` and the largest difference of each
-    group of state tensors ``parts(state) -> {name: tree}``, printed and
-    held to ``TD_ATOL``."""
+def update_replay(torch, res, update, parts, smi: str, label: str,
+                  noise=lambda path: False) -> dict:
+    """One learner ``update`` of the run ``res`` (a QAT run past its
+    delay) on the card and, from the same state and a batch drawn from its
+    replay, on the CPU: the loss, ``|td|`` and the largest difference of
+    each group of state tensors ``parts(state) -> {name: tree}``, printed
+    and held to ``TD_ATOL``, with the leaf where it lies.  Leaves whose
+    path ``noise(path)`` names have a gradient that is zero in exact
+    arithmetic, so Adam's normalised step turns their rounding noise
+    into an update of up to the learning rate; their Adam moments are
+    held with the rest, their params and targets are printed
+    (``noise_leaves``) and not held."""
     from repro_torch.core import ptq
     from repro_torch.rl import buffer as rb
     cfg = res.algo_cfg
@@ -752,30 +842,36 @@ def update_replay(torch, res, update, parts, smi: str, label: str) -> dict:
     cpu_state, (cpu_loss, cpu_td) = update(cpu_in, ptq.tree_to(batch, "cpu"),
                                            cpu_in.extras.replay.size)
     card_parts, cpu_parts = parts(card_state), parts(cpu_state)
-    diffs = {
-        what: max(float((x.cpu().to(torch.float32)
-                         - y.to(torch.float32)).abs().max())
-                  for (_, x), (_, y) in zip(ptq.tree_tensors(tree),
-                                            ptq.tree_tensors(
-                                                cpu_parts[what])))
-        for what, tree in card_parts.items()}
+    diffs, where, noisy = {}, {}, {}
+    for what, tree in card_parts.items():
+        for (path, x), (_, y) in zip(ptq.tree_tensors(tree),
+                                     ptq.tree_tensors(cpu_parts[what])):
+            d = float((x.cpu().to(torch.float32)
+                       - y.to(torch.float32)).abs().max())
+            if noise(path) and what in ("params", "target"):
+                noisy[f"{what}{path}"] = d
+            elif d >= diffs.get(what, -1.0):
+                diffs[what], where[what] = d, path
     td_diff = (card_td.cpu() - cpu_td).abs()
     replay = dict(step=int(res.state.step),
                   loss_card=float(card_loss), loss_cpu=float(cpu_loss),
                   loss_abs_diff=abs(float(card_loss) - float(cpu_loss)),
-                  max_abs_diff=diffs,
+                  max_abs_diff=diffs, max_abs_diff_at=where,
+                  noise_leaves=noisy,
                   td_rows_over_1e6=int((td_diff > 1e-6).sum()),
                   td_max_abs_diff=float(td_diff.max()), card=smi)
     print(f"{label} " + json.dumps(replay))
     check(replay["loss_abs_diff"] <= TD_ATOL
-          and max(diffs.values()) <= TD_ATOL,
+          and max(diffs.values(), default=0.0) <= TD_ATOL,
           f"{label}: the update on the card vs the CPU: {replay}")
     return replay
 
 
 def td_replay(torch, dev, res, smi: str, label: str) -> dict:
     """``update_replay`` of one DQN TD update: params, target, Adam's
-    moments and the observers."""
+    moments and the observers.  A sequence policy's key biases
+    (``blk{i}/k/b``) get no gradient in exact arithmetic: softmax is
+    unchanged when ``q . b`` is added to every logit of a row."""
     from repro_torch.rl import dqn
     return update_replay(
         torch, res, dqn.make_td_update(res.env, res.net, res.algo_cfg),
@@ -783,7 +879,9 @@ def td_replay(torch, dev, res, smi: str, label: str) -> dict:
                     "target": st.extras.target_params,
                     "adam_m": st.opt.m, "adam_v": st.opt.v,
                     "observers": st.observers},
-        smi, f"{label} td_replay")
+        smi, f"{label} td_replay",
+        noise=lambda path: res.net.seq_cfg is not None
+        and path.endswith("/k/b"))
 
 
 def profile_iterations(torch, dev, results: dict, label: str) -> list:
@@ -1541,11 +1639,13 @@ def algo_phase(torch, dev, smi, counters, widths) -> dict:
     rows += wide_rows(torch, dev, smi, counters, widths)
     seconds["policy_ii"] = time.perf_counter() - t_part
 
-    # the launcher's default run: PPO on CartPole, 200 iterations
+    # the launcher's default run (PPO on CartPole), ALGO_LAUNCH_ITERS of
+    # its 200 iterations
     t_part = time.perf_counter()
     for c in counters.values():
         c.reset()
-    check(launch_train.main([]) == 0, "launch.train's default run")
+    check(launch_train.main(["--iterations", str(ALGO_LAUNCH_ITERS)]) == 0,
+          "launch.train's default run")
     n = {k: c.value for k, c in counters.items()}
     check(not any(n.values()), f"the default fp32 PPO run: launches {n}")
     seconds["launch_train"] = time.perf_counter() - t_part
@@ -1868,6 +1968,387 @@ def conv_phase(torch, dev, smi, counters) -> dict:
     return rows
 
 
+def seq_site_launches(net: dict, batch: int, context: int = 6,
+                      feat: int = 27, n_out: int = 3) -> int:
+    """B5 launches of one QAT forward of the sequence policy ``net`` on
+    ``batch`` frame stacks of ``context`` rows of ``feat`` features: a
+    weight site and an activation site a dense layer (embed, q k v o fc
+    proj a block, head), each one launch up to 4,096 elements and two
+    above."""
+    def site(n):
+        return 1 if n <= 4096 else 2
+    d, f, rows = net["d_model"], net["d_ff"], batch * context
+    block = (4 * (site(d * d) + site(rows * d)) + site(d * f)
+             + site(rows * f) + site(f * d) + site(rows * d))
+    return (site(feat * d) + site(rows * d) + net["n_layers"] * block
+            + site(d * n_out) + site(batch * n_out))
+
+
+def seq_train_kw(topo: str, iterations: int, algo: dict) -> dict:
+    """``loops.train`` keywords of the reference's sequence-actor runs
+    (``tests/test_seq_policy.py:318-331``): int8, 2 actors pushed every 2
+    iterations outside the fused topology, 6 evaluations of 32 episodes."""
+    multi = topo != "fused"
+    return dict(iterations=iterations, seed=SEED, actor_backend="int8",
+                topology=topo, num_actors=2 if multi else 1,
+                sync_every=2 if multi else 1,
+                net_kwargs={"transformer": dict(SEQ_NET)},
+                algo_overrides=dict(algo),
+                record_every=max(iterations // 6, 1), eval_episodes=32)
+
+
+def seq_launches(res, kw: dict, counters) -> dict:
+    """The launches a sequence-actor ``loops.train`` run with ``kw`` must
+    make: with a quantized actor, B1 at each dense layer (2 + 6 a block)
+    of every cached behaviour step, windowed eval step and divergence
+    head (one an actor at each push), and B3 once a block a behaviour
+    step; under QAT, B5 at every site of both forwards of each TD update
+    (and, with the fp32 actor, of every behaviour and eval step)."""
+    cfg = res.algo_cfg
+    iters = kw["iterations"]
+    steps = iters * cfg.rollout_steps
+    topo = kw.get("topology", "fused")
+    pushes = len(res.actor_lags) if topo == "async" else (
+        iters // kw["sync_every"] if topo == "actor-learner" else 0)
+    n_l = SEQ_NET["n_layers"]
+    want = dict.fromkeys(counters, 0)
+    if kw.get("actor_backend", "fp32") != "fp32":
+        want["int8_matmul"] = (2 + 6 * n_l) * (
+            steps + res.eval_steps + pushes * kw.get("num_actors", 1))
+        want["int8_cache_attention"] = n_l * steps
+    if "quant" in kw:
+        updates = iters * cfg.updates_per_iter
+        want["fake_quant"] = 2 * updates * seq_site_launches(
+            SEQ_NET, cfg.batch_size)
+        if kw.get("actor_backend", "fp32") == "fp32":
+            want["fake_quant"] += (
+                steps * seq_site_launches(SEQ_NET, cfg.n_envs)
+                + res.eval_steps * seq_site_launches(
+                    SEQ_NET, kw.get("eval_episodes", 8)))
+    return want
+
+
+def seq_time_rows(torch, dev, smi, counters) -> list:
+    """``SEQ_TIME_RUNS`` at ``SEQ_ALGO``: ``SEQ_TIME_ITERS`` fused
+    iterations each in chunks of ``SEQ_TIME_CHUNK``, the runs in turns (the
+    order reversed every other chunk), each held to its launch counts;
+    updates/s and env-steps/s from the host clock around its chunks; host
+    and device ms, kernels and device busy an iteration from one further
+    profiled iteration."""
+    import dataclasses
+
+    from repro_torch.core import ptq
+    from repro_torch.core.qconfig import QuantConfig
+    from repro_torch.rl import dqn, loops, networks
+    from repro_torch.rl.envs import make
+    env = make("catch_seq")
+    net = networks.make_network(env.spec.obs_shape, env.spec.n_actions,
+                                transformer=dict(SEQ_NET), device=dev)
+    carry, progs = {}, {}
+    for name, spec in SEQ_TIME_RUNS:
+        kw = dict(spec)
+        quant = QuantConfig.qat(8, quant_delay=kw.pop("qat_delay")) \
+            if "qat_delay" in kw else QuantConfig.none()
+        cfg = dataclasses.replace(dqn.DQNConfig(quant=quant), **SEQ_ALGO,
+                                  **kw)
+        state = dqn.init(torch.Generator().manual_seed(SEED + 90), env, net,
+                         cfg)
+        if quant.is_qat:
+            state = state._replace(observers=loops._bootstrap_observers(
+                "dqn", env, net, state, quant))
+        iteration, _, benv = dqn.make_iteration(env, net, cfg, dev)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 91)
+        env_state, obs = benv.reset(gen, dev)
+        carry[name] = [state, env_state, obs, None]
+        progs[name] = (iteration, gen, cfg)
+    names = [name for name, _ in SEQ_TIME_RUNS]
+    wall = dict.fromkeys(names, 0.0)
+    launches = {name: dict.fromkeys(counters, 0) for name in names}
+    for chunk in range(SEQ_TIME_ITERS // SEQ_TIME_CHUNK):
+        for name in (names if chunk % 2 == 0 else names[::-1]):
+            iteration, gen, _ = progs[name]
+            before = {k: c.value for k, c in counters.items()}
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(SEQ_TIME_CHUNK):
+                st, es, ob, _ = carry[name]
+                carry[name] = list(iteration(st, es, ob, gen))
+            torch.cuda.synchronize()
+            wall[name] += time.perf_counter() - t
+            for k, c in counters.items():
+                launches[name][k] += c.value - before[k]
+    rows = []
+    for name, spec in SEQ_TIME_RUNS:
+        iteration, gen, cfg = progs[name]
+        steps = SEQ_TIME_ITERS * cfg.rollout_steps
+        updates = SEQ_TIME_ITERS * cfg.updates_per_iter
+        want = dict.fromkeys(counters, 0)
+        if cfg.actor_backend != "fp32":
+            want["int8_matmul"] = (2 + 6 * SEQ_NET["n_layers"]) * steps
+            want["int8_cache_attention"] = SEQ_NET["n_layers"] * steps
+        if cfg.quant.is_qat:
+            want["fake_quant"] = (
+                steps * seq_site_launches(SEQ_NET, cfg.n_envs)
+                + 2 * updates * seq_site_launches(SEQ_NET, cfg.batch_size))
+        check(launches[name] == want,
+              f"seq_train timed {name}: launches {launches[name]}, the "
+              f"config implies {want}")
+
+        def one(name=name, iteration=iteration, gen=gen):
+            st, es, ob, _ = carry[name]
+            carry[name] = list(iteration(st, es, ob, gen))
+        prof = profile_calls(torch, one, n=1)
+        check(all(bool(torch.isfinite(t).all())
+                  for _, t in ptq.tree_tensors(carry[name][0].params)),
+              f"seq_train timed {name}: finite params")
+        row = dict(run=f"seq_time_{name}", iterations=SEQ_TIME_ITERS,
+                   wall_s=wall[name], updates_per_s=updates / wall[name],
+                   env_steps_per_s=steps * cfg.n_envs / wall[name],
+                   launches=launches[name],
+                   host_ms_per_iteration=prof["host_ms_per_call"],
+                   device_ms_per_iteration=prof["device_ms_per_call"],
+                   kernels_per_iteration=prof["kernels_per_call"],
+                   device_busy_share=prof["device_busy_share"],
+                   top=prof["top"], card=smi)
+        rows.append(row)
+        print("seq_train " + json.dumps(row))
+    return rows
+
+
+def seq_train_phase(torch, dev, smi, counters) -> dict:
+    """The sequence actor in training through ``loops.train``: the
+    reference's fused smoke and its convergence bar in the three
+    topologies (int8 actors: B1 and B3), a fused QAT int8 run (B5 at every
+    site of the TD forwards), each driven with every kernel count set to
+    0 just before it and read just after, and held to its counts; the
+    anchors bitwise on the card; one TD update of the QAT run and of an
+    fp32 run replayed on the CPU within 1e-5; the four actors timed in
+    turns (``seq_time_rows``); and B1 at every shape these paths gave it
+    (B3's and B5's shapes are ``CACHE_ROWS`` and ``SITE_ROWS`` rows)."""
+    from repro_torch.core.qconfig import QuantConfig
+    from repro_torch.rl import loops
+    rows, results, seconds, b1_seen = [], {}, {}, []
+    runs = [("smoke", seq_train_kw("fused", 3, SEQ_SMOKE), None)]
+    runs += [(f"bar_{topo}", seq_train_kw(topo, SEQ_BAR_ITERS, SEQ_ALGO),
+              SEQ_BAR) for topo in ("fused", "actor-learner", "async")]
+    qat = seq_train_kw("fused", SEQ_QAT_ITERS, SEQ_ALGO)
+    qat["quant"] = QuantConfig.qat(8, quant_delay=SEQ_QAT_DELAY)
+    runs.append(("qat8_int8", qat, None))
+    fp32 = seq_train_kw("fused", SEQ_QAT_ITERS, SEQ_ALGO)
+    fp32["actor_backend"] = "fp32"
+    runs.append(("fp32", fp32, None))
+    for name, kw, bar in runs:
+        t_part = time.perf_counter()
+        for c in counters.values():
+            c.reset()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if name == "bar_fused":      # B1's shapes on this path, recorded
+            seen = b1_path_shapes(torch, dev, lambda: results.__setitem__(
+                name, loops.train("dqn", "catch_seq", **kw)))
+            b1_seen += [("seq train", *x) for x in seen]
+            res = results[name]
+        else:
+            res = loops.train("dqn", "catch_seq", **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        n = {k: c.value for k, c in counters.items()}
+        want = seq_launches(res, kw, counters)
+        check(n == want, f"seq_train {name}: launches {n}, the config "
+                         f"implies {want}")
+        check(all(np.isfinite(res.rewards)) and len(res.rewards) == (
+            kw["iterations"] // kw["record_every"]),
+              f"seq_train {name}: rewards {res.rewards}")
+        check(bar is None or res.rewards[-1] >= bar,
+              f"seq_train {name}: last eval reward {res.rewards[-1]} does "
+              f"not clear {bar} ({res.rewards})")
+        if kw["topology"] != "fused":
+            divs = np.asarray(res.divergences, dtype=np.float64)
+            check(divs.ndim == 2 and divs.shape[1] == 2
+                  and np.isfinite(divs).all() and bool((divs > 0).any()),
+                  f"seq_train {name}: divergences {res.divergences}")
+        if kw["topology"] == "async":
+            # a push at the first round end sync_every updates on: rounds
+            # of one rollout and updates_per_iter updates
+            per = res.algo_cfg.updates_per_iter
+            lag = -(-kw["sync_every"] // per) * per
+            check(len(res.actor_lags) > 0 and all(
+                x == lag for x in res.actor_lags),
+                f"seq_train {name}: actor lags {sorted(set(res.actor_lags))}"
+                f" (want {lag})")
+        if "quant" in kw:
+            check(len(res.state.observers) == 2 + 6 * SEQ_NET["n_layers"]
+                  and all(bool(o.initialized)
+                          for o in res.state.observers.values()),
+                  f"seq_train {name}: observers "
+                  f"{sorted(res.state.observers)}")
+        cfg = res.algo_cfg
+        iters = kw["iterations"]
+        actors = kw["num_actors"]
+        row = dict(run=name, topology=kw["topology"],
+                   actor=kw["actor_backend"], iterations=iters,
+                   rewards=res.rewards, bar=bar, wall_s=wall,
+                   updates_per_s=iters * cfg.updates_per_iter / wall,
+                   env_steps_per_s=iters * cfg.rollout_steps * cfg.n_envs
+                   * actors / wall,
+                   eval_env_steps=res.eval_steps, launches=n,
+                   divergence_last=(res.divergences[-1] if res.divergences
+                                    else None),
+                   actor_lags=sorted(set(res.actor_lags)), card=smi)
+        rows.append(row)
+        print("seq_train " + json.dumps(row))
+        results[name] = res
+        seconds[name] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+    rows.append(dict(anchors=anchor_runs(
+        torch, "catch_seq", smi, "seq_train",
+        net_kwargs={"transformer": dict(SEQ_NET)})))
+    rows.append(dict(td_replay=td_replay(torch, dev, results["qat8_int8"],
+                                         smi, "seq_train qat8")))
+    rows.append(dict(td_replay=td_replay(torch, dev, results["fp32"], smi,
+                                         "seq_train fp32")))
+    seconds["anchors_replays"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+    rows += seq_time_rows(torch, dev, smi, counters)
+    seconds["timed"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+    shape_rows = []
+    gen = torch.Generator(device=dev).manual_seed(SEED + 92)
+    for label, m, k, n, bits in b1_seen:
+        shape_rows.append(b1_row(torch, dev, gen, label, m, k, n, bits,
+                                 reps=10))
+        print("seq_train kernel " + json.dumps(shape_rows[-1]))
+    seconds["b1_rows"] = time.perf_counter() - t_part
+    print("seq_train seconds " + json.dumps(seconds))
+    return dict(rows=rows, shape_rows=shape_rows, seconds=seconds,
+                qat_launches=next(r["launches"] for r in rows
+                                  if r.get("run") == "qat8_int8"),
+                bar_launches=next(r["launches"] for r in rows
+                                  if r.get("run") == "bar_fused"))
+
+
+def resume_phase(torch, dev, smi) -> dict:
+    """Bitwise resume on the card: each ``RESUME_CASES`` case trained to
+    ``RESUME_AT`` with a checkpoint every ``RESUME_AT`` iterations, resumed
+    to ``RESUME_TO``, and held bit for bit to the run to ``RESUME_TO``
+    without a checkpoint directory (every state leaf, the rewards, action
+    variances, divergences, actor lags and eval steps); then
+    ``launch.train`` with ``--ckpt-dir``/``--ckpt-every`` and again with
+    ``--resume``.  Host ms of each save on the caller's thread and of each
+    restore are timed around ``AsyncCheckpointer``'s calls; the bytes of
+    each checkpoint and of the learner's fp32 params against their packed
+    int8 cache are read."""
+    import contextlib
+    import io
+    import shutil
+
+    from repro_torch import checkpoint as ckpt_lib
+    from repro_torch.core.ptq import tree_flatten
+    from repro_torch.launch import train as launch_train
+    from repro_torch.rl import actorq, loops
+    times = {"save": [], "restore": []}
+    real = {k: getattr(ckpt_lib.AsyncCheckpointer, f)
+            for k, f in (("save", "save_async"), ("restore", "restore"))}
+
+    def timed(key):
+        def call(self, *a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = real[key](self, *a, **k)
+            torch.cuda.synchronize()
+            times[key].append((time.perf_counter() - t) * 1e3)
+            return out
+        return call
+
+    def nbytes(tree):
+        return sum(x.numel() * x.element_size()
+                   for x in tree_flatten(tree)[1])
+    OUT_DIR.mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="resume-", dir=OUT_DIR))
+    rows = []
+    ckpt_lib.AsyncCheckpointer.save_async = timed("save")
+    ckpt_lib.AsyncCheckpointer.restore = timed("restore")
+    try:
+        for label, algo, env_name, topo, extra in RESUME_CASES:
+            multi = topo != "fused"
+            kw = dict(seed=3, record_every=RESUME_AT, eval_episodes=2,
+                      actor_backend="int8",
+                      algo_overrides=dict(RESUME_SMALL),
+                      net_kwargs=dict(hidden=(16,)), topology=topo,
+                      num_actors=2 if multi else 1,
+                      sync_every=2 if multi else 1)
+            kw.update(extra)
+            d = str(root / label.replace(" ", "_"))
+            n_save, n_restore = len(times["save"]), len(times["restore"])
+            full = loops.train(algo, env_name, iterations=RESUME_TO, **kw)
+            loops.train(algo, env_name, iterations=RESUME_AT,
+                        checkpoint_dir=d, checkpoint_every=RESUME_AT, **kw)
+            res = loops.train(algo, env_name, iterations=RESUME_TO,
+                              checkpoint_dir=d, checkpoint_every=RESUME_AT,
+                              resume=True, **kw)
+            pa, la = tree_flatten(full.state)
+            pb, lb = tree_flatten(res.state)
+            same = dict(
+                leaves=pa == pb and all(torch.equal(x, y)
+                                        for x, y in zip(la, lb)),
+                rewards=full.rewards == res.rewards,
+                action_variances=full.action_variances
+                == res.action_variances,
+                divergences=full.divergences == res.divergences,
+                actor_lags=full.actor_lags == res.actor_lags,
+                eval_steps=full.eval_steps == res.eval_steps)
+            check(all(same.values()), f"resume {label}: bitwise {same}")
+            mgr = ckpt_lib.CheckpointManager(d)
+            check(mgr.steps() == [RESUME_AT, RESUME_TO],
+                  f"resume {label}: steps {mgr.steps()}")
+            step_dir = Path(mgr.step_path(RESUME_TO))
+            params = res.state.params
+            row = dict(case=label, leaves=len(la), bitwise=same,
+                       rewards=res.rewards,
+                       checkpoint_bytes=(step_dir / "leaves.bin")
+                       .stat().st_size,
+                       manifest_bytes=(step_dir / "manifest.json")
+                       .stat().st_size,
+                       fp32_params_bytes=nbytes(params),
+                       int8_cache_bytes=nbytes(
+                           actorq.make_actor_cache(params, "int8")),
+                       save_host_ms=times["save"][n_save:],
+                       restore_ms=times["restore"][n_restore:], card=smi)
+            rows.append(row)
+            print("resume " + json.dumps(row))
+        # the launcher: checkpoints, then a resume, against a run of 6
+        d = str(root / "launch_train")
+        argv = ["--algo", "ddpg", "--env", "pendulum", "--actor-backend",
+                "int8", "--seed", str(SEED)]
+        ckpt = ["--ckpt-dir", d, "--ckpt-every", "2"]
+
+        def rewards(more):
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                check(launch_train.main(argv + more) == 0,
+                      f"launch.train {more}")
+            text = out.getvalue()
+            print(text.strip())
+            start = text.index("eval rewards")
+            return text[start:text.index("]", start) + 1]
+        full = rewards(["--iterations", "6"])
+        check(full.startswith("eval rewards ['") and full.count("'") == 12,
+              f"launch.train's six rewards: {full}")
+        rewards(["--iterations", "4"] + ckpt)
+        resumed = rewards(["--iterations", "6", "--resume"] + ckpt)
+        check(resumed == full, f"launch.train --resume: {resumed} against "
+                               f"{full}")
+        check(ckpt_lib.CheckpointManager(d).steps() == [2, 4, 6],
+              "launch.train checkpoints at 2, 4 and 6")
+        rows.append(dict(launch_train_resume_bitwise=True, rewards=full,
+                         card=smi))
+    finally:
+        ckpt_lib.AsyncCheckpointer.save_async = real["save"]
+        ckpt_lib.AsyncCheckpointer.restore = real["restore"]
+        shutil.rmtree(root, ignore_errors=True)
+    return dict(rows=rows)
+
+
 def cache_inputs(torch, dev, gen, nb, nh, g, t, dh, how, layout):
     """Seeded B3 inputs for a ``CACHE_ROWS`` row on the card: ``(q,
     k_codes, k_scale, v_codes, v_scale, pos)``, the cache as a strided
@@ -2052,13 +2533,15 @@ def lm_phase(torch, dev, smi, counters) -> dict:
     cfg = cfgs.get_reduced(LM_ARCH) if LM_REDUCED else cfgs.get(LM_ARCH)
     rows = {}
     t = time.perf_counter()
-    params_cpu = transformer.init_params(
-        cfg, torch.Generator().manual_seed(SEED), "cpu")
+    # drawn on the card (a CUDA generator), then copied to the CPU for
+    # the comparisons: the CPU's draws of 1.83 B normals took about 17 s
+    params = transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
     init_s = time.perf_counter() - t
     t = time.perf_counter()
-    params = ptq.tree_to(params_cpu, dev)
-    torch.cuda.synchronize()
-    to_card_s = time.perf_counter() - t
+    params_cpu = ptq.tree_to(params, "cpu")
+    to_cpu_s = time.perf_counter() - t
     n_params = sum(x.numel() for _, x in ptq.tree_tensors(params))
     b, s = LM_PREFILL
     tokens = torch.randint(0, cfg.vocab, (b, s), generator=torch.Generator(
@@ -2091,7 +2574,7 @@ def lm_phase(torch, dev, smi, counters) -> dict:
     prof = profile_calls(torch, prefill, n=1)
     rows["prefill"] = dict(
         arch=cfg.name, params=n_params, batch=b, tokens=s,
-        init_cpu_s=init_s, params_to_card_s=to_card_s, first_s=first_s,
+        init_card_s=init_s, params_to_cpu_s=to_cpu_s, first_s=first_s,
         wall_s=walls, tokens_per_s=[b * s / w for w in walls],
         peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches=n,
         profile=prof, card=smi)
@@ -2815,6 +3298,20 @@ def main() -> int:
     rows += algo["shape_rows"]
     print(f"algo phase: {time.perf_counter() - t_algo:.1f}s")
 
+    # ---- seq_train phase (the sequence actor in training) ----------------
+    t_seq = time.perf_counter()
+    seq = seq_train_phase(torch, dev, smi, {
+        c.name: c for c in (int8_matmul.launches, fused_qmlp.launches,
+                            int8_cache_attention.launches,
+                            fake_quant.launches)})
+    rows += seq["shape_rows"]
+    print(f"seq_train phase: {time.perf_counter() - t_seq:.1f}s")
+
+    # ---- resume phase (checkpoints and bitwise resume) --------------------
+    t_resume = time.perf_counter()
+    resume = resume_phase(torch, dev, smi)
+    print(f"resume phase: {time.perf_counter() - t_resume:.1f}s")
+
     # ---- conv phase (the paper's Atari conv actor on pixel Catch) --------
     t_conv = time.perf_counter()
     conv = conv_phase(torch, dev, smi, {
@@ -2880,11 +3377,17 @@ def main() -> int:
              conv_rows=dict(forward=conv["forward"],
                             rollout=conv["rollout"], train=conv["train"],
                             seconds=conv["seconds"]),
+             seq_train_rows=dict(runs=seq["rows"],
+                                 shapes=seq["shape_rows"],
+                                 seconds=seq["seconds"]),
+             resume_rows=resume["rows"],
              lm_rows=lm,
              path_launches=dict(serve=launches, rollout=roll_launches,
                                 train_qat=train["qat_launches"],
                                 topology_async_int8=topo["launches"],
                                 algo=algo["launches"],
+                                seq_train_fused=seq["bar_launches"],
+                                seq_train_qat8_int8=seq["qat_launches"],
                                 lm_prefill=lm["prefill"]["launches"]),
              kernels=report, seconds=time.perf_counter() - t0), indent=1))
     print(f"total {time.perf_counter() - t0:.1f}s")

@@ -116,6 +116,66 @@ def tree_tensors(tree: Tree) -> Iterator[Tuple[str, torch.Tensor]]:
     yield from walk(tree, "")
 
 
+def tree_flatten(tree: Tree) -> Tuple[list, list]:
+    """``(paths, leaves)`` of every leaf, in ``tree_tensors``' order: dict
+    keys sorted, ``NamedTuple`` fields, sequence items, a
+    ``PackedTensor``'s tensors by field; ``None`` holds no leaf.  A leaf
+    is anything else (a tensor, a Python number).  Paths read like
+    ``.extras.replay['obs'][0]``."""
+    paths, leaves = [], []
+
+    def walk(node, path):
+        if node is None:
+            return
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], f"{path}[{k!r}]")
+        elif isinstance(node, tuple) and hasattr(node, "_fields"):
+            for f, v in zip(node._fields, node):
+                walk(v, f"{path}.{f}")
+        elif isinstance(node, (tuple, list)):
+            for i, v in enumerate(node):
+                walk(v, f"{path}[{i}]")
+        elif isinstance(node, PackedTensor):
+            for f in PackedTensor.TENSOR_FIELDS:
+                walk(getattr(node, f), f"{path}.{f}")
+        else:
+            paths.append(path or "<root>")
+            leaves.append(node)
+    walk(tree, "")
+    return paths, leaves
+
+
+def tree_unflatten(template: Tree, leaves: list) -> Tree:
+    """``template`` with its leaves replaced, in ``tree_flatten``'s order,
+    by ``leaves``; a ``PackedTensor`` keeps the template's ``bits`` and
+    ``orig_shape``.  Raises ``ValueError`` unless the counts agree."""
+    it = iter(leaves)
+
+    def build(node):
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            out = {k: build(node[k]) for k in sorted(node)}
+            return {k: out[k] for k in node}
+        if isinstance(node, tuple) and hasattr(node, "_fields"):
+            return type(node)(*(build(v) for v in node))
+        if isinstance(node, (tuple, list)):
+            return type(node)(build(v) for v in node)
+        if isinstance(node, PackedTensor):
+            return dataclasses.replace(node, **{
+                f: build(getattr(node, f))
+                for f in PackedTensor.TENSOR_FIELDS})
+        return next(it)
+    try:
+        out = build(template)
+    except StopIteration:
+        raise ValueError(f"{len(leaves)} leaves for a template of more")
+    if next(it, None) is not None:
+        raise ValueError(f"{len(leaves)} leaves for a template of fewer")
+    return out
+
+
 def tree_to(tree: Tree, device) -> Tree:
     """Copy every tensor of the tree (packed ones included) to ``device``."""
     def one(leaf):

@@ -13,9 +13,16 @@ CartPole for 200 iterations:
     PYTHONPATH=src python -m repro_torch.launch.train --mode rl \\
         --algo dqn --env cartpole --quant qat8:delay=200 --iterations 400
 
+``--ckpt-dir DIR --ckpt-every N`` saves the run every ``N`` iterations
+(the newest ``--ckpt-keep`` steps are kept), and ``--resume`` continues
+from the newest one, bitwise the run that was not stopped:
+
+    PYTHONPATH=src python -m repro_torch.launch.train --algo dqn \
+        --env catch --iterations 40 --ckpt-dir /tmp/ckpt --ckpt-every 10
+
 Not ported yet, and raising ``NotImplementedError`` naming the ROADMAP
-queue A item: ``--mode lm`` (item 13), the checkpoint flags (item 9),
-``--fault-plan`` and ``--supervised`` (item 11).
+queue A item: ``--mode lm`` (item 13), ``--fault-plan`` and
+``--supervised`` (item 11).
 """
 from __future__ import annotations
 
@@ -39,16 +46,18 @@ def main(argv=None) -> int:
                     help="torch device (default: cuda)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=0)
-    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from the newest valid checkpoint in "
+                         "--ckpt-dir (bitwise the run that was not "
+                         "stopped)")
+    ap.add_argument("--ckpt-keep", type=int, default=3,
+                    help="checkpoints kept in --ckpt-dir (<= 0: all)")
     ap.add_argument("--fault-plan", default=None, metavar="SEED:SPEC")
     ap.add_argument("--supervised", action="store_true")
     args = ap.parse_args(argv)
     if args.mode == "lm":
         raise NotImplementedError("--mode lm is not ported yet (ROADMAP "
                                   "queue A, item 13)")
-    if args.ckpt_dir or args.ckpt_every or args.resume:
-        raise NotImplementedError("checkpointing is not ported yet "
-                                  "(ROADMAP queue A, item 9)")
     if args.fault_plan is not None or args.supervised:
         raise NotImplementedError("the resilience supervisor is not ported "
                                   "yet (ROADMAP queue A, item 11)")
@@ -63,7 +72,10 @@ def run_rl(args) -> int:
     res = loops.train(args.algo, args.env, iterations=args.iterations,
                       quant=quant, seed=args.seed,
                       record_every=max(args.iterations // 10, 1),
-                      actor_backend=args.actor_backend, device=args.device)
+                      actor_backend=args.actor_backend,
+                      checkpoint_dir=args.ckpt_dir,
+                      checkpoint_every=args.ckpt_every, resume=args.resume,
+                      checkpoint_keep=args.ckpt_keep, device=args.device)
     print(f"[train/rl] {args.algo} on {args.env} quant={quant.label()} "
           f"actor={args.actor_backend} device={res.device}: eval rewards "
           f"{['%.1f' % r for r in res.rewards]} ({res.wall_time_s:.0f}s)")

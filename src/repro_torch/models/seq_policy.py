@@ -13,10 +13,14 @@ all-zero rows that predate the episode, and the in-row time feature is
 the only positional signal, so the windowed form here and the
 incremental cached form attend over the same tokens.
 
-The reference threads a QAT context through every dense site; the port
-has QAT for the MLP and conv nets, but the sequence actor's QAT sites
-come with its training (ROADMAP queue A, item 12), so ``seq_apply``
-takes none.
+Every dense layer is a QAT site pair, as in the reference: its weight
+goes through ``ctx.weight("<name>/w", ...)`` and its output through
+``ctx.activation("<name>/out", ...)`` of a ``core.fake_quant`` context,
+the names being ``embed``, ``blk{i}/{q,k,v,o,fc,proj}`` and ``head``
+(4 + 12 * ``n_layers`` sites a forward, each one launch of kernel B5's
+site kernel on the card).  Without a context (``ctx=None``) it is the
+``NullQATContext``, which passes both through, so the fp32 forward is
+unchanged.
 """
 from __future__ import annotations
 
@@ -24,6 +28,7 @@ from typing import Any, Callable, Dict, NamedTuple, Tuple
 
 import torch
 
+from repro_torch.core.fake_quant import NullQATContext
 from repro_torch.models import common
 from repro_torch.models.common import P
 
@@ -50,9 +55,11 @@ def _dense_spec(d_in: int, d_out: int, scale=None) -> Dict[str, P]:
     return {"w": P((d_in, d_out), scale=scale), "b": P((d_out,), "zeros")}
 
 
-def _dense(params, x, act=None):
-    y = x @ params["w"] + params["b"]
-    return act(y) if act is not None else y
+def _dense(ctx, name, params, x, act=None):
+    y = x @ ctx.weight(f"{name}/w", params["w"]) + params["b"]
+    if act is not None:
+        y = act(y)
+    return ctx.activation(f"{name}/out", y)
 
 
 def seq_spec(cfg: SeqPolicyConfig) -> Dict[str, Any]:
@@ -85,16 +92,18 @@ def valid_mask(obs: torch.Tensor) -> torch.Tensor:
     return obs[..., -1] > 0.5
 
 
-def seq_apply(params, obs: torch.Tensor, cfg: SeqPolicyConfig
-              ) -> torch.Tensor:
+def seq_apply(params, obs: torch.Tensor, cfg: SeqPolicyConfig,
+              ctx=None) -> torch.Tensor:
     """Windowed fp32 forward: ``obs (..., context, feat) -> (..., out)``.
 
     Causal single-head self-attention over the frame rows with the
     pre-episode rows masked out of the keys; the head reads the newest
-    row.  Any leading batch dims.
+    row.  Any leading batch dims.  ``ctx`` is a ``core.fake_quant``
+    context (``None``: full precision).
     """
+    ctx = NullQATContext() if ctx is None else ctx
     s = obs.shape[-2]
-    x = _dense(params["embed"], obs)                       # (..., S, D)
+    x = _dense(ctx, "embed", params["embed"], obs)         # (..., S, D)
     causal = torch.tril(torch.ones((s, s), dtype=torch.bool,
                                    device=obs.device))
     mask = causal & valid_mask(obs)[..., None, :]          # (..., S, S)
@@ -102,23 +111,24 @@ def seq_apply(params, obs: torch.Tensor, cfg: SeqPolicyConfig
     for i in range(cfg.n_layers):
         blk = params[f"blk{i}"]
         h = common.rms_norm(blk["ln1"], x)
-        q = _dense(blk["q"], h)
-        k = _dense(blk["k"], h)
-        v = _dense(blk["v"], h)
+        q = _dense(ctx, f"blk{i}/q", blk["q"], h)
+        k = _dense(ctx, f"blk{i}/k", blk["k"], h)
+        v = _dense(ctx, f"blk{i}/v", blk["v"], h)
         logits = torch.matmul(q, k.transpose(-1, -2)) * scale
         logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
         a = torch.matmul(torch.softmax(logits, dim=-1), v)
-        x = x + _dense(blk["o"], a)
+        x = x + _dense(ctx, f"blk{i}/o", blk["o"], a)
         h2 = common.rms_norm(blk["ln2"], x)
-        x = x + _dense(blk["proj"], _dense(blk["fc"], h2, act=torch.relu))
-    return _dense(params["head"], x[..., -1, :])
+        y = _dense(ctx, f"blk{i}/fc", blk["fc"], h2, act=torch.relu)
+        x = x + _dense(ctx, f"blk{i}/proj", blk["proj"], y)
+    return _dense(ctx, "head", params["head"], x[..., -1, :])
 
 
 def make_seq_policy(obs_shape: Tuple[int, int], out_dim: int, *,
                     d_model: int = 32, n_layers: int = 2, d_ff: int = 64
                     ) -> Tuple[Dict[str, Any], Callable, SeqPolicyConfig]:
-    """``(spec, apply(params, obs), cfg)`` for a frame-stacked env's
-    ``(S, F)`` observations; ``obs_shape`` of another rank raises
+    """``(spec, apply(params, obs, ctx=None), cfg)`` for a frame-stacked
+    env's ``(S, F)`` observations; ``obs_shape`` of another rank raises
     ``ValueError``."""
     if len(obs_shape) != 2:
         raise ValueError("sequence policies need obs_shape (context, "
@@ -127,8 +137,8 @@ def make_seq_policy(obs_shape: Tuple[int, int], out_dim: int, *,
                           feat_dim=int(obs_shape[1]), d_model=d_model,
                           n_layers=n_layers, d_ff=d_ff, out_dim=out_dim)
 
-    def apply_fn(params, obs):
-        """Windowed fp32 forward of this config."""
-        return seq_apply(params, obs, cfg)
+    def apply_fn(params, obs, ctx=None):
+        """Windowed fp32 forward of this config under ``ctx``."""
+        return seq_apply(params, obs, cfg, ctx)
 
     return seq_spec(cfg), apply_fn, cfg

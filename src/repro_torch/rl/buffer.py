@@ -1,7 +1,7 @@
 """Replay buffers: fixed-size circular buffers of transitions on the
 device, uniform or prioritized, single, sharded or double.
 
-Counterpart of ``repro/rl/buffer.py:1-430``.
+Counterpart of ``repro/rl/buffer.py``.
 
 * **Uniform** -- ``replay_init`` / ``replay_add_batch`` /
   ``replay_sample``: every written transition is equally likely.
@@ -39,7 +39,8 @@ from typing import Any, List, NamedTuple
 
 import torch
 
-from repro_torch.core.ptq import tree_map
+from repro_torch.checkpoint import ckpt as ckpt_lib
+from repro_torch.core.ptq import tree_flatten, tree_map
 from repro_torch.device import resolve_device
 
 REPLAY_MODES = ("uniform", "prioritized")
@@ -489,3 +490,35 @@ per_sample_sharded = per_sample
 per_update_priorities_sharded = per_update_priorities
 per_stack = replay_stack
 per_unstack = replay_unstack
+
+
+# ---------------------------------------------------------------------------
+# Snapshots (checkpointing a replay on its own)
+# ---------------------------------------------------------------------------
+
+def export_state(state: Any) -> Any:
+    """A host snapshot of any replay tree -- ``ReplayState``,
+    ``PrioritizedReplayState``, their sharded layouts, ``DoubleBuffer``:
+    the same tree of forced CPU copies, safe to hand to a background
+    writer while the live buffers go on changing.  ``import_state``
+    inverts it."""
+    return tree_map(lambda t: t.detach().to("cpu", copy=True), state)
+
+
+def import_state(template: Any, exported: Any) -> Any:
+    """An ``export_state`` snapshot back in ``template``'s layout, on its
+    device.
+
+    The structure and every leaf's shape and dtype are held against
+    ``template`` first (``ValueError`` with each differing leaf's path: a
+    snapshot of another capacity or shard count, say)."""
+    t_paths, _ = tree_flatten(template)
+    e_paths, leaves = tree_flatten(exported)
+    if t_paths != e_paths or type(template) is not type(exported):
+        raise ValueError(
+            f"replay snapshot structure ({type(exported).__name__}, "
+            f"{len(e_paths)} leaves) does not match the template's "
+            f"({type(template).__name__}, {len(t_paths)} leaves)")
+    ckpt_lib.validate_leaves([ckpt_lib.leaf_spec(x) for x in leaves],
+                             template, source="replay snapshot")
+    return ckpt_lib.restore_leaves(leaves, template)

@@ -177,16 +177,8 @@ def grad_leaves(params: Any) -> Any:
 def tree_grad(loss: torch.Tensor, leaves: Any) -> Any:
     """The gradient of ``loss`` for every leaf of ``leaves`` (from
     ``grad_leaves``), as a tree of the same structure."""
-    flat = [t for _, t in ptq.tree_tensors(leaves)]
-    return _unflatten(leaves, iter(torch.autograd.grad(loss, flat)))
-
-
-def _unflatten(tree, it):
-    """``tree`` (nested dicts) with its leaves replaced, in sorted-key
-    order, by the next items of ``it`` (``tree_tensors``' order)."""
-    if isinstance(tree, dict):
-        return {k: _unflatten(tree[k], it) for k in sorted(tree)}
-    return next(it)
+    flat = ptq.tree_flatten(leaves)[1]
+    return ptq.tree_unflatten(leaves, list(torch.autograd.grad(loss, flat)))
 
 
 def huber(x: torch.Tensor, delta: float = 1.0) -> torch.Tensor:

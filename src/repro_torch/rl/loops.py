@@ -31,9 +31,19 @@ one on the CPU for the params, and on the run's device one for env
 resets, one for the loop (exploration and replay draws, in turn, in every
 topology) and one for evaluations.  ``device=None`` is ``cuda``.
 
+**Checkpoints** (``checkpoint_dir``, ``repro_torch.checkpoint``): every
+``checkpoint_every`` iterations, at the end of the chunk or round that
+reaches it (cadence never clips one) and after that point's evaluation,
+the background writer saves the run's state -- the train state, the env
+state and observations (a sequence actor's KV caches ride in the env
+state), the async snapshot and write slot -- with the states of the loop's
+and the evaluator's generators, and the counters and recorded metrics in
+the manifest's ``extra``.  ``resume=True`` restores the newest valid step
+into a freshly built run of the same config, so the resumed run is
+bitwise the uninterrupted one.
+
 Not ported yet, and raising ``NotImplementedError`` naming the ROADMAP
-queue A item: a device mesh (item 14), checkpointing and resume (item
-9), and the resilience hooks (item 11).
+queue A item: a device mesh (item 14) and the resilience hooks (item 11).
 """
 from __future__ import annotations
 
@@ -43,6 +53,7 @@ from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
+from repro_torch import checkpoint as ckpt_lib
 from repro_torch.core import fake_quant
 from repro_torch.core import metrics as metrics_lib
 from repro_torch.core.qconfig import QuantConfig, QuantMode
@@ -128,7 +139,7 @@ def make_scan_iteration(iteration: Callable, steps_per_call: int):
 
 def _check_supported(algo, topology, num_actors, sync_every, mesh,
                      async_barrier, quant, replay, priority_exponent,
-                     checkpoint_dir, checkpoint_every, resume, resilience):
+                     resilience):
     if algo not in ALGOS:
         raise ValueError(f"algo must be one of {ALGOS}, got {algo!r}")
     actor_learner.validate_topology(topology)
@@ -149,8 +160,6 @@ def _check_supported(algo, topology, num_actors, sync_every, mesh,
                          f"(the learner trains fp32; use PTQ eval)")
     if mesh is not None:
         raise _not_ported("a device mesh over the actor axis", 14)
-    if checkpoint_dir or checkpoint_every or resume:
-        raise _not_ported("checkpointing and resume", 9)
     if resilience is not None:
         raise _not_ported("the resilience hooks", 11)
 
@@ -173,6 +182,37 @@ def _build(algo: str, env: Env, quant: QuantConfig, net_kwargs: Dict,
     config = {"dqn": dqn.DQNConfig, "a2c": a2c.A2CConfig,
               "ppo": ppo.PPOConfig}[algo]
     return net, dataclasses.replace(config(quant=quant), **overrides)
+
+
+def _loop_checkpointer(checkpoint_dir, checkpoint_every: int,
+                       resume: bool, keep: int):
+    """The train loop's ``AsyncCheckpointer``, or None without a directory
+    (``checkpoint_every`` or ``resume`` without one raise ``ValueError``:
+    the run would silently save nothing)."""
+    if not checkpoint_dir:
+        if resume:
+            raise ValueError("resume=True needs checkpoint_dir")
+        if checkpoint_every:
+            raise ValueError("checkpoint_every > 0 needs checkpoint_dir")
+        return None
+    return ckpt_lib.AsyncCheckpointer(checkpoint_dir, keep=keep)
+
+
+def _generator_states(*generators: torch.Generator) -> tuple:
+    """Each generator's state (a CPU uint8 tensor): checkpoint leaves."""
+    return tuple(g.get_state() for g in generators)
+
+
+def _set_generator_states(generators, states) -> None:
+    for g, st in zip(generators, states):
+        g.set_state(st)
+
+
+def _save_due(i: int, last_saved: int, every: int, iterations: int) -> bool:
+    """A save lands at the first chunk or round end ``every`` iterations
+    after the last one, and at the run's end."""
+    return every > 0 and (i - last_saved >= every
+                          or (i == iterations and i > last_saved))
 
 
 def _evaluator(env: Env, cfg, act_fn, g_eval: torch.Generator,
@@ -221,8 +261,8 @@ def train(algo: str, env_name: str, *, iterations: int = 200,
           replay: str = "uniform", priority_exponent: float = 0.6,
           is_beta: float = 0.4,
           checkpoint_dir: Optional[str] = None, checkpoint_every: int = 0,
-          resume: bool = False, resilience: Any = None,
-          device=None) -> TrainResult:
+          resume: bool = False, checkpoint_keep: int = 3,
+          resilience: Any = None, device=None) -> TrainResult:
     """Train ``algo`` on ``env_name``.
 
     ``steps_per_call`` iterations run per chunk (``make_scan_iteration``),
@@ -245,12 +285,18 @@ def train(algo: str, env_name: str, *, iterations: int = 200,
     ``sync_every`` learner updates after the last push.
     ``async_barrier=True`` threads one replay slot actor -> learner: with
     ``steps_per_call=1`` and ``sync_every=updates_per_iter`` the run is
-    bitwise the actor-learner run with ``sync_every=1``.  ``device=None``
-    is ``cuda``.
+    bitwise the actor-learner run with ``sync_every=1``.
+
+    ``checkpoint_dir`` with ``checkpoint_every > 0`` saves the run every
+    that many iterations (and at its end), keeping the newest
+    ``checkpoint_keep`` steps (``<= 0``: all); ``resume=True`` continues
+    from the newest valid step there, bitwise the run that was not
+    stopped, or starts afresh when there is none.  ``device=None`` is
+    ``cuda``.
     """
     _check_supported(algo, topology, num_actors, sync_every, mesh,
                      async_barrier, quant, replay, priority_exponent,
-                     checkpoint_dir, checkpoint_every, resume, resilience)
+                     resilience)
     actorq.validate_actor_backend(actor_backend)
     device = resolve_device(device)
     env = make_env(env_name)
@@ -270,6 +316,9 @@ def train(algo: str, env_name: str, *, iterations: int = 200,
     def gen(offset):
         return torch.Generator(device=device).manual_seed(seed + offset)
     g_params = torch.Generator().manual_seed(seed)
+    ckpt = dict(checkpoint_dir=checkpoint_dir,
+                checkpoint_every=checkpoint_every, resume=resume,
+                checkpoint_keep=checkpoint_keep)
     if topology == "async":
         return _train_async(algo, env, net, cfg, g_params, gen,
                             iterations=iterations,
@@ -277,7 +326,7 @@ def train(algo: str, env_name: str, *, iterations: int = 200,
                             eval_episodes=eval_episodes,
                             steps_per_call=steps_per_call,
                             num_actors=num_actors, sync_every=sync_every,
-                            barrier=async_barrier, device=device)
+                            barrier=async_barrier, device=device, **ckpt)
     if topology == "actor-learner":
         al = actor_learner.ActorLearnerConfig(num_actors=num_actors,
                                               sync_every=sync_every)
@@ -291,36 +340,71 @@ def train(algo: str, env_name: str, *, iterations: int = 200,
                 algo, env, net, state, quant))
         iteration, act_fn, benv = mod.make_iteration(env, net, cfg, device)
     env_state, obs = benv.reset(gen(1), device)
-    g_run = gen(2)
+    g_run, g_eval = gen(2), gen(3)
     eval_steps = [0]
-    evaluate_at = _evaluator(env, cfg, act_fn, gen(3), eval_episodes,
+    evaluate_at = _evaluator(env, cfg, act_fn, g_eval, eval_episodes,
                              device, eval_steps)
     chunks: Dict[int, Callable] = {}
     rewards, variances, divergences = [], [], []
     i = 0
-    t0 = time.time()
-    while i < iterations:
-        next_stop = min((i // record_every + 1) * record_every, iterations)
-        n = min(max(steps_per_call, 1), next_stop - i)
-        if n not in chunks:
-            chunks[n] = make_scan_iteration(iteration, n)
-        state, env_state, obs, metrics = chunks[n](state, env_state, obs,
-                                                   g_run)
-        i += n
-        if i % record_every == 0 or i == iterations:
-            learner = state.learner if isinstance(
-                state, actor_learner.ActorLearnerState) else state
-            rewards.append(evaluate_at(learner.params, learner.observers,
-                                       learner.step, obs))
-            variances.append(next(
-                (float(metrics[k][-1]) for k in ("action_dist_variance",
-                                                 "mean_q_var")
-                 if k in metrics), 0.0))
-            # the first push is at iteration sync_every: a record point
-            # before it would only see the init-time zeros
-            if "divergence" in metrics and i >= sync_every:
-                divergences.append(metrics["divergence"][-1].tolist())
-    wall = time.time() - t0
+    ckptr = _loop_checkpointer(checkpoint_dir, checkpoint_every, resume,
+                               checkpoint_keep)
+    try:
+        if ckptr is not None and resume and (
+                start := ckptr.latest_step()) is not None:
+            # the template is the fresh run of the same config: every
+            # leaf is held against it before anything is read
+            tree, extra = ckptr.restore(start, dict(
+                state=state, env_state=env_state, obs=obs,
+                generators=_generator_states(g_run, g_eval)))
+            state, env_state, obs = (tree["state"], tree["env_state"],
+                                     tree["obs"])
+            _set_generator_states((g_run, g_eval), tree["generators"])
+            i, eval_steps[0] = extra["iteration"], extra["eval_steps"]
+            rewards, variances = extra["rewards"], extra["action_variances"]
+            divergences = extra["divergences"]
+        last_saved = i
+        t0 = time.time()
+        while i < iterations:
+            next_stop = min((i // record_every + 1) * record_every,
+                            iterations)
+            n = min(max(steps_per_call, 1), next_stop - i)
+            if n not in chunks:
+                chunks[n] = make_scan_iteration(iteration, n)
+            state, env_state, obs, metrics = chunks[n](state, env_state,
+                                                       obs, g_run)
+            i += n
+            if i % record_every == 0 or i == iterations:
+                learner = state.learner if isinstance(
+                    state, actor_learner.ActorLearnerState) else state
+                rewards.append(evaluate_at(learner.params,
+                                           learner.observers, learner.step,
+                                           obs))
+                variances.append(next(
+                    (float(metrics[k][-1]) for k in (
+                        "action_dist_variance", "mean_q_var")
+                     if k in metrics), 0.0))
+                # the first push is at iteration sync_every: a record
+                # point before it would only see the init-time zeros
+                if "divergence" in metrics and i >= sync_every:
+                    divergences.append(metrics["divergence"][-1].tolist())
+            if ckptr is not None and _save_due(i, last_saved,
+                                               checkpoint_every, iterations):
+                # after this point's evaluation, so the saved generators
+                # have made its draws and the resumed run makes the next
+                ckptr.save_async(
+                    i, dict(state=state, env_state=env_state, obs=obs,
+                            generators=_generator_states(g_run, g_eval)),
+                    extra=dict(iteration=i, eval_steps=eval_steps[0],
+                               rewards=rewards, action_variances=variances,
+                               divergences=divergences))
+                last_saved = i
+        wall = time.time() - t0
+        if ckptr is not None:
+            ckptr.wait()
+    finally:
+        if ckptr is not None:
+            ckptr.close()
     if isinstance(state, actor_learner.ActorLearnerState):
         state = state.learner
     return TrainResult(state=state, act_fn=act_fn, env=env, rewards=rewards,
@@ -333,7 +417,9 @@ def _train_async(algo: str, env: Env, net, cfg, g_params: torch.Generator,
                  gen, *,
                  iterations: int, record_every: int, eval_episodes: int,
                  steps_per_call: int, num_actors: int, sync_every: int,
-                 barrier: bool, device) -> TrainResult:
+                 barrier: bool, device, checkpoint_dir=None,
+                 checkpoint_every: int = 0, resume: bool = False,
+                 checkpoint_keep: int = 3) -> TrainResult:
     """The ``topology="async"`` driver.
 
     A round enqueues one actor chunk (``c`` rollouts into the write slot,
@@ -346,7 +432,11 @@ def _train_async(algo: str, env: Env, net, cfg, g_params: torch.Generator,
     stays on the device until the run ends; the retiring snapshot's lag
     is host arithmetic.  Evaluations at record points are the only host
     syncs.  ``barrier=True`` threads one slot actor -> learner and makes
-    each chunk wait for the other's last one.
+    each chunk wait for the other's last one.  A checkpoint first joins
+    both streams to the current one, whose host copy then waits for the
+    round; it holds the learner, the write slot (``None`` with the
+    barrier: the one slot rides in the learner), the env state, the
+    observations and the actors' snapshot.
     """
     al = actor_learner.ActorLearnerConfig(num_actors=num_actors,
                                           sync_every=sync_every)
@@ -355,9 +445,9 @@ def _train_async(algo: str, env: Env, net, cfg, g_params: torch.Generator,
     learner, wbuf = actor_learner.init_async(g_params, env, net, algo, cfg,
                                              al, double=not barrier)
     env_state, obs = progs.benv_global.reset(gen(1), device)
-    g_run = gen(2)
+    g_run, g_eval = gen(2), gen(3)
     eval_steps = [0]
-    evaluate_at = _evaluator(env, cfg, progs.act_fn, gen(3), eval_episodes,
+    evaluate_at = _evaluator(env, cfg, progs.act_fn, g_eval, eval_episodes,
                              device, eval_steps)
     streams = progs.streams
     streams.start()
@@ -366,51 +456,102 @@ def _train_async(algo: str, env: Env, net, cfg, g_params: torch.Generator,
     rewards, variances, actor_lags, divs = [], [], [], []
     updates_since_push = total_updates = snap_minted_at = 0
     i = 0
-    t0 = time.time()
-    while i < iterations:
-        next_stop = min((i // record_every + 1) * record_every, iterations)
-        c = min(max(steps_per_call, 1), next_stop - i)
-        if barrier:
-            wbuf = learner.extras.replay
-            streams.actors_wait_for_learner()
-            streams.share(wbuf)
-        env_state, obs, wbuf, _ = progs.actor_chunk(
-            snap, env_state, obs, wbuf, g_run, n_chunks=c)
-        if barrier:
-            learner = learner._replace(
-                extras=learner.extras._replace(replay=wbuf))
-            streams.learner_waits_for_actors()
-            streams.share(wbuf)
-        learner, _ = progs.learner_chunk(
-            learner, g_run, n_updates=c * cfg.updates_per_iter)
-        total_updates += c * cfg.updates_per_iter
-        updates_since_push += c * cfg.updates_per_iter
-        i += c
-        if updates_since_push >= sync_every:
-            if not barrier:
-                learner, wbuf = actor_learner.swap_read_slot(learner, wbuf,
-                                                             streams)
-            actor_lags.append(total_updates - snap_minted_at)
-            snap = progs.make_snapshot(learner, obs)
-            snap_minted_at = total_updates
-            divs.append(progs.divergence(learner, snap, obs))
-            updates_since_push = 0
-        if i % record_every == 0 or i == iterations:
-            streams.learner_waits_for_actors()
-            streams.share(obs)
-            with streams.on_learner():
-                rewards.append(evaluate_at(learner.params, learner.observers,
-                                           learner.step, obs))
-            # neither chunk surfaces an action variance (the reference
-            # records the same zeros)
-            variances.append(0.0)
-    streams.finish()
-    wall = time.time() - t0
+
+    def run_tree():
+        # the barrier's one slot rides in the learner: saving wbuf too
+        # would hold the buffer twice
+        return dict(learner=learner, wbuf=None if barrier else wbuf,
+                    env_state=env_state, obs=obs, snap=snap,
+                    generators=_generator_states(g_run, g_eval))
+    ckptr = _loop_checkpointer(checkpoint_dir, checkpoint_every, resume,
+                               checkpoint_keep)
+    try:
+        if ckptr is not None and resume and (
+                start := ckptr.latest_step()) is not None:
+            tree, extra = ckptr.restore(start, run_tree())
+            learner, env_state, obs, snap = (
+                tree["learner"], tree["env_state"], tree["obs"],
+                tree["snap"])
+            wbuf = None if barrier else tree["wbuf"]
+            _set_generator_states((g_run, g_eval), tree["generators"])
+            # the restored tensors were written on the current stream
+            streams.start()
+            streams.share((learner, wbuf, env_state, obs, snap))
+            i, eval_steps[0] = extra["iteration"], extra["eval_steps"]
+            rewards, variances = extra["rewards"], extra["action_variances"]
+            actor_lags, divs = extra["actor_lags"], extra["divergences"]
+            updates_since_push = extra["updates_since_push"]
+            total_updates = extra["total_updates"]
+            snap_minted_at = extra["snap_minted_at"]
+        last_saved = i
+        t0 = time.time()
+        while i < iterations:
+            next_stop = min((i // record_every + 1) * record_every,
+                            iterations)
+            c = min(max(steps_per_call, 1), next_stop - i)
+            if barrier:
+                wbuf = learner.extras.replay
+                streams.actors_wait_for_learner()
+                streams.share(wbuf)
+            env_state, obs, wbuf, _ = progs.actor_chunk(
+                snap, env_state, obs, wbuf, g_run, n_chunks=c)
+            if barrier:
+                learner = learner._replace(
+                    extras=learner.extras._replace(replay=wbuf))
+                streams.learner_waits_for_actors()
+                streams.share(wbuf)
+            learner, _ = progs.learner_chunk(
+                learner, g_run, n_updates=c * cfg.updates_per_iter)
+            total_updates += c * cfg.updates_per_iter
+            updates_since_push += c * cfg.updates_per_iter
+            i += c
+            if updates_since_push >= sync_every:
+                if not barrier:
+                    learner, wbuf = actor_learner.swap_read_slot(
+                        learner, wbuf, streams)
+                actor_lags.append(total_updates - snap_minted_at)
+                snap = progs.make_snapshot(learner, obs)
+                snap_minted_at = total_updates
+                divs.append(progs.divergence(learner, snap, obs))
+                updates_since_push = 0
+            if i % record_every == 0 or i == iterations:
+                streams.learner_waits_for_actors()
+                streams.share(obs)
+                with streams.on_learner():
+                    rewards.append(evaluate_at(
+                        learner.params, learner.observers, learner.step,
+                        obs))
+                # neither chunk surfaces an action variance (the
+                # reference records the same zeros)
+                variances.append(0.0)
+            if ckptr is not None and _save_due(i, last_saved,
+                                               checkpoint_every, iterations):
+                # the host copies wait for the current stream, which
+                # waits for both; a round is never clipped for a save
+                streams.finish()
+                divs = [d if isinstance(d, list) else d.tolist()
+                        for d in divs]
+                ckptr.save_async(i, run_tree(), extra=dict(
+                    iteration=i, eval_steps=eval_steps[0], rewards=rewards,
+                    action_variances=variances, divergences=divs,
+                    actor_lags=actor_lags,
+                    updates_since_push=updates_since_push,
+                    total_updates=total_updates,
+                    snap_minted_at=snap_minted_at))
+                last_saved = i
+        streams.finish()
+        wall = time.time() - t0
+        if ckptr is not None:
+            ckptr.wait()
+    finally:
+        if ckptr is not None:
+            ckptr.close()
     return TrainResult(state=learner, act_fn=progs.act_fn, env=env,
                        rewards=rewards, action_variances=variances,
                        wall_time_s=wall, algo_cfg=cfg, net=net,
                        device=device, eval_steps=eval_steps[0],
-                       divergences=[d.tolist() for d in divs],
+                       divergences=[d if isinstance(d, list) else d.tolist()
+                                    for d in divs],
                        actor_lags=actor_lags)
 
 

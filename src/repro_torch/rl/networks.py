@@ -12,11 +12,12 @@ or the sequence policy's ``embed`` / ``blk{i}`` / ``head`` tree -- so
 ``make_network`` picks the network for an observation shape; ``MLP`` and
 ``SeqPolicy`` are the same forwards as ``nn.Module``s.
 
-The MLP and the conv net are QAT-aware, as the reference's are: every
-dense layer sends its weight through ``ctx.weight("<layer>/w", ...)``,
-every conv kernel is fake-quantized per output channel
-(``core.fake_quant.fake_quant`` over its own per-channel range, from the
-delay on), and every layer's output goes through
+Every network is QAT-aware, as the reference's are: every dense layer
+(the sequence policy's too, ``models.seq_policy``) sends its weight
+through ``ctx.weight("<layer>/w", ...)``, every conv kernel is
+fake-quantized per output channel (``core.fake_quant.fake_quant`` over
+its own per-channel range, from the delay on), and every layer's output
+goes through
 ``ctx.activation("<layer>/out", ...)`` of a ``core.fake_quant`` context.
 Without one (``ctx=None``) it is the ``NullQATContext``, which passes
 both through, so the fp32 forward is unchanged.
@@ -251,8 +252,7 @@ class Network(NamedTuple):
     """A network for one observation shape: ``init(generator)`` draws its
     params from a CPU generator (onto the network's device),
     ``apply(params, obs, ctx=None)`` gives the head outputs, ``ctx`` being
-    the QAT context of an MLP or a conv net (a sequence policy takes
-    none: its QAT comes with its training, ROADMAP queue A, item 12).
+    the QAT context of the forward (``None``: full precision).
     ``seq_cfg`` is the
     ``SeqPolicyConfig`` of a sequence policy (``rl.actorq`` sizes the
     KV-cache actor state from it), else ``None``."""
@@ -285,15 +285,8 @@ def make_network(obs_shape: Tuple[int, ...], out_dim: int, *,
         spec, seq_fn, cfg = make_seq_policy(tuple(obs_shape), out_dim,
                                             **transformer)
 
-        def apply_fn(params, obs, ctx=None):
-            """The windowed sequence policy (no QAT sites)."""
-            if ctx is not None and ctx.config.is_qat:
-                raise NotImplementedError(
-                    "QAT of the sequence policy is not ported yet "
-                    "(ROADMAP queue A, item 12)")
-            return seq_fn(params, obs)
         return Network(lambda g: common.init_params(spec, g, device),
-                       apply_fn, out_dim, seq_cfg=cfg)
+                       seq_fn, out_dim, seq_cfg=cfg)
     if len(obs_shape) == 3:
         full_fp32()
         spec = cnn_spec(tuple(obs_shape), tuple(conv_filters or (16, 16, 16)),

@@ -426,18 +426,21 @@ def test_async_rejects_invalid_configs():
 
 
 def test_unported_topology_options_raise():
-    """A mesh (item 14; for DDPG too, whose topologies are ported),
-    checkpointing (item 9) and the resilience hooks (item 11) still
-    raise in the topologies."""
+    """A mesh (item 14; for DDPG too, whose topologies are ported) and
+    the resilience hooks (item 11) still raise in the topologies;
+    checkpointing is ported, and its knobs are validated as the
+    reference's."""
     kw = dict(iterations=2, device="cpu", num_actors=2)
     for topo in ("actor-learner", "async"):
         with pytest.raises(NotImplementedError, match="item 14"):
             loops.train("ddpg", "pendulum", topology=topo, mesh=object(),
                         **kw)
         for extra, item in ((dict(mesh=object()), 14),
-                            (dict(checkpoint_dir="x"), 9),
                             (dict(resilience=object()), 11)):
             with pytest.raises(NotImplementedError, match=f"item {item}"):
+                loops.train("dqn", "cartpole", topology=topo, **kw, **extra)
+        for extra in (dict(resume=True), dict(checkpoint_every=3)):
+            with pytest.raises(ValueError, match="needs checkpoint_dir"):
                 loops.train("dqn", "cartpole", topology=topo, **kw, **extra)
     with pytest.raises(NotImplementedError, match="item 14"):
         actor_learner.make_async_actor_learner(

@@ -967,3 +967,150 @@ def test_algo_train_on_card_launches_its_kernels(cuda, algo, env, kw):
         want = [3 * (fwd + res.eval_steps), 0, 0]
     assert got == want
     assert res.device.type == "cuda" and all(np.isfinite(res.rewards))
+
+
+# ---------------------------------------------------------------------------
+# the sequence actor in training, and checkpoints (-k seq_train)
+# ---------------------------------------------------------------------------
+
+SEQ_NET = {"d_model": 32, "n_layers": 2, "d_ff": 64}
+SEQ_SMALL = dict(n_envs=8, rollout_steps=4, updates_per_iter=2,
+                 buffer_size=256, batch_size=32, warmup=16)
+
+
+def _seq_site_launches(batch, context=6, feat=27, n_out=3):
+    """B5 launches of one QAT forward of the ``SEQ_NET`` policy on
+    ``batch`` stacks: a weight and an activation site a dense layer, one
+    launch up to 4,096 elements and two above."""
+    def site(n):
+        return 1 if n <= 4096 else 2
+    d, f, rows = SEQ_NET["d_model"], SEQ_NET["d_ff"], batch * context
+    block = (4 * (site(d * d) + site(rows * d)) + site(d * f)
+             + site(rows * f) + site(f * d) + site(rows * d))
+    return (site(feat * d) + site(rows * d) + SEQ_NET["n_layers"] * block
+            + site(d * n_out) + site(batch * n_out))
+
+
+@pytest.mark.parametrize("rows", [8, 16])
+def test_seq_train_b3_at_the_training_shapes_on_card(cuda, rows):
+    """B3 at catch_seq's behaviour steps in training (8 envs, and 2 actors
+    of 8; 8 slots, Dh 32, window 6), ragged pos: one launch, within
+    1e-5 of the plain version."""
+    pos = np.random.default_rng(rows).integers(0, 8, size=(1, rows))
+    _b3_one_launch(_b3_inputs(cuda, 1, rows, 1, 8, 32, pos, lm=False,
+                              seed=rows), 6)
+
+
+@pytest.mark.parametrize("site,shape", [
+    ("activation", (32, 6, 32)), ("activation", (32, 6, 64)),
+    ("activation", (32, 3)), ("activation", (8, 6, 32)),
+    ("weight", (27, 32)), ("weight", (32, 32)), ("weight", (32, 64)),
+    ("weight", (64, 32)), ("weight", (32, 3))], ids=str)
+@pytest.mark.parametrize("when", list(SITE_STEPS))
+def test_seq_train_site_kernel_at_the_training_shapes_on_card(cuda, when,
+                                                              site, shape):
+    """B5's site kernel at the sequence policy's sites (the TD batch of 32
+    stacks, the 8 behaviour envs, every weight): bitwise, one launch up
+    to 4,096 elements and two above."""
+    step = torch.tensor(SITE_STEPS[when], dtype=torch.int32, device=cuda)
+    x = torch.from_numpy(_fq_input("normal", shape, 8, sum(shape))).to(cuda)
+    per_site = 1 if x.numel() <= 4096 else 2
+    before = fake_quant.launches.value
+    if site == "activation":
+        state = _site_state(True, cuda)
+        got = fake_quant.activation_site_cuda(x, *state, step, SITE_DELAY,
+                                              0.999, 8)
+        want = fake_quant.activation_site_plain(x, *state, step, SITE_DELAY,
+                                                0.999, 8)
+    else:
+        got = (fake_quant.weight_site_cuda(x, step, SITE_DELAY, 8),)
+        want = (fake_quant.weight_site_plain(x, step, SITE_DELAY, 8),)
+    torch.cuda.synchronize()
+    assert fake_quant.launches.value == before + per_site
+    for g, w in zip(got, want):
+        assert _same(g, w)
+
+
+def test_seq_train_qat_int8_on_card_launches_b1_b3_b5(cuda):
+    """Two fused QAT iterations of the int8 sequence actor on the card:
+    B1 at every dense layer and B3 at every block of each cached
+    behaviour step (B1 too at each windowed eval step), B5 at every site
+    of both TD forwards."""
+    counters = (int8_matmul.launches, int8_cache_attention.launches,
+                fake_quant.launches)
+    before = [c.value for c in counters]
+    res = loops.train("dqn", "catch_seq", iterations=2, record_every=2,
+                      eval_episodes=4, actor_backend="int8",
+                      quant=QuantConfig.qat(8, quant_delay=2),
+                      net_kwargs={"transformer": dict(SEQ_NET)},
+                      algo_overrides=dict(SEQ_SMALL))
+    torch.cuda.synchronize()
+    cfg = res.algo_cfg
+    steps, n_l = 2 * cfg.rollout_steps, SEQ_NET["n_layers"]
+    got = [c.value - b for c, b in zip(counters, before)]
+    assert got == [(2 + 6 * n_l) * (steps + res.eval_steps), n_l * steps,
+                   2 * 2 * cfg.updates_per_iter
+                   * _seq_site_launches(cfg.batch_size)]
+    assert res.device.type == "cuda" and all(np.isfinite(res.rewards))
+    assert len(res.state.observers) == 2 + 6 * n_l
+
+
+@pytest.mark.parametrize("quant", ["none", "qat8:delay=4"])
+def test_seq_train_td_update_on_card_equals_cpu(cuda, quant):
+    """One TD update of a sequence actor on the card and on the CPU from
+    the same state and batch: within 1e-5 (the observers' ranges too).
+    The key biases get no gradient in exact arithmetic (softmax ignores
+    ``q . b`` added to every logit of a row), so Adam's normalised step
+    makes their rounding noise an update of up to the learning rate:
+    their moments are held to 1e-5, their params to one step."""
+    from repro_torch.rl import buffer as rb
+    res = loops.train("dqn", "catch_seq", iterations=3, record_every=3,
+                      eval_episodes=2, quant=QuantConfig.parse(quant),
+                      net_kwargs={"transformer": dict(SEQ_NET)},
+                      algo_overrides=dict(SEQ_SMALL))
+    update = dqn.make_td_update(res.env, res.net, res.algo_cfg)
+    batch = rb.replay_sample(res.state.extras.replay,
+                             torch.Generator(device=cuda).manual_seed(0), 32)
+    card, (loss, _) = update(res.state, batch, res.state.extras.replay.size)
+    cpu_in = ptq.tree_to(res.state, "cpu")
+    cpu, (cpu_loss, _) = update(cpu_in, ptq.tree_to(batch, "cpu"),
+                                cpu_in.extras.replay.size)
+    assert abs(float(loss) - float(cpu_loss)) <= 1e-5
+    lr = res.algo_cfg.lr
+    for tree, cpu_tree in ((card.params, cpu.params),
+                           (card.opt.m, cpu.opt.m), (card.opt.v, cpu.opt.v),
+                           (card.observers, cpu.observers)):
+        for (path, x), (_, y) in zip(ptq.tree_tensors(tree),
+                                     ptq.tree_tensors(cpu_tree)):
+            noise = tree is card.params and path.endswith("/k/b")
+            torch.testing.assert_close(x.cpu().to(torch.float32),
+                                       y.to(torch.float32), rtol=0,
+                                       atol=2 * lr if noise else 1e-5)
+    assert len(card.observers) == (0 if quant == "none"
+                                   else 2 + 6 * SEQ_NET["n_layers"])
+
+
+@pytest.mark.parametrize("topo", ["fused", "async"])
+def test_seq_train_resume_bitwise_on_card(cuda, tmp_path, topo):
+    """The int8 sequence actor trained to 3 with checkpoints and resumed
+    to 6 on the card is the run to 6 that was never stopped, bit for bit
+    (the KV caches in the env state, the CUDA generators' states, the
+    async streams joined for each save)."""
+    from repro_torch.core.ptq import tree_flatten
+    multi = topo != "fused"
+    kw = dict(seed=3, record_every=3, eval_episodes=2, actor_backend="int8",
+              net_kwargs={"transformer": dict(SEQ_NET)},
+              algo_overrides=dict(SEQ_SMALL), topology=topo,
+              num_actors=2 if multi else 1, sync_every=2 if multi else 1)
+    d = str(tmp_path / "ckpt")
+    full = loops.train("dqn", "catch_seq", iterations=6, **kw)
+    loops.train("dqn", "catch_seq", iterations=3, checkpoint_dir=d,
+                checkpoint_every=3, **kw)
+    res = loops.train("dqn", "catch_seq", iterations=6, checkpoint_dir=d,
+                      checkpoint_every=3, resume=True, **kw)
+    pa, la = tree_flatten(full.state)
+    pb, lb = tree_flatten(res.state)
+    assert pa == pb and all(torch.equal(x, y) for x, y in zip(la, lb))
+    assert la[0].device.type == "cuda"
+    assert (full.rewards, full.divergences, full.actor_lags) == (
+        res.rewards, res.divergences, res.actor_lags)

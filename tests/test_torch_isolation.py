@@ -36,7 +36,8 @@ def test_scan_sees_the_port():
             "flash_attention.py", "attention.py", "blocks.py",
             "transformer.py", "serve.py", "base.py", "h2o_danube_1_8b.py",
             "gemma2_9b.py", "quarl_atari.py", "mountaincar.py",
-            "pendulum.py", "ddpg.py", "ppo.py", "a2c.py"} <= names
+            "pendulum.py", "ddpg.py", "ppo.py", "a2c.py", "ckpt.py",
+            "manager.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -58,9 +59,32 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.models.transformer, repro_torch.launch.serve, "
             "repro_torch.configs.quarl_atari, "
             "repro_torch.rl.envs.mountaincar, repro_torch.rl.envs.pendulum, "
-            "repro_torch.rl.ddpg, repro_torch.rl.ppo, repro_torch.rl.a2c\n"
+            "repro_torch.rl.ddpg, repro_torch.rl.ppo, repro_torch.rl.a2c, "
+            "repro_torch.checkpoint\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
+            "assert not bad, bad\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   timeout=120)
+
+
+def test_checkpoint_uses_no_jax_msgpack_or_pickle():
+    """``repro_torch.checkpoint`` writes raw bytes and JSON: it imports
+    neither ``jax`` nor ``msgpack`` (absent on the card's host) and
+    neither ``pickle`` nor ``torch.save`` / ``torch.load``."""
+    files = sorted((ROOT / "src" / "repro_torch" / "checkpoint").glob(
+        "*.py"))
+    assert {p.name for p in files} == {"__init__.py", "ckpt.py",
+                                       "manager.py"}
+    for path in files:
+        mods = {m.split(".")[0] for m in _imported_modules(path)}
+        assert not mods & {"jax", "jaxlib", "msgpack", "pickle", "repro"}
+        text = path.read_text()
+        assert "torch.save" not in text and "torch.load" not in text
+    code = ("import sys, repro_torch.checkpoint\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'msgpack', 'repro'))\n"
             "assert not bad, bad\n")
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
     subprocess.run([sys.executable, "-c", code], check=True, env=env,

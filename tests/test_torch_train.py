@@ -402,9 +402,12 @@ def test_unported_options_raise():
     # over the actor axis is not (item 14), and fused-only knobs given to
     # the fused driver are refused as in the reference
     for extra, item in ((dict(topology="async", mesh=object()), 14),
-                        (dict(checkpoint_dir="x"), 9),
                         (dict(resilience=object()), 11)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
+            loops.train("dqn", "cartpole", **kw, **extra)
+    # checkpointing is ported: its knobs are validated as the reference's
+    for extra in (dict(resume=True), dict(checkpoint_every=5)):
+        with pytest.raises(ValueError, match="needs checkpoint_dir"):
             loops.train("dqn", "cartpole", **kw, **extra)
     with pytest.raises(ValueError, match="actor-learner knobs"):
         loops.train("dqn", "cartpole", num_actors=2, **kw)
@@ -416,10 +419,14 @@ def test_unported_options_raise():
     net = networks.make_network((6, 27), 3, transformer={"d_model": 8,
                                                          "n_layers": 1},
                                 device="cpu")
+    # the sequence policy's QAT sites are ported: the forward runs them
     ctx = fake_quant.make_context(QuantConfig.qat(8), {}, torch.tensor(0))
-    with pytest.raises(NotImplementedError, match="item 12"):
-        net.apply(net.init(torch.Generator().manual_seed(0)),
-                  torch.zeros(2, 6, 27), ctx=ctx)
+    out = net.apply(net.init(torch.Generator().manual_seed(0)),
+                    torch.zeros(2, 6, 27), ctx=ctx)
+    assert out.shape == (2, 3)
+    assert sorted(ctx.merged_collection()) == [
+        "blk0/fc/out", "blk0/k/out", "blk0/o/out", "blk0/proj/out",
+        "blk0/q/out", "blk0/v/out", "embed/out", "head/out"]
     with pytest.raises(ValueError, match="kernel_backend"):
         dqn.make_iteration(make("cartpole"), networks.make_network(
             (4,), 2, device="cpu"), dataclasses.replace(
@@ -433,8 +440,11 @@ def test_launch_train_rl_on_cpu(capsys):
     assert launch_train.main(argv) == 0
     out = capsys.readouterr().out
     assert "quant=qat8" in out and "device=cpu" in out
-    for bad, item in ((["--mode", "lm"], 13), (["--ckpt-dir", "x"], 9),
+    for bad, item in ((["--mode", "lm"], 13),
                       (["--fault-plan", "1:straggler@1"], 11),
                       (["--supervised"], 11)):
         with pytest.raises(NotImplementedError, match=f"item {item}"):
             launch_train.main(argv + bad)
+    # the checkpoint flags are ported: a resume needs a directory
+    with pytest.raises(ValueError, match="needs checkpoint_dir"):
+        launch_train.main(argv + ["--resume"])
