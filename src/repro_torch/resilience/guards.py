@@ -1,23 +1,37 @@
-"""Integrity and structural guards of a packed actor cache (subset).
+"""Integrity and numerical guards for the self-healing ActorQ runtime.
 
-Counterpart of ``repro/resilience/guards.py:108-250``, the part
-``serving.PolicyServer.push_params`` uses:
+Counterpart of ``repro/resilience/guards.py``.  Three guard families,
+each raising a *typed* error instead of letting a fault corrupt training
+silently:
 
-* ``tree_crc32`` / ``verify_crc`` -- a CRC32 over every tensor's bytes,
-  dtype and shape, in flatten order; ``IntegrityError`` on a mismatch.
-* ``validate_cache`` -- the quantizer invariants of a packed cache
-  (integer codes in range, finite strictly positive scales, finite zero
-  points and columns, packed sizes consistent); ``CodeRangeError``.
+* **Integrity** -- ``tree_crc32`` checksums a packed actor cache (codes
+  and scales, every tensor in flatten order) so a param push can be
+  verified at the consumer: ``verify_crc`` raises ``IntegrityError`` on
+  any bit difference.
+* **Numerical** -- ``all_finite`` is one reduction over the float leaves
+  of a tree, left on their device; ``check_finite`` reads it back with
+  one host sync and raises ``NonFiniteError`` naming the offending leaves
+  (found only on failure).
+* **Structural** -- ``validate_cache`` checks the quantizer invariants of
+  a packed int8/int4 cache and raises ``CodeRangeError``.  Scale
+  corruption is caught there even without a reference CRC; code bit
+  flips need the integrity guard (every int8 byte is a valid code).
+
+``GuardConfig`` bundles the knobs the training drivers and the
+supervisor read (``resilience.faults.ResilienceContext``).
 """
 from __future__ import annotations
 
+import dataclasses
+import time
 import zlib
-from typing import Any, List
+from typing import Any, List, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.core.ptq import PackedTensor, tree_map, tree_tensors
+from repro_torch.core.ptq import (PackedTensor, tree_flatten, tree_map,
+                                  tree_tensors)
 
 
 class GuardError(RuntimeError):
@@ -28,8 +42,54 @@ class IntegrityError(GuardError):
     """A packed payload's checksum does not match its content."""
 
 
+class NonFiniteError(GuardError):
+    """NaN/Inf found in params/updates that must be finite."""
+
+
 class CodeRangeError(GuardError):
     """Packed int8/int4 cache violates the quantizer invariants."""
+
+
+@dataclasses.dataclass(frozen=True)
+class GuardConfig:
+    """Guard knobs threaded through the drivers and the supervisor.
+
+    ``check_finite`` -- finite-params check on the learner after update
+    rounds; ``verify_pushes`` -- CRC/repack verification of packed param
+    pushes; ``validate_codes`` -- structural cache validation alongside
+    the push guard; ``check_every`` -- host-sync cadence in driver rounds
+    (1 = every round); ``push_retries`` -- bounded retries of a failed
+    (corrupted) push before the typed error escalates;
+    ``backoff_base_s`` / ``backoff_factor`` / ``backoff_cap_s`` -- the
+    exponential backoff of those retries (deterministic jitter, see
+    ``backoff_delay``).
+    """
+
+    check_finite: bool = True
+    verify_pushes: bool = True
+    validate_codes: bool = True
+    check_every: int = 1
+    push_retries: int = 2
+    backoff_base_s: float = 0.01
+    backoff_factor: float = 2.0
+    backoff_cap_s: float = 0.5
+
+
+def deterministic_jitter(seed: int, attempt: int) -> float:
+    """Jitter fraction in [0, 1) as a pure function of (seed, attempt):
+    CRC32 over the pair's little-endian bytes, so a chaos run's retry
+    timing repeats exactly."""
+    h = zlib.crc32(int(seed).to_bytes(8, "little", signed=True)
+                   + int(attempt).to_bytes(8, "little", signed=True))
+    return (h & 0xFFFFFFFF) / 2 ** 32
+
+
+def backoff_delay(attempt: int, *, base_s: float, factor: float,
+                  cap_s: float, seed: int = 0) -> float:
+    """``base * factor**attempt * (1 + jitter)`` clipped to ``cap_s``,
+    the jitter ``deterministic_jitter(seed, attempt)``."""
+    raw = base_s * (factor ** max(attempt, 0))
+    return min(raw * (1.0 + deterministic_jitter(seed, attempt)), cap_s)
 
 
 def _host(t: torch.Tensor) -> np.ndarray:
@@ -39,7 +99,8 @@ def _host(t: torch.Tensor) -> np.ndarray:
 def tree_crc32(tree: Any) -> int:
     """CRC32 over every tensor's bytes + dtype/shape, in flatten order.
 
-    Copies each tensor to the host: call it off the hot path (pushes).
+    Copies each tensor to the host on the current stream: call it off the
+    hot path (pushes, hot-swaps), after the stream that wrote the tree.
     """
     crc = 0
     for _, t in tree_tensors(tree):
@@ -56,12 +117,56 @@ def verify_crc(tree: Any, expected: int, *, what: str = "payload") -> None:
         raise IntegrityError(
             f"{what}: checksum mismatch -- expected {int(expected):#010x}, "
             f"got {got:#010x} (corrupted packed payload; refusing to "
-            f"serve it)")
+            f"serve/sync it)")
 
 
-def _nonfinite_paths(tree: Any) -> List[str]:
-    return [path for path, t in tree_tensors(tree)
-            if t.is_floating_point() and not bool(torch.isfinite(t).all())]
+def _float_leaves(tree: Any) -> List[torch.Tensor]:
+    return [t for _, t in tree_tensors(tree) if t.is_floating_point()]
+
+
+def all_finite(tree: Any) -> torch.Tensor:
+    """0-d bool tensor: every float leaf all-finite.
+
+    One ``isfinite(...).all()`` over the float leaves concatenated, on
+    their device (one reduction a device when they span several); no host
+    sync.  Integer leaves (codes, counters) are skipped.
+    """
+    by_device = {}
+    for t in _float_leaves(tree):
+        by_device.setdefault(t.device, []).append(t.reshape(-1))
+    if not by_device:
+        return torch.ones((), dtype=torch.bool)
+    oks = [torch.isfinite(torch.cat(ts)).all()
+           for ts in by_device.values()]
+    ok = oks[0]
+    for o in oks[1:]:
+        ok = ok & o.to(ok.device)
+    return ok
+
+
+def nonfinite_paths(tree: Any, limit: int = 8) -> List[str]:
+    """Paths (``core.ptq.tree_flatten``'s, e.g. ``['fc0']['w']``) of the
+    float leaves holding NaN/Inf; one host sync a leaf, so for diagnosis
+    only."""
+    bad = []
+    for path, leaf in zip(*tree_flatten(tree)):
+        if isinstance(leaf, torch.Tensor) and leaf.is_floating_point() \
+                and not bool(torch.isfinite(leaf).all()):
+            bad.append(path)
+            if len(bad) >= limit:
+                break
+    return bad
+
+
+def check_finite(tree: Any, *, what: str = "params") -> None:
+    """Host-side finite guard: one host sync on ``all_finite``; on
+    failure ``NonFiniteError`` naming the leaves."""
+    if bool(all_finite(tree)):
+        return
+    bad = nonfinite_paths(tree)
+    raise NonFiniteError(
+        f"{what}: non-finite values in {len(bad)} leaf/leaves "
+        f"(NaN/Inf gradient or corrupted update): {', '.join(bad)}")
 
 
 def validate_cache(cache: Any, *, what: str = "actor cache") -> None:
@@ -109,7 +214,44 @@ def validate_cache(cache: Any, *, what: str = "actor cache") -> None:
                 raise CodeRangeError(
                     f"{what}: packed leaf {i} delta must be strictly "
                     f"positive, min={float(a.min())}")
-    bad = _nonfinite_paths(rest)
+    bad = nonfinite_paths(rest)
     if bad:
         raise CodeRangeError(f"{what}: non-finite float entries outside the "
                              f"packed weights: {', '.join(bad)}")
+
+
+def retry_call(fn, *, retries: int, base_s: float, factor: float,
+               cap_s: float, seed: int = 0, retry_on=Exception,
+               on_retry=None, sleep=None):
+    """Bounded retry with deterministic-jitter exponential backoff.
+
+    Calls ``fn()`` up to ``retries + 1`` times; on a ``retry_on``
+    exception runs ``on_retry(attempt, exc)``, sleeps
+    ``backoff_delay(attempt, ...)`` and tries again.  The last failure is
+    re-raised unchanged.  ``sleep`` is injectable for tests.
+    """
+    do_sleep = time.sleep if sleep is None else sleep
+    attempt = 0
+    while True:
+        try:
+            return fn()
+        except retry_on as e:
+            if attempt >= retries:
+                raise
+            if on_retry is not None:
+                on_retry(attempt, e)
+            do_sleep(backoff_delay(attempt, base_s=base_s, factor=factor,
+                                   cap_s=cap_s, seed=seed))
+            attempt += 1
+
+
+def checksum_entry(cache: Any) -> int:
+    """``tree_crc32`` under the name of its call sites: the CRC a cache
+    about to be published carries (``serving.CacheEntry.crc32``)."""
+    return tree_crc32(cache)
+
+
+def verify_or_none(cache: Any, crc: Optional[int], *, what: str) -> None:
+    """``verify_crc`` that tolerates a missing checksum."""
+    if crc is not None:
+        verify_crc(cache, crc, what=what)

@@ -152,6 +152,13 @@ class Streams:
         if self.cuda:
             self._wait(self.actor, self.learner)
 
+    def current_waits_for_learner(self) -> None:
+        """The current stream's later work (a host copy) starts after the
+        learner's work so far."""
+        if self.cuda:
+            self._wait(torch.cuda.current_stream(self.learner.device),
+                       self.learner)
+
     def start(self) -> None:
         """Both streams wait for the current stream (the set-up)."""
         if self.cuda:

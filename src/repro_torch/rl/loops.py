@@ -42,8 +42,16 @@ the manifest's ``extra``.  ``resume=True`` restores the newest valid step
 into a freshly built run of the same config, so the resumed run is
 bitwise the uninterrupted one.
 
+**Resilience** (``resilience``, a ``repro_torch.resilience.
+ResilienceContext``): host hooks around every chunk or round --
+``round_start`` before it, the learner's finite guard and the fault
+injections after it, the guarded async push, the evaluation cache's CRC
+and ``checkpoint_committed`` after each save.  They run between chunks,
+so a guarded run that no fault hits is the bare run bit for bit, and
+``resilience=None`` adds no operation and no host sync.
+
 Not ported yet, and raising ``NotImplementedError`` naming the ROADMAP
-queue A item: a device mesh (item 14) and the resilience hooks (item 11).
+queue A item: a device mesh (item 14).
 """
 from __future__ import annotations
 
@@ -138,8 +146,7 @@ def make_scan_iteration(iteration: Callable, steps_per_call: int):
 
 
 def _check_supported(algo, topology, num_actors, sync_every, mesh,
-                     async_barrier, quant, replay, priority_exponent,
-                     resilience):
+                     async_barrier, quant, replay, priority_exponent):
     if algo not in ALGOS:
         raise ValueError(f"algo must be one of {ALGOS}, got {algo!r}")
     actor_learner.validate_topology(topology)
@@ -160,8 +167,6 @@ def _check_supported(algo, topology, num_actors, sync_every, mesh,
                          f"(the learner trains fp32; use PTQ eval)")
     if mesh is not None:
         raise _not_ported("a device mesh over the actor axis", 14)
-    if resilience is not None:
-        raise _not_ported("the resilience hooks", 11)
 
 
 def _build(algo: str, env: Env, quant: QuantConfig, net_kwargs: Dict,
@@ -217,11 +222,13 @@ def _save_due(i: int, last_saved: int, every: int, iterations: int) -> bool:
 
 def _evaluator(env: Env, cfg, act_fn, g_eval: torch.Generator,
                eval_episodes: int, device, eval_steps: List[int]):
-    """``evaluate_at(params, observers, step, obs) -> float``: the eval
-    reward of the learner's params -- through the packed actor when the
-    backend is quantized (calibrated on the live ``obs`` with
+    """``evaluate_at(params, observers, step, obs, guard=None) -> float``:
+    the eval reward of the learner's params -- through the packed actor
+    when the backend is quantized (calibrated on the live ``obs`` with
     ``calib_batch``), else the greedy fp32 policy under the QAT context.
-    Each batched eval step adds one to ``eval_steps[0]``."""
+    ``guard(cache, remint)`` returns the cache to evaluate (the
+    resilience hook ``on_eval_cache``; ``remint()`` packs it again).  Each
+    batched eval step adds one to ``eval_steps[0]``."""
     quantized = actorq.is_quantized(cfg.actor_backend)
 
     def counted(act):
@@ -232,13 +239,18 @@ def _evaluator(env: Env, cfg, act_fn, g_eval: torch.Generator,
     q_act = counted(actorq.make_act_fn(env.spec)) if quantized else None
     det_act = counted(lambda p, o: act_fn(p[0], o, p[1], p[2]))
 
-    def evaluate_at(params, observers, step, obs) -> float:
+    def evaluate_at(params, observers, step, obs, guard=None) -> float:
         if q_act is not None:
             obs_g = obs.reshape((-1,) + tuple(env.spec.obs_shape))
-            qparams = actorq.make_actor_cache(
-                params, cfg.actor_backend,
-                calib_obs=actorq.calib_slice(obs_g, cfg.calib_batch)
-                if cfg.calib_batch else None)
+
+            def mint():
+                return actorq.make_actor_cache(
+                    params, cfg.actor_backend,
+                    calib_obs=actorq.calib_slice(obs_g, cfg.calib_batch)
+                    if cfg.calib_batch else None)
+            qparams = mint()
+            if guard is not None:
+                qparams = guard(qparams, mint)
             r = evaluate(env, q_act, qparams, g_eval, eval_episodes,
                          max_steps=env.spec.max_steps, device=device)
         else:
@@ -291,12 +303,13 @@ def train(algo: str, env_name: str, *, iterations: int = 200,
     that many iterations (and at its end), keeping the newest
     ``checkpoint_keep`` steps (``<= 0``: all); ``resume=True`` continues
     from the newest valid step there, bitwise the run that was not
-    stopped, or starts afresh when there is none.  ``device=None`` is
-    ``cuda``.
+    stopped, or starts afresh when there is none.  ``resilience`` (a
+    ``repro_torch.resilience.ResilienceContext``; the supervisor passes
+    one) runs its hooks around every chunk or round (module docstring).
+    ``device=None`` is ``cuda``.
     """
     _check_supported(algo, topology, num_actors, sync_every, mesh,
-                     async_barrier, quant, replay, priority_exponent,
-                     resilience)
+                     async_barrier, quant, replay, priority_exponent)
     actorq.validate_actor_backend(actor_backend)
     device = resolve_device(device)
     env = make_env(env_name)
@@ -326,7 +339,8 @@ def train(algo: str, env_name: str, *, iterations: int = 200,
                             eval_episodes=eval_episodes,
                             steps_per_call=steps_per_call,
                             num_actors=num_actors, sync_every=sync_every,
-                            barrier=async_barrier, device=device, **ckpt)
+                            barrier=async_barrier, device=device,
+                            resilience=resilience, **ckpt)
     if topology == "actor-learner":
         al = actor_learner.ActorLearnerConfig(num_actors=num_actors,
                                               sync_every=sync_every)
@@ -366,6 +380,9 @@ def train(algo: str, env_name: str, *, iterations: int = 200,
         last_saved = i
         t0 = time.time()
         while i < iterations:
+            if resilience is not None:
+                resilience.round_start(i)
+                resilience.dropped_sync_na(i, topology)
             next_stop = min((i // record_every + 1) * record_every,
                             iterations)
             n = min(max(steps_per_call, 1), next_stop - i)
@@ -374,12 +391,14 @@ def train(algo: str, env_name: str, *, iterations: int = 200,
             state, env_state, obs, metrics = chunks[n](state, env_state,
                                                        obs, g_run)
             i += n
+            if resilience is not None:
+                state = _guard_round(resilience, state, i, cfg)
             if i % record_every == 0 or i == iterations:
                 learner = state.learner if isinstance(
                     state, actor_learner.ActorLearnerState) else state
-                rewards.append(evaluate_at(learner.params,
-                                           learner.observers, learner.step,
-                                           obs))
+                rewards.append(evaluate_at(
+                    learner.params, learner.observers, learner.step, obs,
+                    guard=_eval_guard(resilience, i)))
                 variances.append(next(
                     (float(metrics[k][-1]) for k in (
                         "action_dist_variance", "mean_q_var")
@@ -399,6 +418,8 @@ def train(algo: str, env_name: str, *, iterations: int = 200,
                                rewards=rewards, action_variances=variances,
                                divergences=divergences))
                 last_saved = i
+                if resilience is not None:
+                    resilience.checkpoint_committed(ckptr, i)
         wall = time.time() - t0
         if ckptr is not None:
             ckptr.wait()
@@ -413,13 +434,52 @@ def train(algo: str, env_name: str, *, iterations: int = 200,
                        eval_steps=eval_steps[0], divergences=divergences)
 
 
+def _eval_guard(resilience, step: int):
+    """The ``guard`` of ``evaluate_at`` at round ``step``: the
+    resilience hook ``on_eval_cache``, or None."""
+    if resilience is None:
+        return None
+    return lambda cache, remint: resilience.on_eval_cache(cache, step,
+                                                          remint)
+
+
+def _guard_round(resilience, state, step: int, cfg):
+    """``after_round`` of the fused and actor-learner drivers.
+
+    The fused ``TrainState`` holds the learner's params; an
+    ``ActorLearnerState`` holds them in ``learner`` and carries the
+    actors' packed cache, the bitflip_push target, which, when minting is
+    deterministic (``calib_batch == 0``), is held by CRC to a fresh pack
+    of the actors' params (``actor_learner.remint_cache``) at the guard's
+    cadence.
+    """
+    if not isinstance(state, actor_learner.ActorLearnerState):
+        return resilience.after_round(
+            state, step, learner_view=lambda s: s.params,
+            set_learner=lambda s, p: s._replace(params=p))
+    state = resilience.after_round(
+        state, step, learner_view=lambda s: s.learner.params,
+        set_learner=lambda s, p: s._replace(
+            learner=s.learner._replace(params=p)),
+        repack=lambda s, fn: s if isinstance(s.actor_cache, tuple)
+        else actor_learner.with_cache(s, fn(s.actor_cache)))
+    if (actorq.is_quantized(cfg.actor_backend) and cfg.calib_batch == 0
+            and not isinstance(state.actor_cache, tuple)
+            and step % max(resilience.guard.check_every, 1) == 0):
+        resilience.verify_state_cache(
+            state.actor_cache,
+            lambda: actor_learner.remint_cache(state, cfg.actor_backend),
+            step)
+    return state
+
+
 def _train_async(algo: str, env: Env, net, cfg, g_params: torch.Generator,
                  gen, *,
                  iterations: int, record_every: int, eval_episodes: int,
                  steps_per_call: int, num_actors: int, sync_every: int,
                  barrier: bool, device, checkpoint_dir=None,
                  checkpoint_every: int = 0, resume: bool = False,
-                 checkpoint_keep: int = 3) -> TrainResult:
+                 checkpoint_keep: int = 3, resilience=None) -> TrainResult:
     """The ``topology="async"`` driver.
 
     A round enqueues one actor chunk (``c`` rollouts into the write slot,
@@ -437,6 +497,13 @@ def _train_async(algo: str, env: Env, net, cfg, g_params: torch.Generator,
     round; it holds the learner, the write slot (``None`` with the
     barrier: the one slot rides in the learner), the env state, the
     observations and the actors' snapshot.
+
+    With ``resilience``, the learner's guard (and a nan_grad) runs on the
+    learner's stream, whose work it waits for; the push is
+    ``resilience.push`` around ``make_snapshot``, each mint followed by the
+    current stream waiting for the learner's, so the CRC's host copies
+    read the finished snapshot; a ``None`` push (dropped) leaves the
+    actors on their snapshot and the lag widens.
     """
     al = actor_learner.ActorLearnerConfig(num_actors=num_actors,
                                           sync_every=sync_every)
@@ -486,6 +553,8 @@ def _train_async(algo: str, env: Env, net, cfg, g_params: torch.Generator,
         last_saved = i
         t0 = time.time()
         while i < iterations:
+            if resilience is not None:
+                resilience.round_start(i)
             next_stop = min((i // record_every + 1) * record_every,
                             iterations)
             c = min(max(steps_per_call, 1), next_stop - i)
@@ -505,22 +574,37 @@ def _train_async(algo: str, env: Env, net, cfg, g_params: torch.Generator,
             total_updates += c * cfg.updates_per_iter
             updates_since_push += c * cfg.updates_per_iter
             i += c
-            if updates_since_push >= sync_every:
+            if resilience is not None:
+                with streams.on_learner():
+                    guarded = resilience.after_round(
+                        learner, i, learner_view=lambda s: s.params,
+                        set_learner=lambda s, p: s._replace(params=p))
+                if guarded is not learner:
+                    streams.share(guarded)
+                learner = guarded
+            if updates_since_push >= sync_every and (
+                    resilience is None or resilience.sync_due(i)):
                 if not barrier:
                     learner, wbuf = actor_learner.swap_read_slot(
                         learner, wbuf, streams)
-                actor_lags.append(total_updates - snap_minted_at)
-                snap = progs.make_snapshot(learner, obs)
-                snap_minted_at = total_updates
-                divs.append(progs.divergence(learner, snap, obs))
-                updates_since_push = 0
+                if resilience is None:
+                    new_snap = progs.make_snapshot(learner, obs)
+                else:
+                    new_snap = _guarded_push(resilience, progs, learner,
+                                             obs, i)
+                if new_snap is not None:
+                    actor_lags.append(total_updates - snap_minted_at)
+                    snap = new_snap
+                    snap_minted_at = total_updates
+                    divs.append(progs.divergence(learner, snap, obs))
+                    updates_since_push = 0
             if i % record_every == 0 or i == iterations:
                 streams.learner_waits_for_actors()
                 streams.share(obs)
                 with streams.on_learner():
                     rewards.append(evaluate_at(
                         learner.params, learner.observers, learner.step,
-                        obs))
+                        obs, guard=_eval_guard(resilience, i)))
                 # neither chunk surfaces an action variance (the
                 # reference records the same zeros)
                 variances.append(0.0)
@@ -539,6 +623,8 @@ def _train_async(algo: str, env: Env, net, cfg, g_params: torch.Generator,
                     total_updates=total_updates,
                     snap_minted_at=snap_minted_at))
                 last_saved = i
+                if resilience is not None:
+                    resilience.checkpoint_committed(ckptr, i)
         streams.finish()
         wall = time.time() - t0
         if ckptr is not None:
@@ -553,6 +639,26 @@ def _train_async(algo: str, env: Env, net, cfg, g_params: torch.Generator,
                        divergences=[d if isinstance(d, list) else d.tolist()
                                     for d in divs],
                        actor_lags=actor_lags)
+
+
+def _guarded_push(resilience, progs, learner, obs, step: int):
+    """``resilience.push`` of the async snapshot: each mint is made on the
+    learner's stream (``make_snapshot``) and the current stream then waits
+    for it, so the CRC's host copies read it whole.  The snapshot pushed
+    (or None) is then shared with both streams, which wait for the
+    current one: a corrupted copy the guard let through was rebuilt
+    there."""
+    streams = progs.streams
+
+    def mint():
+        snap = progs.make_snapshot(learner, obs)
+        streams.current_waits_for_learner()
+        return snap
+    snap = resilience.push(mint, step)
+    if snap is not None:
+        streams.start()
+        streams.share(snap)
+    return snap
 
 
 def eval_policy(result: TrainResult, quant: QuantConfig,

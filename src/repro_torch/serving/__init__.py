@@ -6,16 +6,19 @@ hot-swap on every param push (``server``), with per-session accounting
 (``session``).
 """
 from repro_torch.device import resolve_device
-from repro_torch.serving.batcher import (Batcher, Request, ServeResult,
-                                         pad_rows, remove_padding,
-                                         select_bucket)
+from repro_torch.serving.batcher import (Batcher, DeadlineExceededError,
+                                         QueueFullError, Request,
+                                         ServeResult, pad_rows,
+                                         remove_padding, select_bucket)
 from repro_torch.serving.server import (CacheEntry, PolicyServer,
-                                        greedy_calib_obs, make_fp32_act_fn)
+                                        WorkerCrashError, greedy_calib_obs,
+                                        make_fp32_act_fn)
 from repro_torch.serving.session import Session, SessionTable, StepCounter
 
 __all__ = [
-    "Batcher", "Request", "ServeResult", "pad_rows", "remove_padding",
-    "select_bucket", "CacheEntry", "PolicyServer", "greedy_calib_obs",
+    "Batcher", "DeadlineExceededError", "QueueFullError", "Request",
+    "ServeResult", "pad_rows", "remove_padding", "select_bucket",
+    "CacheEntry", "PolicyServer", "WorkerCrashError", "greedy_calib_obs",
     "make_fp32_act_fn", "resolve_device", "Session", "SessionTable",
     "StepCounter",
 ]

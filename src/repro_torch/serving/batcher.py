@@ -1,11 +1,10 @@
 """Shape-bucketed continuous batching: admission queue, padding, unpadding.
 
-Adapted from ``repro/serving/batcher.py`` (plain Python and numpy),
-without its load-shedding bound and request deadlines: nothing on the
-port's serving path sets them yet, and they come back with the port of
-``resilience/faults.py``, which drives them.  The
-server runs its kernels at one fixed batch shape per *bucket* instead of
-one per live batch size.  Incoming requests queue on the host; the
+Counterpart of ``repro/serving/batcher.py`` (plain Python and numpy),
+with its load-shedding bound (``max_queue``, ``QueueFullError``) and
+request deadlines (``DeadlineExceededError``).  The server runs its
+kernels at one fixed batch shape per *bucket* instead of one per live
+batch size.  Incoming requests queue on the host; the
 dispatcher admits up to ``max_batch`` of them (waiting at most
 ``max_wait_us`` after the oldest queued request for stragglers — the tail-
 latency knob), pads the stacked observations up to the smallest bucket that
@@ -27,6 +26,19 @@ from collections import deque
 from typing import List, Optional, Sequence
 
 import numpy as np
+
+
+class QueueFullError(RuntimeError):
+    """Admission queue at capacity: the request is shed.
+
+    Raised by ``Batcher.put`` when ``max_queue`` is set and reached, the
+    typed, immediate alternative to unbounded queue growth; callers treat
+    it as backpressure (retry later or drop the request).
+    """
+
+
+class DeadlineExceededError(TimeoutError):
+    """A request's deadline expired before it was dispatched."""
 
 
 def select_bucket(n: int, buckets: Sequence[int]) -> int:
@@ -94,17 +106,30 @@ class Request:
     the event.  ``result()`` blocks the submitting thread until then.
     """
 
-    __slots__ = ("sid", "obs", "t_enqueue", "_event", "_result",
-                 "_error")
+    __slots__ = ("sid", "obs", "t_enqueue", "deadline", "_event",
+                 "_result", "_error")
 
-    def __init__(self, sid: int, obs: np.ndarray):
-        """Bind a single observation (no batch axis) to session ``sid``."""
+    def __init__(self, sid: int, obs: np.ndarray,
+                 deadline: Optional[float] = None):
+        """Bind a single observation (no batch axis) to session ``sid``.
+
+        ``deadline`` is an absolute ``perf_counter`` time; a request still
+        undispatched past it fails with ``DeadlineExceededError`` instead
+        of being served stale (None: no deadline).
+        """
         self.sid = sid
         self.obs = obs
         self.t_enqueue = time.perf_counter()
+        self.deadline = deadline
         self._event = threading.Event()
         self._result: Optional[ServeResult] = None
         self._error: Optional[BaseException] = None
+
+    def expired(self, now: Optional[float] = None) -> bool:
+        """True when a deadline is set and already past."""
+        if self.deadline is None:
+            return False
+        return (time.perf_counter() if now is None else now) > self.deadline
 
     def complete(self, action: np.ndarray, version: int, step: int,
                  t_done: float) -> None:
@@ -144,27 +169,52 @@ class Batcher:
     * ``max_wait_us`` — after the *oldest* queued request has waited this
       long, dispatch whatever is queued (0 = never wait for stragglers).
 
+    Overload policy: ``max_queue`` bounds the admission queue; a ``put``
+    against a full queue raises ``QueueFullError`` at once (load shedding
+    with backpressure) instead of growing the queue while latency
+    diverges.  0 (the default) keeps it unbounded.  Shed requests are
+    counted in ``rejected``.
+
     ``put`` is called from submitter threads, ``get_batch`` from the
     dispatcher; both are condition-variable synchronized.
     """
 
-    def __init__(self, max_batch: int, max_wait_us: int = 2000):
-        """See class docstring for the two knobs."""
+    def __init__(self, max_batch: int, max_wait_us: int = 2000,
+                 max_queue: int = 0):
+        """See class docstring for the three knobs."""
         if max_batch < 1:
             raise ValueError(f"max_batch must be >= 1, got {max_batch}")
         self.max_batch = int(max_batch)
         self.max_wait_s = max(int(max_wait_us), 0) * 1e-6
+        self.max_queue = int(max_queue)
         self._q: deque = deque()
         self._cond = threading.Condition()
         self._closed = False
+        self._rejected = 0
 
     def put(self, req: Request) -> None:
-        """Enqueue one request; raises ``RuntimeError`` after ``close``."""
+        """Enqueue one request.
+
+        Raises ``RuntimeError`` after ``close``, ``QueueFullError`` when
+        ``max_queue`` is set and the queue is at capacity.
+        """
         with self._cond:
             if self._closed:
                 raise RuntimeError("batcher is closed")
+            if 0 < self.max_queue <= len(self._q):
+                self._rejected += 1
+                raise QueueFullError(
+                    f"admission queue full ({len(self._q)}/"
+                    f"{self.max_queue}); request for session {req.sid} "
+                    f"shed -- retry with backoff")
             self._q.append(req)
             self._cond.notify_all()
+
+    @property
+    def rejected(self) -> int:
+        """Requests shed by the ``max_queue`` bound since construction."""
+        with self._cond:
+            return self._rejected
 
     @property
     def closed(self) -> bool:

@@ -13,6 +13,11 @@ ONE immutable actor-cache snapshot per dispatch:
   across two versions.
 * **Dispatch loop.**  One worker thread drains the ``Batcher`` admission
   queue and calls ``serve_batch``; each bucket is one fixed launch shape.
+* **Hardening.**  ``max_queue`` sheds load with ``QueueFullError``,
+  ``request_deadline_s`` fails a request still queued past its deadline
+  with ``DeadlineExceededError``, and ``fault_hook`` (the resilience
+  layer's ``serving_fault_hook``) runs before each dispatch: an exception
+  from it crashes the worker, which restarts and counts the crash.
 * **Device.**  The cache and every launch live on ``device``: ``None``
   means ``cuda`` (the kernels' path), and a server without CUDA raises.
   ``device="cpu"`` runs the plain versions (the tests).
@@ -33,11 +38,18 @@ from repro_torch.device import resolve_device
 from repro_torch.resilience import guards as _guards
 from repro_torch.rl import actorq, networks
 from repro_torch.rl.env import batched_env
-from repro_torch.serving.batcher import (Batcher, Request, pad_rows,
-                                         remove_padding, select_bucket)
+from repro_torch.serving.batcher import (Batcher, DeadlineExceededError,
+                                         Request, pad_rows, remove_padding,
+                                         select_bucket)
 from repro_torch.serving.session import SessionTable, StepCounter
 
 DEFAULT_BUCKETS = (8, 32, 128, 512)
+
+
+class WorkerCrashError(RuntimeError):
+    """Raised (by a fault hook or dispatch internals) to crash the worker
+    thread deliberately; the outer worker loop counts the crash and
+    restarts the dispatch body (``stats()['worker']``)."""
 
 
 def make_fp32_act_fn(env_spec) -> Callable:
@@ -117,6 +129,15 @@ class PolicyServer:
             push from the observations handed to ``push_params`` (MLP
             caches then serve through the fused kernel); 0 keeps the
             dynamic per-layer path.
+        max_queue: admission-queue bound; a ``submit`` against a full
+            queue raises ``batcher.QueueFullError`` (load shedding).
+            0 = unbounded.
+        request_deadline_s: per-request deadline; a request still
+            undispatched past it fails with ``DeadlineExceededError`` at
+            dispatch instead of being served stale.  0 = none.
+        fault_hook: optional ``hook(batch)`` run before each worker
+            dispatch (``resilience.ResilienceContext.serving_fault_hook``);
+            an exception from it crashes the worker, which restarts.
         device: where the cache lives and the kernels run; ``None`` is
             ``cuda``.
     """
@@ -124,7 +145,8 @@ class PolicyServer:
     def __init__(self, env_spec, *, actor_backend: str = "int8",
                  buckets: Sequence[int] = DEFAULT_BUCKETS,
                  max_wait_us: int = 2000, calib_batch: int = 0,
-                 device=None):
+                 max_queue: int = 0, request_deadline_s: float = 0.0,
+                 fault_hook: Optional[Callable] = None, device=None):
         """See class docstring."""
         actorq.validate_actor_backend(actor_backend)
         if not buckets or list(buckets) != sorted(set(int(b) for b in
@@ -137,6 +159,9 @@ class PolicyServer:
         self.buckets = tuple(int(b) for b in buckets)
         self.max_wait_us = int(max_wait_us)
         self.calib_batch = int(calib_batch)
+        self.max_queue = int(max_queue)
+        self.request_deadline_s = float(request_deadline_s)
+        self._fault_hook = fault_hook
         if actorq.is_quantized(actor_backend):
             self._step_fn = actorq.make_act_fn(env_spec)
         else:
@@ -153,14 +178,18 @@ class PolicyServer:
         self._bucket_counts: Dict[int, int] = {b: 0 for b in self.buckets}
         self._worker: Optional[threading.Thread] = None
         self._stop = threading.Event()
+        self._deadline_expired = 0
         self._dispatch_failures = 0
         self._consecutive_failures = 0
         self._last_error: Optional[str] = None
+        self._worker_crashes = 0
+        self._worker_restarts = 0
         self._wedged = 0
 
     def _make_batcher(self) -> Batcher:
         return Batcher(max_batch=self.buckets[-1],
-                       max_wait_us=self.max_wait_us)
+                       max_wait_us=self.max_wait_us,
+                       max_queue=self.max_queue)
 
     # -- cache registry / hot-swap -----------------------------------------
 
@@ -234,15 +263,18 @@ class PolicyServer:
         """Enqueue one observation (no batch axis) for session ``sid``;
         returns the ``Request`` whose ``result()`` blocks for the action.
 
-        Raises ``KeyError`` for unknown/closed sessions and ``ValueError``
-        on a shape mismatch.
+        Raises ``KeyError`` for unknown/closed sessions, ``ValueError`` on
+        a shape mismatch and ``batcher.QueueFullError`` when ``max_queue``
+        is set and the queue is full (the caller's backpressure signal).
         """
         self.sessions.checkout(sid)
         obs = np.asarray(obs, dtype=np.float32)
         if obs.shape != tuple(self.env_spec.obs_shape):
             raise ValueError(f"obs shape {obs.shape} != spec "
                              f"{tuple(self.env_spec.obs_shape)}")
-        req = Request(sid, obs)
+        deadline = (time.perf_counter() + self.request_deadline_s
+                    if self.request_deadline_s > 0 else None)
+        req = Request(sid, obs, deadline=deadline)
         self.batcher.put(req)
         return req
 
@@ -254,28 +286,44 @@ class PolicyServer:
     def serve_batch(self, requests: List[Request]) -> None:
         """Answer one admitted batch against a single cache snapshot.
 
-        Stacks the observations, pads to the selected bucket (repeat last
-        row), runs the act function once, unpads, and completes every
-        request with its action + the snapshot's version.
+        Fails the requests past their deadline first (the typed error now,
+        not a stale action later), then stacks the others' observations,
+        pads to the selected bucket (repeat last row), runs the act
+        function once, unpads, and completes every request with its action
+        + the snapshot's version.
         """
         entry = self._entry   # single snapshot read -- hot-swap safety
         if entry is None:
             raise RuntimeError("no actor cache: call push_params first")
+        live = requests
+        if any(r.deadline is not None for r in requests):
+            now = time.perf_counter()
+            live = []
+            for r in requests:
+                if r.expired(now):
+                    self._deadline_expired += 1
+                    r.fail(DeadlineExceededError(
+                        f"request for session {r.sid} expired "
+                        f"{now - r.deadline:.4f}s before dispatch"))
+                else:
+                    live.append(r)
+            if not live:
+                return
         try:
-            n = len(requests)
+            n = len(live)
             bucket = select_bucket(n, self.buckets)
-            obs = pad_rows(np.stack([r.obs for r in requests]), bucket)
+            obs = pad_rows(np.stack([r.obs for r in live]), bucket)
             actions = remove_padding(self._act(entry.cache, obs), n)
             step = self.steps.next()
             t_done = time.perf_counter()
             self._served += n
             self._padded += bucket - n
             self._bucket_counts[bucket] += 1
-            for r, a in zip(requests, actions):
+            for r, a in zip(live, actions):
                 self.sessions.on_step(r.sid, entry.version)
                 r.complete(a, entry.version, step, t_done)
         except Exception as e:              # fail waiters, don't hang them
-            for r in requests:
+            for r in live:
                 r.fail(e)
             raise
 
@@ -307,13 +355,22 @@ class PolicyServer:
 
         A failed dispatch has already failed its own requests, so the loop
         keeps serving, counting each failure and backing off (capped at
-        100 ms) on consecutive ones.
+        100 ms) on consecutive ones.  An exception from the fault hook
+        fails the batch and crashes the worker deliberately;
+        ``_worker_main`` counts it and restarts.
         """
         consecutive = 0
         while not self._stop.is_set():
             batch = self.batcher.get_batch(timeout=0.05)
             if not batch:
                 continue
+            if self._fault_hook is not None:
+                try:
+                    self._fault_hook(batch)
+                except BaseException as e:
+                    for r in batch:     # never leave waiters hanging
+                        r.fail(e)
+                    raise
             try:
                 self.serve_batch(batch)
                 consecutive = 0
@@ -326,6 +383,21 @@ class PolicyServer:
                 self._stop.wait(
                     min(0.001 * (2 ** min(consecutive, 7)), 0.1))
 
+    def _worker_main(self) -> None:
+        """Outer worker loop: restart a crashed dispatch body, counting
+        each crash and restart in ``stats()['worker']``; it never falls
+        back to another path."""
+        while not self._stop.is_set():
+            try:
+                self._run()
+                return                     # clean stop
+            except BaseException as e:
+                self._worker_crashes += 1
+                self._last_error = f"{type(e).__name__}: {e}"
+                if self._stop.is_set():
+                    return
+                self._worker_restarts += 1
+
     def start(self) -> "PolicyServer":
         """Start the background dispatch thread (idempotent; a stopped
         server restarts with a fresh admission queue)."""
@@ -333,7 +405,7 @@ class PolicyServer:
             if self.batcher.closed:
                 self.batcher = self._make_batcher()
             self._stop.clear()
-            self._worker = threading.Thread(target=self._run,
+            self._worker = threading.Thread(target=self._worker_main,
                                             name="policy-server",
                                             daemon=True)
             self._worker.start()
@@ -381,8 +453,11 @@ class PolicyServer:
     def stats(self) -> Dict[str, Any]:
         """Serving counters snapshot: ``served``, ``dispatches``,
         ``padding_rows``, ``bucket_counts``, ``version``, ``cache_nbytes``,
-        ``last_error``, the ``worker`` health sub-dict and the ``sessions``
-        counters."""
+        ``rejected`` (shed by ``max_queue``), ``deadline_expired``,
+        ``last_error`` (the newest dispatch or worker failure), the
+        ``worker`` health sub-dict (``dispatch_failures``,
+        ``consecutive_failures``, ``crashes``, ``restarts``, ``wedged``,
+        ``alive``) and the ``sessions`` counters."""
         entry = self._entry
         return {
             "served": self._served,
@@ -391,10 +466,14 @@ class PolicyServer:
             "bucket_counts": dict(self._bucket_counts),
             "version": -1 if entry is None else entry.version,
             "cache_nbytes": 0 if entry is None else entry.nbytes,
+            "rejected": self.batcher.rejected,
+            "deadline_expired": self._deadline_expired,
             "last_error": self._last_error,
             "worker": {
                 "dispatch_failures": self._dispatch_failures,
                 "consecutive_failures": self._consecutive_failures,
+                "crashes": self._worker_crashes,
+                "restarts": self._worker_restarts,
                 "wedged": self._wedged,
                 "alive": (self._worker is not None
                           and self._worker.is_alive()),

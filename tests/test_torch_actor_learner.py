@@ -36,6 +36,7 @@ from repro.rl.envs import make as jmake
 from repro.rl.networks import make_network as jmake_network
 from repro_torch.core import affine, ptq
 from repro_torch.kernels import ops
+from repro_torch.resilience import ResilienceContext
 from repro_torch.rl import actor_learner, actorq, common, dqn, loops
 from repro_torch.rl import buffer as rb
 from repro_torch.rl import networks
@@ -426,19 +427,23 @@ def test_async_rejects_invalid_configs():
 
 
 def test_unported_topology_options_raise():
-    """A mesh (item 14; for DDPG too, whose topologies are ported) and
-    the resilience hooks (item 11) still raise in the topologies;
-    checkpointing is ported, and its knobs are validated as the
-    reference's."""
+    """A mesh (item 14; for DDPG too, whose topologies are ported) still
+    raises in the topologies; the resilience hooks (item 11) are ported,
+    so a real context runs there as the reference's does; checkpointing
+    is ported, and its knobs are validated as the reference's."""
     kw = dict(iterations=2, device="cpu", num_actors=2)
     for topo in ("actor-learner", "async"):
         with pytest.raises(NotImplementedError, match="item 14"):
             loops.train("ddpg", "pendulum", topology=topo, mesh=object(),
                         **kw)
-        for extra, item in ((dict(mesh=object()), 14),
-                            (dict(resilience=object()), 11)):
-            with pytest.raises(NotImplementedError, match=f"item {item}"):
-                loops.train("dqn", "cartpole", topology=topo, **kw, **extra)
+        with pytest.raises(NotImplementedError, match="item 14"):
+            loops.train("dqn", "cartpole", topology=topo, mesh=object(),
+                        **kw)
+        ctx = ResilienceContext()
+        assert loops.train("dqn", "cartpole", topology=topo,
+                           algo_overrides=dict(SMALL_DQN), resilience=ctx,
+                           **kw).rewards
+        assert ctx.events == [] and ctx.quarantined == []
         for extra in (dict(resume=True), dict(checkpoint_every=3)):
             with pytest.raises(ValueError, match="needs checkpoint_dir"):
                 loops.train("dqn", "cartpole", topology=topo, **kw, **extra)

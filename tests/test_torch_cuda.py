@@ -1114,3 +1114,167 @@ def test_seq_train_resume_bitwise_on_card(cuda, tmp_path, topo):
     assert la[0].device.type == "cuda"
     assert (full.rewards, full.divergences, full.actor_lags) == (
         res.rewards, res.divergences, res.actor_lags)
+
+
+# ---------------------------------------------------------------------------
+# the self-healing runtime on the card (-k resilience)
+# ---------------------------------------------------------------------------
+
+RZ_SMALL = dict(n_envs=2, rollout_steps=2, updates_per_iter=2,
+                buffer_size=64, batch_size=8, warmup=8)
+RZ_MATRIX = {
+    "fused": ("5:actor_crash@2,straggler@3:delay_s=0.01,nan_grad@4,"
+              "bitflip_push@4,crash_commit@3,dropped_sync@2",
+              {"actor_crash", "straggler", "nan_grad", "bitflip_push",
+               "crash_commit"}, {"dropped_sync"}),
+    "async": ("9:actor_crash@2,straggler@3:delay_s=0.01,nan_grad@5,"
+              "bitflip_push@4,crash_commit@3,dropped_sync@6",
+              {"actor_crash", "straggler", "nan_grad", "bitflip_push",
+               "crash_commit", "dropped_sync"}, set()),
+}
+
+
+def _rz_kwargs(topo, *, iterations=6, ckpt_dir=None, ckpt_every=3, **kw):
+    """``tests/test_resilience.py``'s ``_kwargs``, on the card."""
+    multi = topo != "fused"
+    out = dict(algo="dqn", env_name="cartpole", iterations=iterations,
+               seed=3, record_every=3, eval_episodes=2,
+               actor_backend="int8", algo_overrides=dict(RZ_SMALL),
+               net_kwargs=dict(hidden=(16,)), topology=topo,
+               num_actors=2 if multi else 1,
+               sync_every=2 if multi else 1, checkpoint_dir=ckpt_dir,
+               checkpoint_every=ckpt_every if ckpt_dir else 0)
+    out.update(kw)
+    return out
+
+
+def _rz_same_params(a, b) -> bool:
+    la = ptq.tree_flatten(a.state.params)[1]
+    lb = ptq.tree_flatten(b.state.params)[1]
+    return la[0].device.type == "cuda" and all(
+        torch.equal(x, y) for x, y in zip(la, lb))
+
+
+@pytest.mark.parametrize("topo", sorted(RZ_MATRIX))
+def test_resilience_chaos_matrix_on_card(cuda, tmp_path, topo):
+    """The reference's chaos matrix on the card: every planned fault
+    fires, or is recorded not applicable, as in the reference, and the
+    supervised run recovers with shard 0 quarantined."""
+    from repro_torch import resilience as rz
+    spec, fired, na = RZ_MATRIX[topo]
+    plan = rz.FaultPlan.parse(spec)
+    res, rep = rz.supervise(
+        _rz_kwargs(topo, iterations=8, ckpt_dir=str(tmp_path),
+                   ckpt_every=2),
+        plan=plan, config=rz.SupervisorConfig(max_retries=4))
+    assert rep.status == "ok" and rep.quarantined == [0]
+    assert {k for k, _, _ in rep.faults_fired} == fired
+    assert {k for k, _, _ in rep.faults_not_applicable} == na
+    assert len(rep.faults_fired) + len(rep.faults_not_applicable) \
+        == len(plan.faults)
+    assert all(np.isfinite(r) for r in res.rewards)
+
+
+def test_resilience_retry_bitwise_on_card(cuda, tmp_path):
+    """A run retried after a NaN is bitwise its clean run on the card."""
+    from repro_torch import resilience as rz
+    ref = loops.train(**_rz_kwargs("fused"))
+    res, rep = rz.supervise(
+        _rz_kwargs("fused", ckpt_dir=str(tmp_path), ckpt_every=3),
+        plan=rz.FaultPlan.parse("5:nan_grad@4"))
+    assert rep.retries == 1 and rep.rollbacks == 0
+    assert _rz_same_params(ref, res) and ref.rewards == res.rewards
+
+
+@pytest.mark.parametrize("backend,calib", [("int8", 0), ("int4", 32)])
+def test_resilience_guarded_async_push_on_card(cuda, backend, calib):
+    """The guarded async push under its two streams: a bit flipped in a
+    snapshot minted on the learner's stream is caught by the CRC and the
+    push is minted again, so the run is the bare run bit for bit (a CRC
+    reading a half-written snapshot would raise a false IntegrityError or
+    let a corrupt one through)."""
+    from repro_torch import resilience as rz
+    kw = _rz_kwargs("async", iterations=8, actor_backend=backend,
+                    calib_batch=calib, num_actors=2, sync_every=2)
+    bare = loops.train(**kw)
+    inj = rz.FaultInjector(rz.FaultPlan.parse("4:bitflip_push@3:nbits=4"))
+    ctx = rz.ResilienceContext(inj)
+    guarded = loops.train(**kw, resilience=ctx)
+    assert [k for k, _, _ in inj.fired] == ["bitflip_push"]
+    assert [e[0] for e in ctx.events] == ["bitflip_push", "push_retry"]
+    assert _rz_same_params(bare, guarded)
+    assert (bare.rewards, bare.divergences, bare.actor_lags) == (
+        guarded.rewards, guarded.divergences, guarded.actor_lags)
+
+
+def test_resilience_check_finite_one_host_sync_on_card(cuda):
+    """``check_finite`` over a learner's params makes one host sync,
+    whatever the number of leaves (counted under
+    ``set_sync_debug_mode("warn")``); ``all_finite`` makes none."""
+    import warnings
+
+    from repro_torch.resilience import guards
+    params = networks.init_mlp(networks.mlp_spec(4, (64, 64, 64), 2),
+                               torch.Generator().manual_seed(0), cuda)
+    assert len(list(ptq.tree_tensors(params))) == 8
+    guards.check_finite(params)                    # warm
+    torch.cuda.synchronize()
+    for fn, want in ((guards.all_finite, 0), (guards.check_finite, 1)):
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn(params)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs = [w for w in seen if "synchroniz" in str(w.message)]
+        assert len(syncs) == want, [str(w.message) for w in seen]
+
+
+def test_resilience_server_worker_restart_on_card(cuda):
+    """A worker crash through ``serving_fault_hook`` restarts the worker
+    on the card: the crashed batch fails with the typed error and later
+    requests are answered through kernel B1."""
+    from repro_torch.resilience import faults
+    from repro_torch.serving import PolicyServer
+    env = make("cartpole")
+    params = networks.init_mlp(networks.mlp_spec(4, (64, 64), 2),
+                               torch.Generator().manual_seed(0), cuda)
+    ctx = faults.ResilienceContext(faults.FaultInjector(
+        faults.FaultPlan.parse("5:actor_crash@1")))
+    srv = PolicyServer(env.spec, actor_backend="int8", buckets=(8,),
+                       max_wait_us=200, fault_hook=ctx.serving_fault_hook(),
+                       device="cuda")
+    srv.push_params(params)
+    obs = np.zeros(4, np.float32)
+    sid = srv.open_session()
+    before = int8_matmul.launches.value
+    with srv:
+        assert srv.submit(sid, obs).result(timeout=60) is not None
+        with pytest.raises(faults.ActorCrashError):
+            srv.submit(sid, obs).result(timeout=60)
+        assert srv.submit(sid, obs).result(timeout=60) is not None
+    stats = srv.stats()
+    assert stats["worker"]["crashes"] == 1 == stats["worker"]["restarts"]
+    assert stats["served"] == 2 and "ActorCrashError" in stats["last_error"]
+    assert int8_matmul.launches.value - before == 2 * 3
+
+
+def test_resilience_supervised_convergence_on_card(cuda, tmp_path):
+    """``tests/test_resilience.py``'s convergence case at full width on
+    the card: DQN on CartPole (4-64-64-2), actor-learner with 2 actors, 60
+    iterations, four faults; params and last reward bitwise the clean
+    run's."""
+    from repro_torch import resilience as rz
+    plan = rz.FaultPlan.parse(
+        "11:actor_crash@5,nan_grad@10,bitflip_push@15,crash_commit@12")
+    kw = dict(algo="dqn", env_name="cartpole", iterations=60, seed=0,
+              record_every=20, eval_episodes=4, actor_backend="int8",
+              topology="actor-learner", num_actors=2, sync_every=2,
+              checkpoint_dir=str(tmp_path), checkpoint_every=5)
+    ref = loops.train(**{k: v for k, v in kw.items()
+                         if not k.startswith("checkpoint")})
+    res, rep = rz.supervise(kw, plan=plan)
+    assert rep.status == "ok" and len(rep.faults_fired) == 4
+    assert _rz_same_params(ref, res)
+    assert res.rewards[-1] == ref.rewards[-1]

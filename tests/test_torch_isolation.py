@@ -37,7 +37,7 @@ def test_scan_sees_the_port():
             "transformer.py", "serve.py", "base.py", "h2o_danube_1_8b.py",
             "gemma2_9b.py", "quarl_atari.py", "mountaincar.py",
             "pendulum.py", "ddpg.py", "ppo.py", "a2c.py", "ckpt.py",
-            "manager.py"} <= names
+            "manager.py", "guards.py", "faults.py", "supervisor.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -60,7 +60,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.configs.quarl_atari, "
             "repro_torch.rl.envs.mountaincar, repro_torch.rl.envs.pendulum, "
             "repro_torch.rl.ddpg, repro_torch.rl.ppo, repro_torch.rl.a2c, "
-            "repro_torch.checkpoint\n"
+            "repro_torch.checkpoint, repro_torch.resilience, "
+            "repro_torch.resilience.faults, "
+            "repro_torch.resilience.supervisor\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
@@ -91,6 +93,37 @@ def test_checkpoint_uses_no_jax_msgpack_or_pickle():
                    timeout=120)
 
 
+def test_resilience_uses_no_jax_msgpack_or_pickle():
+    """``repro_torch.resilience`` keeps its own copy of the reference's
+    plan parsing and guards: neither it nor the serve launcher imports
+    ``jax``, ``msgpack``, ``pickle`` or anything of ``repro``, and running
+    the launcher's ``--rl-env`` path with the supervisor layer loaded
+    brings in no ``jax``, ``msgpack`` or ``repro`` module (``torch``
+    itself loads ``pickle``)."""
+    files = sorted((ROOT / "src" / "repro_torch" / "resilience").glob(
+        "*.py"))
+    assert {p.name for p in files} == {"__init__.py", "guards.py",
+                                       "faults.py", "supervisor.py"}
+    for path in files + [ROOT / "src" / "repro_torch" / "launch" /
+                         "serve.py"]:
+        mods = {m.split(".")[0] for m in _imported_modules(path)}
+        assert not mods & {"jax", "jaxlib", "msgpack", "pickle", "repro"}
+    code = ("import sys\n"
+            "from repro_torch import resilience\n"
+            "from repro_torch.launch import serve\n"
+            "resilience.supervise, resilience.SupervisorAbort\n"
+            "args = serve.parse_args(['--rl-env', 'cartpole', '--device', "
+            "'cpu', '--rl-iters', '1', '--serve-sessions', '2', "
+            "'--serve-steps', '1'])\n"
+            "serve.serve_policy(args, *serve.train_policy(args))\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'msgpack', 'repro'))\n"
+            "assert not bad, bad\n")
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    subprocess.run([sys.executable, "-c", code], check=True, env=env,
+                   timeout=120)
+
+
 def _entry_points():
     import numpy as np
     import torch
@@ -99,6 +132,7 @@ def _entry_points():
     from repro_torch.launch import serve as launch_serve
     from repro_torch.launch import train as launch_train
     from repro_torch.models import transformer
+    from repro_torch.resilience import supervise
     from repro_torch.rl import actorq, buffer, ddpg, dqn, loops, networks, ppo
     from repro_torch.rl.env import batched_env
     from repro_torch.rl.envs import make
@@ -161,6 +195,11 @@ def _entry_points():
         "launch_serve": lambda: launch_serve.main(
             ["--reduced", "--batch", "1", "--prompt-len", "2",
              "--new-tokens", "1"]),
+        "launch_serve_rl": lambda: launch_serve.main(
+            ["--rl-env", "cartpole", "--rl-iters", "1", "--serve-sessions",
+             "2", "--serve-steps", "1"]),
+        "supervise": lambda: supervise(dict(
+            algo="dqn", env_name="cartpole", iterations=1))[0].device,
     }
 
 
@@ -178,7 +217,8 @@ def _entry_points():
                                   "ppo_train", "a2c_train",
                                   "transformer_init_params",
                                   "transformer_init_caches",
-                                  "launch_serve"])
+                                  "launch_serve", "launch_serve_rl",
+                                  "supervise"])
 def test_entry_points_default_to_the_card(name):
     """``device=None`` means ``cuda``: it lands there with a card and
     raises without one, never falling back to the CPU."""

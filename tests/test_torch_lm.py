@@ -109,8 +109,10 @@ def test_unported_configs_and_kinds_raise():
     qat = dataclasses.replace(cfg, quant=QuantConfig.qat(8))
     with pytest.raises(NotImplementedError, match="item 13"):
         transformer.forward(qat, params, torch.zeros(1, 4, dtype=torch.long))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        serve.main(["--rl-env", "cartpole", "--device", "cpu"])
+    # --rl-env (item 10) is ported: the launcher trains and serves
+    assert serve.main(["--rl-env", "cartpole", "--rl-iters", "1",
+                       "--serve-sessions", "2", "--serve-steps", "1",
+                       "--device", "cpu"]) == 0
 
 
 def _spec_shapes(tree, leaf):

@@ -41,6 +41,7 @@ from repro_torch.core import fake_quant, ptq
 from repro_torch.core.qconfig import QuantConfig
 from repro_torch.launch import train as launch_train
 from repro_torch.optim import adam
+from repro_torch.resilience import ResilienceContext
 from repro_torch.rl import buffer as rb
 from repro_torch.rl import common, dqn, loops, networks
 from repro_torch.rl.envs import make
@@ -401,10 +402,14 @@ def test_unported_options_raise():
     # the topologies and prioritized replay are ported (item 7); a mesh
     # over the actor axis is not (item 14), and fused-only knobs given to
     # the fused driver are refused as in the reference
-    for extra, item in ((dict(topology="async", mesh=object()), 14),
-                        (dict(resilience=object()), 11)):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            loops.train("dqn", "cartpole", **kw, **extra)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        loops.train("dqn", "cartpole", topology="async", mesh=object(),
+                    **kw)
+    # the resilience hooks are ported (item 11): a real context runs, as
+    # the reference's, and its guards see nothing to report
+    ctx = ResilienceContext()
+    assert loops.train("dqn", "cartpole", resilience=ctx, **kw).rewards
+    assert ctx.events == [] and ctx.quarantined == []
     # checkpointing is ported: its knobs are validated as the reference's
     for extra in (dict(resume=True), dict(checkpoint_every=5)):
         with pytest.raises(ValueError, match="needs checkpoint_dir"):
@@ -440,11 +445,15 @@ def test_launch_train_rl_on_cpu(capsys):
     assert launch_train.main(argv) == 0
     out = capsys.readouterr().out
     assert "quant=qat8" in out and "device=cpu" in out
-    for bad, item in ((["--mode", "lm"], 13),
-                      (["--fault-plan", "1:straggler@1"], 11),
-                      (["--supervised"], 11)):
-        with pytest.raises(NotImplementedError, match=f"item {item}"):
-            launch_train.main(argv + bad)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        launch_train.main(argv + ["--mode", "lm"])
+    # the supervisor is ported (item 11): both flags run and report
+    for extra, fired in ((["--fault-plan", "1:straggler@1:delay_s=0.001"],
+                          True), (["--supervised"], False)):
+        assert launch_train.main(argv + extra) == 0
+        out = capsys.readouterr().out
+        assert "supervisor: ok after 1 attempt(s)" in out
+        assert ("faults fired: straggler@1" in out) == fired
     # the checkpoint flags are ported: a resume needs a directory
     with pytest.raises(ValueError, match="needs checkpoint_dir"):
         launch_train.main(argv + ["--resume"])
