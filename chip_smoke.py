@@ -107,6 +107,17 @@ cache in place) and times both, then drives the port's four paths:
   profiled, then greedy decoding through
   ``repro_torch.launch.serve.main`` with an fp32 cache, an int8 cache
   (kernel B3) and PTQ int8 weights (kernel B5);
+* the MoE and recurrent families -- recurrentgemma-2b at full width and
+  depth (RG-LRU blocks and multi-query local attention) and mixtral-8x7b
+  at full width and depth 2 (top-2 of 8 experts, GQA local attention)
+  prefill 8,192 tokens (B4 once an attention layer), xlstm-125m 1,024;
+  each one's 64-token logits held against the port's CPU path (mixtral's
+  router choices compared) and its token-by-token decode against its
+  forward with float32 caches and against the float32 steps with int8
+  caches (B3); a recurrentgemma decode step past its 2,048-slot rings
+  held to the step through B3's plain version; then
+  ``launch.serve.main`` for recurrentgemma (fp32, int8 cache, PTQ int8)
+  and xlstm (fp32, PTQ int8) with exact B3 / B5 counts;
 
 and checks that each path really launched its kernels.  Any failed check
 raises.  The last line of standard output is
@@ -116,7 +127,8 @@ raises.  The last line of standard output is
 the line before it the card's name and power limit, and the one before
 that a JSON object listing every ported kernel with its launches on the
 path it serves (serving for B1 and B2, the sequence-actor rollouts for
-B3, the QAT training run for B5, the LM prefill for B4), its largest
+B3, the QAT training run for B5, the LM prefill for B4; then B3 and B4
+again at the families' shapes, with the families' launches), its largest
 difference from the plain
 version and its times.  All rows are also written to
 ``chiprun_out/chip_smoke.json``.  Without CUDA, or outside the repository,
@@ -124,6 +136,7 @@ it exits with code 2 and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import importlib.util
 import json
 import os
@@ -269,7 +282,15 @@ FLASH_ROWS = (
     ("gemma2 global", 1, 16, 8, 8192, 8192, 256, True, None, 50.0),
     ("whisper encoder", 1, 6, 6, 1500, 1500, 64, False, None, None),
     ("end-aligned", 1, 32, 8, 8, 4096, 80, True, None, None),
-    ("ragged", 1, 32, 8, 1000, 1000, 80, True, None, None))
+    ("ragged", 1, 32, 8, 1000, 1000, 80, True, None, None),
+    # the families' prefill layers (recurrentgemma's MQA, 10 query heads
+    # on one KV head at D 256; mixtral's GQA 32/8 at D 128, padded to the
+    # 256 block) and the attention shapes of stablelm (D 160, padded) and
+    # codeqwen (MHA at D 128), whose full prefill is not run
+    ("recurrentgemma prefill", 1, 10, 1, 8192, 8192, 256, True, 2048, None),
+    ("mixtral prefill", 1, 32, 8, 8192, 8192, 128, True, 4096, None),
+    ("stablelm attention", 1, 32, 8, 4096, 4096, 160, True, None, None),
+    ("codeqwen attention", 1, 32, 32, 4096, 4096, 128, True, None, None))
 FLASH_ATOL = 1e-5                 # docs/contracts.md, "Attention parity"
 # B3 at the shapes of its paths: (label, NB, NH, G, T, Dh, window, pos,
 # layout).  "rows" is the sequence actor's (R, T, Dh) cache, R = NB * NH;
@@ -286,13 +307,55 @@ CACHE_ROWS = (
     ("catch_seq train 2 actors", 1, 16, 1, 8, 32, 6, "ragged", "rows"),
     ("long", 1, 8, 4, 4096, 128, None, "last", "rows"),
     ("danube decode", 4, 8, 4, 4096, 80, None, "last", "lm"),
-    ("danube serve", 4, 8, 4, 64, 80, None, "ragged", "lm"))
+    ("danube serve", 4, 8, 4, 64, 80, None, "ragged", "lm"),
+    # the families' decode shapes: recurrentgemma's G 10 (B3's 16-lane
+    # instance) at Dh 256 over its 2,048-slot ring and the serve default's
+    # 64 slots, mixtral's G 4 / Dh 128 ring, stablelm's Dh 160 and
+    # codeqwen's G 1 at 4,096 slots
+    ("recurrentgemma decode", 4, 1, 10, 2048, 256, None, "last", "lm"),
+    ("recurrentgemma serve", 4, 1, 10, 64, 256, None, "ragged", "lm"),
+    ("mixtral decode", 4, 8, 4, 4096, 128, None, "last", "lm"),
+    # the families phase's teacher-forced mixtral steps: one sequence
+    # over the 64-slot cache
+    ("mixtral parity decode", 1, 8, 4, 64, 128, None, "last", "lm"),
+    ("stablelm decode", 4, 8, 4, 4096, 160, None, "last", "lm"),
+    ("codeqwen decode", 4, 32, 1, 4096, 128, None, "last", "lm"))
 CACHE_ATOL = 1e-5                 # docs/contracts.md, "Attention parity"
 # the LM decode step at a long context: batch 4 over a full 4,096-slot
 # ring (danube's window), its logits held to the same step through B3's
 # plain version
 LM_LONG = (4, 4096)
 LM_LONG_ATOL = 1e-3
+# the families phase: recurrentgemma-2b at full width and depth
+# (src/repro/configs/recurrentgemma_2b.py), mixtral-8x7b at full width
+# and depth 2 (its 32 layers are 187 GB of float32; 2 are 12.7 GB), and
+# xlstm-125m at full size, random weights from SEED.  Prefill of 8,192
+# tokens (recurrentgemma: four 2,048 windows, B4 on its 8 attention
+# layers; mixtral: 16 MoE groups of 512, B4 on both layers), 64-token
+# logits against the CPU path and against token-by-token decode, a
+# decode step past recurrentgemma's 2,048-slot rings, 64 teacher-forced
+# mixtral decode steps, and the serve launcher
+FAMILY_RG, FAMILY_MOE, FAMILY_XLSTM = ("recurrentgemma-2b", "mixtral-8x7b",
+                                       "xlstm-125m")
+FAMILY_MOE_DEPTH = 2
+FAMILY_PREFILL = (1, 8192)
+FAMILY_XLSTM_PREFILL = (1, 1024)  # a sequential loop over time: kept short
+# mixtral: tokens whose top-2 set may differ between two runs (the card
+# and the CPU, or B3 and its plain version) through a near-tie in the
+# router; the second run takes the first run's choices, so every token's
+# logits are held all the same
+FAMILY_FLIP_MAX = 2
+# recurrentgemma's decode step past its rings: batch 4 at position
+# 2,048 + 37, so every ring has wrapped and the step writes slot 37
+FAMILY_WRAP = (4, 2048, 2048 + 37)
+# the int8-cache decode against the float32 one: the reference's contract
+# (tests/test_arch_smoke.py:188-207)
+FAMILY_INT8_CORR = 0.99
+FAMILY_SERVE_RUNS = (
+    (FAMILY_RG, "fp32 cache", []), (FAMILY_RG, "int8 cache", ["--int8-cache"]),
+    (FAMILY_RG, "ptq_int8", ["--quant", "ptq_int8"]),
+    (FAMILY_XLSTM, "fp32 cache", []),
+    (FAMILY_XLSTM, "ptq_int8", ["--quant", "ptq_int8"]))
 # the conv phase: the paper's Atari conv actor (Appendix B; Policies A/B/C
 # of Table 10, src/repro/configs/quarl_atari.py:29-32, the port's copy in
 # src/repro_torch/configs/quarl_atari.py) on pixel Catch (10x10x1, 3
@@ -379,7 +442,7 @@ SMALL_DDPG = dict(n_envs=4, rollout_steps=4, updates_per_iter=2,
                   buffer_size=512, batch_size=16, warmup=8)
 # DDPG at Policy II's widths (Table 5): iterations each, in chunks taken
 # in turns
-ALGO_WIDE_ITERS, ALGO_WIDE_CHUNK = 20, 5   # cut from 40, 10 for time
+ALGO_WIDE_ITERS, ALGO_WIDE_CHUNK = 10, 5   # cut from 40, 10, then 20, 5
 # the launcher's default run (PPO on CartPole), these of its default 200
 # iterations, for time
 ALGO_LAUNCH_ITERS = 40
@@ -405,7 +468,7 @@ SEQ_QAT_ITERS, SEQ_QAT_DELAY = 30, 40
 SEQ_TIME_RUNS = (("fp32", {}), ("int8", dict(actor_backend="int8")),
                  ("int4", dict(actor_backend="int4")),
                  ("qat8", dict(qat_delay=SEQ_QAT_DELAY)))
-SEQ_TIME_ITERS, SEQ_TIME_CHUNK = 10, 5     # cut from 20, 10 for time
+SEQ_TIME_ITERS, SEQ_TIME_CHUNK = 6, 3      # cut from 20, 10, then 10, 5
 # the resume phase: tests/test_resume.py:31-99 at its small config (Catch
 # with hidden=(16,) is the default conv net), each case trained to
 # RESUME_AT with checkpoints, resumed to RESUME_TO, and held bitwise to the
@@ -494,7 +557,7 @@ def bound(nbytes: float, ops: float, ops_per_s: float = INT8_OPS_PER_S):
                                        else "operations")
 
 
-def device_ms(torch, fn, reps: int = 15, per_rep: int = 10) -> float:
+def device_ms(torch, fn, reps: int = 10, per_rep: int = 10) -> float:
     """Median device time of one call of ``fn`` (ms), by CUDA events.
 
     Each rep first parks the stream on a sleep kernel so the host can
@@ -1876,8 +1939,8 @@ def conv_phase(torch, dev, smi, counters) -> dict:
                           f"{float(diff.max())} (argmax equal on "
                           f"{int(agree.sum())} of {n_envs})")
                     del tree
-                prof = profile_calls(torch, fwd, n=5)
-                row.update(device_ms=device_ms(torch, fwd, reps=10,
+                prof = profile_calls(torch, fwd, n=3)
+                row.update(device_ms=device_ms(torch, fwd, reps=5,
                                                per_rep=5),
                            host_ms=prof["host_ms_per_call"],
                            profiled_device_ms=prof["device_ms_per_call"],
@@ -2029,7 +2092,7 @@ def conv_phase(torch, dev, smi, counters) -> dict:
     gen = torch.Generator(device=dev).manual_seed(SEED + 83)
     for label, m, k, n, bits in b1_seen:
         rows["b1"].append(b1_row(torch, dev, gen, label, m, k, n, bits,
-                                 reps=10))
+                                 reps=6))
         print("conv kernel " + json.dumps(rows["b1"][-1]))
     part_done("b1_rows")
     print("conv phase parts " + json.dumps(rows["seconds"]))
@@ -3026,13 +3089,8 @@ def lm_phase(torch, dev, smi, counters) -> dict:
     context (``decode_long``); then ``launch.serve.main`` three ways (fp32
     cache, int8 cache through B3, PTQ int8 weights through B5), each with
     every count set to 0 just before it and read just after."""
-    import contextlib
-    import io
-    import re
-
     from repro_torch.configs import base as cfgs
     from repro_torch.core import ptq
-    from repro_torch.launch import serve
     from repro_torch.models import transformer
 
     cfg = cfgs.get_reduced(LM_ARCH) if LM_REDUCED else cfgs.get(LM_ARCH)
@@ -3129,52 +3187,342 @@ def lm_phase(torch, dev, smi, counters) -> dict:
     n_weights = _spec_weights(transformer.param_specs(cfg))
     check(LM_REDUCED or n_weights == 11,
           f"danube has 11 weight leaves for PTQ, counted {n_weights}")
-    steps = sum(int(LM_SERVE_ARGS[LM_SERVE_ARGS.index(f) + 1])
-                for f in ("--prompt-len", "--new-tokens")) - 1
-    rows["serve"] = []
-    for label, extra in LM_SERVE_RUNS:
-        argv = LM_SERVE_ARGS + (["--reduced"] if LM_REDUCED else []) + extra
-        for c in counters.values():
-            c.reset()
-        buf = io.StringIO()
-        t = time.perf_counter()
-        with contextlib.redirect_stdout(buf):
-            rc = serve.main(argv)
-        wall = time.perf_counter() - t
-        out = buf.getvalue()
-        print(out, end="")
-        n = {k: c.value for k, c in counters.items()}
-        want = {k: 0 for k in counters}
-        if "--int8-cache" in extra:
-            want["int8_cache_attention"] = cfg.n_layers * steps
-        if "--quant" in extra:
-            want["fake_quant"] = n_weights
-        check(rc == 0, f"serve {label}: exit {rc}")
-        check(n == want, f"serve {label}: launches {n}, want {want}")
-        m = re.search(r"in ([\d.]+)s \(([\d.]+) tok/s on (.+)\)", out)
-        check(m is not None and m.group(3) == torch.cuda.get_device_name(0),
-              f"serve {label}: printed its rate on the card ({out!r})")
-        first = re.search(r"first sequence: \[(.*)\]", out).group(1)
-        row = dict(run=label, argv=argv, decode_s=float(m.group(1)),
-                   tokens_per_s=float(m.group(2)), main_wall_s=wall,
-                   launches=n, first_sequence=first, card=smi)
-        rows["serve"].append(row)
-        print("lm serve " + json.dumps(row))
+    rows["serve"] = [lm_serve(torch, counters, smi, LM_SERVE_ARGS + (
+        ["--reduced"] if LM_REDUCED else []) + extra, label, cfg)
+        for label, extra in LM_SERVE_RUNS]
     return rows
 
 
-def long_caches(torch, dev, cfg, batch: int, size: int):
-    """Full decode caches of ``size`` slots, every slot written: seeded
-    int8 codes and scales, and the float32 cache holding the same K and V
-    (codes times scales).  Returns ``(int8 caches, float32 caches)``."""
+def lm_serve(torch, counters, smi, argv, label, cfg) -> dict:
+    """``launch.serve.main(argv)`` with every count set to 0 just before
+    and read just after: B3 once an attention layer a step with
+    ``--int8-cache``, B5 once a per-tensor weight leaf with ``--quant``,
+    nothing else; the rate printed on the card."""
+    import contextlib
+    import io
+    import re
+
+    from repro_torch.launch import serve
     from repro_torch.models import transformer
+    steps = sum(int(argv[argv.index(f) + 1])
+                for f in ("--prompt-len", "--new-tokens")) - 1
+    for c in counters.values():
+        c.reset()
+    buf = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = serve.main(argv)
+    wall = time.perf_counter() - t
+    out = buf.getvalue()
+    print(out, end="")
+    n = {k: c.value for k, c in counters.items()}
+    want = {k: 0 for k in counters}
+    if "--int8-cache" in argv:
+        want["int8_cache_attention"] = attention_layers(cfg) * steps
+    if "--quant" in argv:
+        want["fake_quant"] = _spec_weights(transformer.param_specs(cfg))
+    check(rc == 0, f"serve {cfg.name} {label}: exit {rc}")
+    check(n == want, f"serve {cfg.name} {label}: launches {n}, want {want}")
+    m = re.search(r"in ([\d.]+)s \(([\d.]+) tok/s on (.+)\)", out)
+    check(m is not None and m.group(3) == torch.cuda.get_device_name(0),
+          f"serve {cfg.name} {label}: printed its rate on the card "
+          f"({out!r})")
+    first = re.search(r"first sequence: \[(.*)\]", out).group(1)
+    row = dict(arch=cfg.name, run=label, argv=argv,
+               decode_s=float(m.group(1)), tokens_per_s=float(m.group(2)),
+               main_wall_s=wall, launches=n, first_sequence=first,
+               card=smi)
+    print("lm serve " + json.dumps(row))
+    return row
+
+
+def attention_layers(cfg) -> int:
+    """The attention layers of ``cfg``: B4 once each in a prefill, B3 once
+    each in an int8-cache decode step."""
+    kinds = list(cfg.pattern) * cfg.pattern_repeats \
+        + list(cfg.pattern_remainder)
+    return sum(k in ("attn", "attn_local", "moe", "moe_local")
+               for k in kinds)
+
+
+def families_phase(torch, dev, smi, counters) -> dict:
+    """The MoE, RG-LRU and xLSTM decoders at full width.
+
+    recurrentgemma-2b (full depth): ``transformer.prefill`` of
+    ``FAMILY_PREFILL`` tokens (B4 once an attention layer, counted, timed
+    and profiled), the 64-token logits against the CPU path and against
+    64 token-by-token decode steps (float32 and int8 caches, B3 counted),
+    one decode step past the 2,048-slot rings (``FAMILY_WRAP``, held to
+    the step through B3's plain version), then ``launch.serve.main``
+    three ways.  mixtral-8x7b at depth ``FAMILY_MOE_DEPTH``: the same
+    prefill and parity checks, the router's top-2 choices compared
+    between the card and the CPU.  xlstm-125m (full size): a
+    ``FAMILY_XLSTM_PREFILL`` prefill, the parity checks and the serve
+    launcher, fp32 and PTQ int8.  Every count is set to 0 just before
+    each run and read just after."""
+    import dataclasses
+
+    from repro_torch.configs import base as cfgs
+    from repro_torch.models import transformer
+    rows = {}
+    for arch in (FAMILY_RG, FAMILY_MOE, FAMILY_XLSTM):
+        cfg = cfgs.get(arch)
+        if arch == FAMILY_MOE:
+            cfg = dataclasses.replace(cfg, n_layers=FAMILY_MOE_DEPTH)
+        t = time.perf_counter()
+        params = transformer.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+        torch.cuda.synchronize()
+        row = dict(init_card_s=time.perf_counter() - t)
+        shape = FAMILY_XLSTM_PREFILL if arch == FAMILY_XLSTM \
+            else FAMILY_PREFILL
+        row["prefill"] = family_prefill(torch, dev, smi, counters, cfg,
+                                        params, shape,
+                                        profile=arch != FAMILY_XLSTM)
+        row["parity"] = family_parity(torch, dev, smi, counters, cfg, params)
+        if arch == FAMILY_RG:
+            row["decode_wrap"] = decode_long(torch, dev, cfg, params,
+                                             counters, smi,
+                                             shape=FAMILY_WRAP)
+        del params
+        torch.cuda.empty_cache()
+        row["serve"] = [
+            lm_serve(torch, counters, smi, LM_SERVE_ARGS[2:] + [
+                "--arch", a] + extra, label, cfg)
+            for a, label, extra in FAMILY_SERVE_RUNS if a == arch]
+        rows[arch] = row
+    return rows
+
+
+def family_prefill(torch, dev, smi, counters, cfg, params, shape,
+                   profile: bool) -> dict:
+    """``transformer.prefill`` of ``shape = (batch, tokens)`` seeded
+    tokens: B4 once an attention layer and nothing else, finite logits;
+    with ``profile``, timed twice more (the first call apart) and
+    profiled once, else the first call's time stands (xlstm's loop over
+    time, no kernel of the port's to warm)."""
+    from repro_torch.models import transformer
+    b, s = shape
+    tokens = torch.randint(0, cfg.vocab, (b, s), generator=torch.Generator(
+        ).manual_seed(SEED + 40)).to(dev)
+
+    def prefill():
+        return transformer.prefill(cfg, params, tokens)
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.reset()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    logits = prefill()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t
+    n = {k: c.value for k, c in counters.items()}
+    want = {k: 0 for k in counters}
+    want["flash_attention"] = attention_layers(cfg)
+    check(n == want, f"{cfg.name} prefill launches {n}, want {want}")
+    check(tuple(logits.shape) == (b, 1, cfg.vocab)
+          and bool(torch.isfinite(logits).all()),
+          f"{cfg.name} prefill logits {tuple(logits.shape)} finite")
+    walls = [] if profile else [first_s]
+    for _ in range(2 if profile else 0):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        prefill()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    row = dict(arch=cfg.name, n_layers=cfg.n_layers, batch=b, tokens=s,
+               params=sum(x.numel() for x in _cache_tensors(params)),
+               first_s=first_s, wall_s=walls,
+               tokens_per_s=[b * s / w for w in walls],
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9, launches=n,
+               profile=profile_calls(torch, prefill, n=1) if profile
+               else None, card=smi)
+    print("families prefill " + json.dumps(row))
+    return row
+
+
+def family_parity(torch, dev, smi, counters, cfg, params) -> dict:
+    """On ``LM_SHORT`` seeded tokens: the card's forward logits against
+    the port's CPU path on the same params within ``LM_CPU_ATOL`` (a MoE
+    config's router choices recorded on both: at most ``FAMILY_FLIP_MAX``
+    tokens whose top-k set differs, and the tokens before the first held);
+    then ``LM_SHORT`` teacher-forced decode steps on the card with float32
+    caches against the forward within ``LM_DECODE_ATOL`` (MoE at capacity
+    factor 4, as the reference's contract) and with int8 caches (B3 once
+    an attention layer a step, nothing else) correlated with the float32
+    steps above ``FAMILY_INT8_CORR`` at every step (the reference's
+    contract, stated for a dense config); a MoE config at the median step,
+    since the int8 cache's noise can flip a near-tied router choice and
+    move that token's whole FFN output (a reduced mixtral on the CPU: 4 of
+    64 steps below, the lowest 0.897); timed."""
+    import dataclasses
+
+    from repro_torch.core import ptq
+    from repro_torch.models import transformer
+    short = torch.randint(0, cfg.vocab, (1, LM_SHORT), generator=torch.
+                          Generator().manual_seed(SEED + 41))
+    t = time.perf_counter()
+    params_cpu = ptq.tree_to(params, "cpu")
+    to_cpu_s = time.perf_counter() - t
+    with Routes() as on_card:
+        card = transformer.forward(cfg, params, short.to(dev)).cpu()
+    t = time.perf_counter()
+    with Routes(replay=on_card) as on_cpu:
+        cpu = transformer.forward(cfg, params_cpu, short)
+    cpu_s = time.perf_counter() - t
+    del params_cpu
+    flipped = on_cpu.flipped(on_card)
+    diff = float((card - cpu).abs().max())
+    check(len(flipped) <= FAMILY_FLIP_MAX and diff <= LM_CPU_ATOL,
+          f"{cfg.name} card vs CPU forward logits (the CPU routed as the "
+          f"card): max abs diff {diff} (tolerance {LM_CPU_ATOL}); router "
+          f"choices differ at tokens {flipped} (at most {FAMILY_FLIP_MAX})")
+
+    dcfg = dataclasses.replace(cfg, capacity_factor=4.0) if cfg.n_experts \
+        else cfg
+    toks = short.to(dev)
+    full = transformer.forward(dcfg, params, toks)
+    caches = {i8: transformer.init_caches(dcfg, 1, LM_SHORT, int8=i8,
+                                          device=dev) for i8 in (False, True)}
+    worst, plain_diff, corrs = 0.0, 0.0, []
+    walls, plain_flips = {False: 0.0, True: 0.0}, []
+    for c in counters.values():
+        c.reset()
+    for pos in range(LM_SHORT):
+        step, start = {}, _clone_caches(caches[True])
+        for i8 in (False, True):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with Routes() as routed:
+                step[i8], _ = transformer.decode_step(
+                    dcfg, params, toks[:, pos:pos + 1], caches[i8], pos)
+            torch.cuda.synchronize()
+            walls[i8] += time.perf_counter() - t
+        # the int8 step again through B3's plain version, from a clone of
+        # the caches it started from, routed as the kernel's step
+        with plain_b3(), Routes(replay=routed) as again:
+            plain, _ = transformer.decode_step(
+                dcfg, params, toks[:, pos:pos + 1], start, pos)
+        plain_diff = max(plain_diff, float((step[True] - plain).abs().max()))
+        if again.flipped(routed):
+            plain_flips.append(pos)
+        worst = max(worst, float((step[False][:, 0] - full[:, pos]).abs()
+                                 .max()))
+        corrs.append(float(np.corrcoef(step[False].ravel().cpu().numpy(),
+                                       step[True].ravel().cpu().numpy()
+                                       )[0, 1]))
+    n = {k: c.value for k, c in counters.items()}
+    want = {k: 0 for k in counters}
+    want["int8_cache_attention"] = attention_layers(cfg) * LM_SHORT
+    check(n == want, f"{cfg.name} {LM_SHORT} decode steps launches {n}, "
+                     f"want {want}")
+    check(plain_diff <= LM_LONG_ATOL and len(plain_flips) <= FAMILY_FLIP_MAX,
+          f"{cfg.name} {LM_SHORT} int8-cache decode steps, B3 vs its plain "
+          f"version: max abs diff {plain_diff} (tolerance {LM_LONG_ATOL}); "
+          f"router choices differ at steps {plain_flips} (at most "
+          f"{FAMILY_FLIP_MAX})")
+    held = statistics.median(corrs) if cfg.n_experts else min(corrs)
+    check(worst <= LM_DECODE_ATOL and held > FAMILY_INT8_CORR,
+          f"{cfg.name} forward vs {LM_SHORT} decode steps: max abs diff "
+          f"{worst} (tolerance {LM_DECODE_ATOL}); int8 vs float32 cache "
+          f"logits correlation {held} (above {FAMILY_INT8_CORR})")
+    row = dict(arch=cfg.name, tokens=LM_SHORT, params_to_cpu_s=to_cpu_s,
+               cpu_forward_s=cpu_s, card_vs_cpu_max_abs_diff=diff,
+               card_vs_cpu_tolerance=LM_CPU_ATOL,
+               logits_max_abs=float(cpu.abs().max()),
+               router_flipped_tokens=flipped if cfg.n_experts else None,
+               decode_vs_forward_max_abs_diff=worst,
+               int8_vs_plain_b3_max_abs_diff=plain_diff,
+               int8_vs_plain_b3_tolerance=LM_LONG_ATOL,
+               int8_vs_plain_b3_flipped_steps=plain_flips
+               if cfg.n_experts else None,
+               int8_vs_fp32_min_corr=min(corrs),
+               int8_vs_fp32_median_corr=statistics.median(corrs),
+               int8_steps_below_corr=sum(c <= FAMILY_INT8_CORR
+                                         for c in corrs),
+               decode_launches=n,
+               decode_tokens_per_s={"fp32": LM_SHORT / walls[False],
+                                    "int8": LM_SHORT / walls[True]},
+               card=smi)
+    print("families parity " + json.dumps(row))
+    return row
+
+
+class Routes:
+    """The router's top-k experts in one run, in call order (a MoE layer's
+    group a call).  With ``replay``, an earlier run's ``Routes``, each call
+    takes that run's experts, their gates read from this run's
+    probabilities, so both runs route every token alike; this run's own
+    choices are recorded all the same.  A config without experts records
+    nothing."""
+
+    def __init__(self, replay=None):
+        self.replay, self.idx = replay, []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        real = self._real = moe.top_k_experts
+
+        def choose(probs, k):
+            vals, idx = real(probs, k)
+            self.idx.append(idx)
+            if self.replay is None:
+                return vals, idx
+            idx = self.replay.idx[len(self.idx) - 1].to(idx.device)
+            return probs.gather(-1, idx), idx
+        moe.top_k_experts = choose
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.top_k_experts = self._real
+
+    def flipped(self, other) -> list:
+        """The token indices (within a call) whose top-k set differs
+        between this run and ``other``."""
+        rows = set()
+        for a, b in zip(self.idx, other.idx):
+            a, b = (x.cpu().sort(dim=-1).values.reshape(-1, x.shape[-1])
+                    for x in (a, b))
+            rows.update((a != b).any(-1).nonzero().reshape(-1).tolist())
+        return sorted(rows)
+
+
+@contextlib.contextmanager
+def plain_b3():
+    """B3's wrapper replaced by its plain version (no launch counted)."""
+    from repro_torch.kernels import int8_cache_attention as ca
+    real = ca.int8_cache_attention_cuda
+    ca.int8_cache_attention_cuda = ca.int8_cache_attention_plain
+    try:
+        yield
+    finally:
+        ca.int8_cache_attention_cuda = real
+
+
+def long_caches(torch, dev, cfg, batch: int, size: int, pos=None):
+    """Full decode caches of ``size`` slots for a step at ``pos`` (default
+    ``size - 1``), every slot written: seeded int8 codes and scales, the
+    float32 cache holding the same K and V (codes times scales), and slot
+    i at the latest position ``p <= pos`` with ``p % size == i`` (a ring
+    that has wrapped when ``pos >= size``); a recurrent layer's state
+    seeded normals, the same in both.  Returns ``(int8 caches, float32
+    caches)``."""
+    from repro_torch.models import transformer
+    pos = size - 1 if pos is None else pos
     gen = torch.Generator(device=dev).manual_seed(SEED + 32)
     c8 = transformer.init_caches(cfg, batch, size, int8=True, device=dev)
     c32 = transformer.init_caches(cfg, batch, size, int8=False, device=dev)
-    pairs = [(a["kv"], b["kv"]) for a, b in zip(
-        list(c8["stacked"].values()) + c8["remainder"],
-        list(c32["stacked"].values()) + c32["remainder"])]
-    for kv8, kv32 in pairs:
+    slot_pos = pos - (pos - torch.arange(size, device=dev)) % size
+    for a, b in zip(list(c8["stacked"].values()) + c8["remainder"],
+                    list(c32["stacked"].values()) + c32["remainder"]):
+        if "kv" not in a:                      # recurrent state
+            for k in a:
+                a[k].copy_(torch.randn(a[k].shape, generator=gen,
+                                       device=dev))
+                b[k].copy_(a[k])
+            continue
+        kv8, kv32 = a["kv"], b["kv"]
         for codes, scale, full in ((kv8.k, kv8.k_scale, kv32.k),
                                    (kv8.v, kv8.v_scale, kv32.v)):
             codes.copy_(torch.randint(-127, 128, codes.shape, generator=gen,
@@ -3183,58 +3531,70 @@ def long_caches(torch, dev, cfg, batch: int, size: int):
                         * 0.04 + 0.01)
             full.copy_(codes.to(torch.float32) * scale)
         for kv in (kv8, kv32):
-            kv.positions.copy_(torch.arange(
-                size, dtype=torch.int32, device=dev).expand_as(kv.positions))
+            kv.positions.copy_(slot_pos.to(torch.int32).expand_as(
+                kv.positions))
     return c8, c32
 
 
-def decode_long(torch, dev, cfg, params, counters, smi) -> dict:
-    """One ``transformer.decode_step`` at position ``LM_LONG[1] - 1`` over
-    full caches of ``LM_LONG[1]`` slots, int8 (B3 once a layer) and
-    float32: the int8 step's launches counted, its logits held to the
+def _cache_tensors(tree):
+    """Every tensor of a decode-state tree."""
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _cache_tensors(v)]
+    if isinstance(tree, (list, tuple)):
+        return [t for v in tree if v is not None for t in _cache_tensors(v)]
+    return [tree]
+
+
+def _clone_caches(tree):
+    """A deep copy of a decode-state tree (KV caches and recurrent
+    states)."""
+    if isinstance(tree, dict):
+        return {k: _clone_caches(v) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_clone_caches(v) for v in tree]
+    if isinstance(tree, tuple):
+        return type(tree)(*(None if v is None else v.clone() for v in tree))
+    return tree.clone()
+
+
+def decode_long(torch, dev, cfg, params, counters, smi,
+                shape=None) -> dict:
+    """One ``transformer.decode_step`` at position ``pos`` over full
+    caches of ``size`` slots, ``shape = (batch, size, pos)`` (default
+    ``LM_LONG`` at ``pos = size - 1``), int8 (B3 once an attention layer)
+    and float32: the int8 step's launches counted, its logits held to the
     same step through B3's plain version (each on its own clone of the
     cache), and both steps profiled."""
     from repro_torch.core import ptq
-    from repro_torch.kernels import int8_cache_attention as ca
     from repro_torch.models import transformer
-    b, size = LM_LONG
-    c8, c32 = long_caches(torch, dev, cfg, b, size)
+    b, size, at = shape or (LM_LONG[0], LM_LONG[1], LM_LONG[1] - 1)
+    c8, c32 = long_caches(torch, dev, cfg, b, size, at)
     tok = torch.randint(0, cfg.vocab, (b, 1), generator=torch.Generator(
         ).manual_seed(SEED + 33)).to(dev)
-    pos = torch.tensor(size - 1, device=dev)
-
-    def clone(caches):
-        return {"stacked": {k: {"kv": type(v["kv"])(*(
-                    None if x is None else x.clone() for x in v["kv"]))}
-                    for k, v in caches["stacked"].items()},
-                "remainder": [{"kv": type(u["kv"])(*(
-                    None if x is None else x.clone() for x in u["kv"]))}
-                    for u in caches["remainder"]]}
+    pos = torch.tensor(at, device=dev)
 
     def nbytes(caches):
         return sum(x.numel() * x.element_size()
-                   for v in list(caches["stacked"].values())
-                   + caches["remainder"] for x in v["kv"] if x is not None)
+                   for x in _cache_tensors(caches))
     for c in counters.values():
         c.reset()
-    logits, _ = transformer.decode_step(cfg, params, tok, clone(c8), pos)
+    logits, _ = transformer.decode_step(cfg, params, tok, _clone_caches(c8),
+                                        pos)
     torch.cuda.synchronize()
     n = {k: c.value for k, c in counters.items()}
     want = {k: 0 for k in counters}
-    want["int8_cache_attention"] = cfg.n_layers
-    check(n == want, f"long decode step launches {n}, want {want}")
-    real = ca.int8_cache_attention_cuda
-    ca.int8_cache_attention_cuda = ca.int8_cache_attention_plain
-    try:
-        plain, _ = transformer.decode_step(cfg, params, tok, clone(c8), pos)
-    finally:
-        ca.int8_cache_attention_cuda = real
+    want["int8_cache_attention"] = attention_layers(cfg)
+    check(n == want, f"{cfg.name} long decode step launches {n}, want "
+                     f"{want}")
+    with plain_b3():
+        plain, _ = transformer.decode_step(cfg, params, tok,
+                                           _clone_caches(c8), pos)
     diff = float((logits - plain).abs().max())
     check(tuple(logits.shape) == (b, 1, cfg.vocab)
           and bool(torch.isfinite(logits).all()) and diff <= LM_LONG_ATOL,
-          f"long decode step: B3 vs its plain version, max abs diff {diff} "
-          f"(tolerance {LM_LONG_ATOL})")
-    row = dict(batch=b, slots=size, pos=size - 1, launches=n,
+          f"{cfg.name} long decode step: B3 vs its plain version, max abs "
+          f"diff {diff} (tolerance {LM_LONG_ATOL})")
+    row = dict(arch=cfg.name, batch=b, slots=size, pos=at, launches=n,
                logits_vs_plain_max_abs_diff=diff,
                logits_max_abs=float(plain.abs().max()),
                tolerance=LM_LONG_ATOL, params_gb=sum(
@@ -3259,10 +3619,12 @@ def decode_long(torch, dev, cfg, params, counters, smi) -> dict:
 
 
 def _spec_weights(spec) -> int:
-    """Leaves of two dims or more in a spec tree: what PTQ quantizes."""
+    """Leaves of two or three dims in a spec tree: what PTQ quantizes per
+    tensor, through B5 (four-dim leaves, such as stacked expert weights,
+    go per output channel in plain torch, as in the reference)."""
     if isinstance(spec, dict):
         return sum(_spec_weights(v) for v in spec.values())
-    return int(len(spec.shape) >= 2)
+    return int(len(spec.shape) in (2, 3))
 
 
 def check(cond: bool, what: str) -> None:
@@ -3846,6 +4208,14 @@ def main() -> int:
                             fake_quant.launches, flash_attention.launches)})
     print(f"lm phase: {time.perf_counter() - t_lm:.1f}s")
 
+    # ---- families phase (the MoE, RG-LRU and xLSTM decoders) -------------
+    t_fam = time.perf_counter()
+    fam = families_phase(torch, dev, smi, {
+        c.name: c for c in (int8_matmul.launches, fused_qmlp.launches,
+                            int8_cache_attention.launches,
+                            fake_quant.launches, flash_attention.launches)})
+    print(f"families phase: {time.perf_counter() - t_fam:.1f}s")
+
     # ---- report -----------------------------------------------------------
     def head(name, **want):
         """The kernel-phase row that stands for ``name`` in the report."""
@@ -3876,13 +4246,39 @@ def main() -> int:
              lm["prefill"]["launches"]["flash_attention"],
              head("flash_attention", label="danube prefill"))):
         report.append(dict(
-            name=name, route="cuda", source=src, replaces=replaces,
-            launches=n,
+            name=name, label=pick.get("label"), route="cuda", source=src,
+            replaces=replaces, launches=n,
             max_abs_err=max(r["max_abs_err"] for r in rows
                             if r["name"] == name),
             ms=pick["ms"], plain_ms=pick["plain_ms"],
             bound_ms=pick["bound_ms"], bound_by=pick["bound_by"],
             library_ms=pick["library_ms"]))
+    # the families' rows: B3 and B4 at the shapes of the families phase,
+    # with its launches
+    rg, mx = fam[FAMILY_RG], fam[FAMILY_MOE]
+    rg_int8 = next(r for r in rg["serve"] if r["run"] == "int8 cache")
+    for name, n, pick in (
+            ("int8_cache_attention",
+             rg_int8["launches"]["int8_cache_attention"],
+             head("int8_cache_attention", label="recurrentgemma serve")),
+            ("int8_cache_attention",
+             rg["decode_wrap"]["launches"]["int8_cache_attention"],
+             head("int8_cache_attention", label="recurrentgemma decode")),
+            ("int8_cache_attention",
+             mx["parity"]["decode_launches"]["int8_cache_attention"],
+             head("int8_cache_attention", label="mixtral parity decode")),
+            ("flash_attention",
+             rg["prefill"]["launches"]["flash_attention"],
+             head("flash_attention", label="recurrentgemma prefill")),
+            ("flash_attention",
+             mx["prefill"]["launches"]["flash_attention"],
+             head("flash_attention", label="mixtral prefill"))):
+        base = next(r for r in report if r["name"] == name)
+        report.append(dict(
+            base, label=pick["label"], launches=n,
+            max_abs_err=pick["max_abs_err"], ms=pick["ms"],
+            plain_ms=pick["plain_ms"], bound_ms=pick["bound_ms"],
+            bound_by=pick["bound_by"], library_ms=pick["library_ms"]))
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(
         dict(card=smi, kernel_rows=rows, serve_rows=serve_rows,
@@ -3899,7 +4295,7 @@ def main() -> int:
                                  seconds=seq["seconds"]),
              resume_rows=resume["rows"],
              resilience_rows=rz["rows"], serve_rl_rows=serve_rl["rows"],
-             lm_rows=lm,
+             lm_rows=lm, families_rows=fam,
              path_launches=dict(serve=launches, rollout=roll_launches,
                                 train_qat=train["qat_launches"],
                                 topology_async_int8=topo["launches"],
@@ -3908,7 +4304,9 @@ def main() -> int:
                                 seq_train_qat8_int8=seq["qat_launches"],
                                 resilience_chaos=rz["launches"],
                                 serve_rl=serve_rl["launches"],
-                                lm_prefill=lm["prefill"]["launches"]),
+                                lm_prefill=lm["prefill"]["launches"],
+                                families_rg_prefill=rg["prefill"][
+                                    "launches"]),
              kernels=report, seconds=time.perf_counter() - t0), indent=1))
     print(f"total {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": report}))

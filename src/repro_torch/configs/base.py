@@ -3,11 +3,13 @@
 Counterpart of ``repro/configs/base.py``.  Each ported architecture has a
 module here exporting ``CONFIG`` (the published dimensions, source cited)
 and ``REDUCED`` (the smoke-test variant of the same family), registered
-under its ``--arch`` name.  The port registers only what it runs: the
-dense-attention configs of the LM inference path.  The reference's other
-architectures are known by name, and ``get`` of one raises
-``NotImplementedError`` until its block kinds are ported (ROADMAP queue
-A, item 13).  The sharding fields (``sharding``, ``remat``,
+under its ``--arch`` name.  The port registers what its LM inference
+path runs: the dense-attention, MoE and recurrent (RG-LRU, xLSTM)
+configs.  The reference's other architectures are known by name, and
+``get`` of one raises ``NotImplementedError`` until what it needs is
+ported (ROADMAP queue A, item 13): grok-1-314b's bfloat16 parameters,
+and the encoder and cross-attention of whisper-tiny and
+llama-3.2-vision-90b.  The sharding fields (``sharding``, ``remat``,
 ``scan_layers``) are kept as inert data: the port runs on one card with
 no mesh.
 """
@@ -159,13 +161,14 @@ class ArchEntry:
 
 _REGISTRY: Dict[str, ArchEntry] = {}
 
-# the port's config modules: the dense-attention LM configs
-_ARCH_MODULES = ["h2o_danube_1_8b", "gemma2_9b"]
-# the reference's other architectures, whose block kinds (MoE, recurrent,
-# encoder / cross-attention) or head are not ported yet
-_NOT_PORTED = ("codeqwen1.5-7b", "grok-1-314b", "llama-3.2-vision-90b",
-               "mixtral-8x7b", "recurrentgemma-2b", "stablelm-12b",
-               "whisper-tiny", "xlstm-125m")
+# the port's config modules: the LM configs it runs
+_ARCH_MODULES = ["h2o_danube_1_8b", "gemma2_9b", "recurrentgemma_2b",
+                 "xlstm_125m", "mixtral_8x7b", "codeqwen1_5_7b",
+                 "stablelm_12b"]
+# the reference's other architectures: grok-1's bfloat16 params wait for
+# mixed precision, whisper's encoder and llama-vision's cross-attention
+# for their frontends
+_NOT_PORTED = ("grok-1-314b", "llama-3.2-vision-90b", "whisper-tiny")
 
 
 def register(config: ArchConfig, reduced: ArchConfig) -> ArchConfig:
@@ -180,8 +183,8 @@ def _entry(name: str) -> ArchEntry:
         return _REGISTRY[name]
     if name in _NOT_PORTED:
         raise NotImplementedError(
-            f"{name} is not ported yet: the port runs the dense-attention "
-            f"LM configs {names()} (ROADMAP queue A, item 13)")
+            f"{name} is not ported yet: the port runs the LM configs "
+            f"{names()} (ROADMAP queue A, item 13)")
     raise KeyError(f"unknown architecture {name!r}")
 
 

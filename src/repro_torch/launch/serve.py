@@ -3,15 +3,19 @@
 Counterpart of ``repro/launch/serve.py``, with its flags and ``--device``.
 
 **LM mode** (the default): a seeded model of ``--arch`` (``--reduced`` for the smoke-test
-variant), optionally PTQ-simulated weights (``--quant ptq_int8``, every
-weight through kernel B5 on the card) and an int8 KV cache
-(``--int8-cache``, decode attention through kernel B3), then a
-teacher-forced pass over a random prompt and greedy decoding, one token
-at a time through ``transformer.decode_step``:
+variant; h2o-danube-1.8b, gemma2-9b, recurrentgemma-2b, xlstm-125m,
+mixtral-8x7b, codeqwen1.5-7b or stablelm-12b), its params drawn by a
+generator on the device, optionally PTQ-simulated weights (``--quant
+ptq_int8``: every weight of two or three dims through kernel B5 on the
+card, four-dim ones per output channel) and an int8 KV cache
+(``--int8-cache``, decode attention through kernel B3; a recurrent
+layer's state stays float32), then a teacher-forced pass over a random
+prompt and greedy decoding, one token at a time through
+``transformer.decode_step``:
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
-        --arch h2o-danube-1.8b --batch 4 --prompt-len 32 --new-tokens 32 \\
-        --quant ptq_int8 --int8-cache
+        --arch recurrentgemma-2b --batch 4 --prompt-len 32 \\
+        --new-tokens 32 --quant ptq_int8 --int8-cache
 
 **RL mode** (``--rl-env``): trains a policy with ``loops.train`` (PPO on
 a fused discrete env, DDPG on a continuous one, DQN or DDPG in the
@@ -311,8 +315,10 @@ def main(argv=None) -> int:
         cfg = dataclasses.replace(
             cfg, quant=dataclasses.replace(cfg.quant, int8_kv_cache=True))
 
+    # drawn on the device: the CPU's draws of a full config's billions
+    # of normals take seconds a billion, the card's a fraction of that
     params = transformer.init_params(
-        cfg, torch.Generator().manual_seed(args.seed), device)
+        cfg, torch.Generator(device=device).manual_seed(args.seed), device)
     fp32_bytes = ptq.tree_nbytes(params)
     if quant.is_ptq:
         params = ptq.ptq_simulate(params, quant)    # simulated int math

@@ -1,12 +1,15 @@
 """Decoder blocks: one spec/apply pair per block kind of the layer pattern.
 
-Counterpart of ``repro/models/blocks.py`` for the attention kinds
-(``attn`` and ``attn_local``).  Every block is pre-norm residual;
-``apply_block`` returns ``(x, new_cache)`` where ``new_cache`` is the
-block's decode state (``{"kv": KVCache}``, None when not decoding); the
-reference's third output, the MoE load-balance loss, comes with MoE.  The
-MoE, cross-attention, RG-LRU and xLSTM kinds raise
-``NotImplementedError`` until they are ported (ROADMAP queue A, item 13).
+Counterpart of ``repro/models/blocks.py`` for the kinds the port runs:
+``attn``, ``attn_local``, ``moe``, ``moe_local``, ``rglru``, ``mlstm``
+and ``slstm``.  Every block is pre-norm residual; ``apply_block`` returns
+``(x, new_cache, aux)`` where ``new_cache`` is the block's decode state
+(``{"kv": KVCache}`` for the attention kinds, the recurrent state dict
+for the recurrent ones, None when not decoding) and ``aux`` the MoE
+load-balance loss (a float32 scalar tensor; the float 0.0 for the other
+kinds).  Cross-attention raises
+``NotImplementedError`` until the encoder / vision frontends are ported
+(ROADMAP queue A, item 13).
 """
 from __future__ import annotations
 
@@ -16,10 +19,12 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs import base as cfgs
-from repro_torch.models import attention, common
+from repro_torch.models import attention, common, recurrent
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import dense_spec
 
-_PORTED = (cfgs.ATTN, cfgs.ATTN_LOCAL)
+_ATTENTION = (cfgs.ATTN, cfgs.ATTN_LOCAL, cfgs.MOE, cfgs.MOE_LOCAL)
+_PORTED = _ATTENTION + (cfgs.RGLRU, cfgs.MLSTM, cfgs.SLSTM)
 
 
 def _not_ported(kind: str) -> NotImplementedError:
@@ -57,27 +62,59 @@ def _norm(cfg: cfgs.ArchConfig, params, x: torch.Tensor) -> torch.Tensor:
 
 def block_spec(kind: str, cfg: cfgs.ArchConfig) -> Dict[str, Any]:
     """Parameter spec of one block of ``kind``."""
-    if kind not in _PORTED:
+    d = cfg.d_model
+    spec: Dict[str, Any] = {"norm1": _norm_spec(cfg)}
+    if kind in _ATTENTION:
+        spec["attn"] = attention.attention_spec(d, cfg.n_heads,
+                                                cfg.n_kv_heads, cfg.hd)
+        spec["norm2"] = _norm_spec(cfg)
+        if kind in (cfgs.MOE, cfgs.MOE_LOCAL):
+            spec["moe"] = moe_lib.moe_spec(d, cfg.d_ff, cfg.n_experts)
+        else:
+            spec["mlp"] = mlp_spec(d, cfg.d_ff)
+    elif kind == cfgs.RGLRU:
+        spec["rglru"] = recurrent.rglru_spec(d)
+        spec["norm2"] = _norm_spec(cfg)
+        spec["mlp"] = mlp_spec(d, cfg.d_ff)
+    elif kind == cfgs.MLSTM:
+        spec["mlstm"] = recurrent.mlstm_spec(d, cfg.n_heads, cfg.hd)
+    elif kind == cfgs.SLSTM:
+        spec["slstm"] = recurrent.slstm_spec(d, cfg.n_heads, cfg.hd)
+    else:
         raise _not_ported(kind)
-    return {"norm1": _norm_spec(cfg),
-            "attn": attention.attention_spec(cfg.d_model, cfg.n_heads,
-                                             cfg.n_kv_heads, cfg.hd),
-            "norm2": _norm_spec(cfg),
-            "mlp": mlp_spec(cfg.d_model, cfg.d_ff)}
+    return spec
 
 
 def init_block_cache(kind: str, cfg: cfgs.ArchConfig, batch: int,
                      seq_len: int, *, int8: bool,
-                     device=None) -> Dict[str, attention.KVCache]:
-    """Decode state of one block: a KV cache of ``seq_len`` slots (global
+                     device=None) -> Dict[str, Any]:
+    """Decode state of one block, zeros.
+
+    Attention kinds: ``{"kv": KVCache}`` of ``seq_len`` slots (global
     layers; ``long_context_window`` caps them) or ``min(seq_len,
-    window)`` slots (local layers, a ring)."""
-    if kind == cfgs.ATTN:
+    window)`` slots (local layers, a ring); int8 or float32.  Recurrent
+    kinds: their float32 state (``int8`` does not apply to them, as in
+    the reference).
+    """
+    d, h, hd = cfg.d_model, cfg.n_heads, cfg.hd
+
+    def zeros(*shape):
+        return torch.zeros(shape, device=device)
+    if kind in (cfgs.ATTN, cfgs.MOE):
         w = cfg.long_context_window
         size = min(seq_len, w) if w else seq_len
-    elif kind == cfgs.ATTN_LOCAL:
+    elif kind in (cfgs.ATTN_LOCAL, cfgs.MOE_LOCAL):
         window = cfg.long_context_window or cfg.window
         size = min(seq_len, window or seq_len)
+    elif kind == cfgs.RGLRU:
+        return {"h": zeros(batch, d),
+                "conv": zeros(batch, recurrent.CONV_WIDTH - 1, d)}
+    elif kind == cfgs.MLSTM:
+        return {"c": zeros(batch, h, hd, hd), "n": zeros(batch, h, hd),
+                "m": zeros(batch, h)}
+    elif kind == cfgs.SLSTM:
+        return {"c": zeros(batch, h, hd), "n": zeros(batch, h),
+                "m": zeros(batch, h)}
     else:
         raise _not_ported(kind)
     return {"kv": attention.init_cache(batch, size, cfg.n_kv_heads, cfg.hd,
@@ -86,20 +123,48 @@ def init_block_cache(kind: str, cfg: cfgs.ArchConfig, batch: int,
 
 def apply_block(kind: str, cfg: cfgs.ArchConfig, ctx, params,
                 x: torch.Tensor, *, cache: Optional[Dict] = None, pos=None,
-                name: str = "blk") -> Tuple[torch.Tensor, Any]:
-    """One pre-norm residual block: attention, then the MLP."""
-    if kind not in _PORTED:
-        raise _not_ported(kind)
-    window = cfg.window if kind == cfgs.ATTN_LOCAL \
-        else cfg.long_context_window
-    h = _norm(cfg, params["norm1"], x)
-    h, kv_cache = attention.attention_layer(
-        ctx, params["attn"], h, n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads,
-        head_dim=cfg.hd, window=window, softcap=cfg.softcap,
-        rope_theta=cfg.rope_theta,
-        cache=None if cache is None else cache["kv"], pos=pos,
-        name=f"{name}/attn")
-    x = x + h
-    h = _norm(cfg, params["norm2"], x)
-    x = x + mlp(ctx, params["mlp"], h, cfg.activation, name=f"{name}/mlp")
-    return x, (None if cache is None else {"kv": kv_cache})
+                name: str = "blk") -> Tuple[torch.Tensor, Any, torch.Tensor]:
+    """One pre-norm residual block: attention then the MLP or the MoE
+    (attention kinds), the RG-LRU then the MLP, or an xLSTM cell.
+    Returns ``(x, new_cache, aux)``."""
+    aux = 0.0
+    if kind in _ATTENTION:
+        local = kind in (cfgs.ATTN_LOCAL, cfgs.MOE_LOCAL)
+        window = cfg.window if local else cfg.long_context_window
+        h = _norm(cfg, params["norm1"], x)
+        h, kv_cache = attention.attention_layer(
+            ctx, params["attn"], h, n_heads=cfg.n_heads,
+            n_kv=cfg.n_kv_heads, head_dim=cfg.hd, window=window,
+            softcap=cfg.softcap, rope_theta=cfg.rope_theta,
+            cache=None if cache is None else cache["kv"], pos=pos,
+            name=f"{name}/attn")
+        x = x + h
+        h = _norm(cfg, params["norm2"], x)
+        if kind in (cfgs.MOE, cfgs.MOE_LOCAL):
+            h, aux = moe_lib.moe_ffn(
+                ctx, params["moe"], h, n_experts=cfg.n_experts,
+                top_k=cfg.moe_top_k, capacity_factor=cfg.capacity_factor,
+                activation=cfg.activation,
+                quantize_router=cfg.quant.quantize_router,
+                name=f"{name}/moe")
+        else:
+            h = mlp(ctx, params["mlp"], h, cfg.activation,
+                    name=f"{name}/mlp")
+        return x + h, (None if cache is None else {"kv": kv_cache}), aux
+    if kind == cfgs.RGLRU:
+        h = _norm(cfg, params["norm1"], x)
+        h, state = recurrent.rglru_block(ctx, params["rglru"], h,
+                                         state=cache, name=f"{name}/rglru")
+        x = x + h
+        h = _norm(cfg, params["norm2"], x)
+        x = x + mlp(ctx, params["mlp"], h, cfg.activation,
+                    name=f"{name}/mlp")
+        return x, state, aux
+    if kind in (cfgs.MLSTM, cfgs.SLSTM):
+        block = recurrent.mlstm_block if kind == cfgs.MLSTM \
+            else recurrent.slstm_block
+        h = _norm(cfg, params["norm1"], x)
+        h, state = block(ctx, params[kind], h, n_heads=cfg.n_heads,
+                         head_dim=cfg.hd, state=cache, name=f"{name}/{kind}")
+        return x + h, state, aux
+    raise _not_ported(kind)

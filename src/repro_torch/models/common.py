@@ -74,17 +74,25 @@ def stack_specs(specs: Any, n: int) -> Any:
 
 def dense(ctx, name: str, params: Dict[str, torch.Tensor], x: torch.Tensor,
           *, quant_act: bool = True) -> torch.Tensor:
-    """``x @ W`` with the QAT context's weight / activation hooks (the
-    LM's projections have no bias)."""
+    """``x @ W (+ b)`` with the QAT context's weight / activation hooks
+    (the attention and MLP projections have no bias; the xLSTM gates
+    do)."""
     y = torch.matmul(x, ctx.weight(f"{name}/w", params["w"]))
+    if "b" in params:
+        y = y + params["b"]
     if quant_act:
         y = ctx.activation(f"{name}/out", y)
     return y
 
 
-def dense_spec(d_in: int, d_out: int) -> Dict[str, P]:
-    """A ``(d_in, d_out)`` weight, fan-in scaled."""
-    return {"w": P((d_in, d_out))}
+def dense_spec(d_in: int, d_out: int, *, bias: bool = False
+               ) -> Dict[str, P]:
+    """A ``(d_in, d_out)`` weight, fan-in scaled, and with ``bias`` a zero
+    ``(d_out,)`` bias ``b``."""
+    spec = {"w": P((d_in, d_out))}
+    if bias:
+        spec["b"] = P((d_out,), init="zeros")
+    return spec
 
 
 def rms_norm(params: Dict[str, torch.Tensor], x: torch.Tensor,

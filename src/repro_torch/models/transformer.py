@@ -8,14 +8,18 @@ Counterpart of ``repro/models/transformer.py`` for inference:
 all repeats are stacked on a leading ``layers`` axis, as in the
 reference, and the remainder (``n_layers % len(pattern)``) is kept apart.
 Where the reference scans over the stacked axis, the port loops over it
-and takes each layer's slice as a view.  Decode caches are stacked the
-same way and updated in place (``attention.cache_update``).
+and takes each layer's slice as a view.  Decode state is stacked the
+same way: an attention block's KV cache is updated in place
+(``attention.cache_update``), and a recurrent block's new state is
+copied back into its slice of the stacked tensors.
 
 Prefill's attention goes through kernel B4 on the card, one launch per
-layer; decode through an int8 cache through kernel B3.  ``forward`` under
-a QAT config is LM training, and the encoder (whisper) and cross-attention
-frontends come with other configs (``param_specs`` refuses them): both
-raise ``NotImplementedError`` naming ROADMAP queue A, item 13.
+attention layer; decode through an int8 cache through kernel B3.  The
+MoE blocks' load-balance loss is summed over the layers, as the
+reference's ``forward`` returns it.  ``forward`` under a QAT config is LM
+training, and the encoder (whisper) and cross-attention frontends come
+with other configs (``param_specs`` refuses them): both raise
+``NotImplementedError`` naming ROADMAP queue A, item 13.
 """
 from __future__ import annotations
 
@@ -94,6 +98,27 @@ def _layer(tree: Any, li: int) -> Any:
     return tree[li]
 
 
+def _stack(trees: list) -> Any:
+    """The per-layer trees stacked on a leading ``layers`` axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    if isinstance(first, attention.KVCache):
+        return attention.KVCache(*(None if ts[0] is None else torch.stack(ts)
+                                   for ts in zip(*trees)))
+    return torch.stack(trees)
+
+
+def _write_state(cache: Dict[str, Any], new: Dict[str, Any]) -> None:
+    """Copy a block's new decode state into ``cache`` (views of the stacked
+    tensors, or a remainder block's own).  A KV cache was written in place
+    already; a recurrent state is new tensors (its ``conv`` None only
+    after a prefill, never in decode)."""
+    for k, v in new.items():
+        if isinstance(v, torch.Tensor) and v is not cache[k]:
+            cache[k].copy_(v)
+
+
 def _embed(cfg: cfgs.ArchConfig, ctx, params: Params,
            tokens: torch.Tensor) -> torch.Tensor:
     x = params["embed"]["w"][tokens]
@@ -128,29 +153,35 @@ def _check_inference(cfg: cfgs.ArchConfig) -> None:
 
 
 def forward(cfg: cfgs.ArchConfig, params: Params, tokens: torch.Tensor, *,
-            return_hidden: bool = False) -> torch.Tensor:
+            return_hidden: bool = False, return_aux: bool = False) -> Any:
     """Full-sequence forward: logits ``(B, S, vocab)``, or the final
-    normed hidden states.
+    normed hidden states; with ``return_aux`` the pair ``(out, aux)``,
+    ``aux`` the MoE load-balance loss summed over the layers (a float32
+    scalar, 0 without MoE layers).
 
-    ``tokens (B, S)`` int.  Every layer's attention is one
+    ``tokens (B, S)`` int.  Every attention layer is one
     ``ops.flash_attention`` call (kernel B4 on the card).  The
-    reference's other two outputs (the MoE loss and the QAT observers)
-    come with MoE and LM training.
+    reference's third output, the QAT observers, comes with LM training.
     """
     _check_inference(cfg)
     ctx = NullQATContext()
     x = _embed(cfg, ctx, params, tokens)
+    aux = torch.zeros((), device=x.device)
     for li in range(cfg.pattern_repeats):
         unit = _layer(params["layers"], li)
         for i, kind in enumerate(cfg.pattern):
-            x, _ = blocks.apply_block(kind, cfg, ctx, unit[f"b{i}_{kind}"],
-                                      x, name=f"unit/b{i}")
+            x, _, a = blocks.apply_block(kind, cfg, ctx,
+                                         unit[f"b{i}_{kind}"], x,
+                                         name=f"unit/b{i}")
+            aux = aux + a
     for i, kind in enumerate(cfg.pattern_remainder):
-        x, _ = blocks.apply_block(kind, cfg, ctx,
-                                  params["remainder"][f"r{i}_{kind}"], x,
-                                  name=f"unit/b{i}")
+        x, _, a = blocks.apply_block(kind, cfg, ctx,
+                                     params["remainder"][f"r{i}_{kind}"], x,
+                                     name=f"unit/b{i}")
+        aux = aux + a
     x = _final_norm(cfg, params, x)
-    return x if return_hidden else _head(cfg, ctx, params, x)
+    out = x if return_hidden else _head(cfg, ctx, params, x)
+    return (out, aux) if return_aux else out
 
 
 def prefill(cfg: cfgs.ArchConfig, params: Params,
@@ -162,11 +193,13 @@ def prefill(cfg: cfgs.ArchConfig, params: Params,
 
 def init_caches(cfg: cfgs.ArchConfig, batch: int, seq_len: int, *,
                 int8: Optional[bool] = None, device=None) -> Dict[str, Any]:
-    """Decode state: ``{"stacked": {block: {"kv": KVCache}}, "remainder":
-    [...]}``, the stacked caches with a leading ``layers`` axis.
+    """Decode state: ``{"stacked": {block: state}, "remainder": [state,
+    ...]}``, each block's state (``{"kv": KVCache}``, or a recurrent
+    state dict) stacked over the pattern's repeats on a leading
+    ``layers`` axis.
 
-    ``int8`` defaults to ``cfg.quant.int8_kv_cache``; ``device`` (``None``
-    is ``cuda``).
+    ``int8`` (the attention caches only) defaults to
+    ``cfg.quant.int8_kv_cache``; ``device`` (``None`` is ``cuda``).
     """
     int8 = cfg.quant.int8_kv_cache if int8 is None else int8
     device = resolve_device(device)
@@ -175,12 +208,9 @@ def init_caches(cfg: cfgs.ArchConfig, batch: int, seq_len: int, *,
         return blocks.init_block_cache(kind, cfg, batch, seq_len, int8=int8,
                                        device=device)
 
-    stacked = {}
-    for i, kind in enumerate(cfg.pattern):
-        units = [block_cache(kind)["kv"] for _ in range(cfg.pattern_repeats)]
-        stacked[f"b{i}_{kind}"] = {"kv": attention.KVCache(*(
-            None if ts[0] is None else torch.stack(ts)
-            for ts in zip(*units)))}
+    stacked = {f"b{i}_{kind}": _stack([block_cache(kind) for _ in
+                                       range(cfg.pattern_repeats)])
+               for i, kind in enumerate(cfg.pattern)}
     return {"stacked": stacked,
             "remainder": [block_cache(kind)
                           for kind in cfg.pattern_remainder]}
@@ -192,9 +222,11 @@ def decode_step(cfg: cfgs.ArchConfig, params: Params, tokens: torch.Tensor,
     """One decode token: ``tokens (B, 1)`` at absolute position ``pos``
     (an int or a 0-d tensor) -> ``(logits (B, 1, vocab), caches)``.
 
-    The caches are updated in place and returned.  ``pos`` goes to the
-    device once here: every layer reads it there, so a step copies nothing
-    from the host when it is a device tensor already.
+    The caches are updated in place and returned: KV caches by
+    ``attention.cache_update``, recurrent states by a copy of each
+    block's new state into its slice.  ``pos`` goes to the device once
+    here: every layer reads it there, so a step copies nothing from the
+    host when it is a device tensor already.
     """
     _check_inference(cfg)
     ctx = NullQATContext()
@@ -205,12 +237,15 @@ def decode_step(cfg: cfgs.ArchConfig, params: Params, tokens: torch.Tensor,
         unit_cache = _layer(caches["stacked"], li)
         for i, kind in enumerate(cfg.pattern):
             key = f"b{i}_{kind}"
-            x, _ = blocks.apply_block(kind, cfg, ctx, unit[key], x,
-                                      cache=unit_cache[key], pos=pos,
-                                      name=f"unit/b{i}")
+            x, new, _ = blocks.apply_block(kind, cfg, ctx, unit[key], x,
+                                           cache=unit_cache[key], pos=pos,
+                                           name=f"unit/b{i}")
+            _write_state(unit_cache[key], new)
     for i, kind in enumerate(cfg.pattern_remainder):
-        x, _ = blocks.apply_block(
+        cache = caches["remainder"][i]
+        x, new, _ = blocks.apply_block(
             kind, cfg, ctx, params["remainder"][f"r{i}_{kind}"], x,
-            cache=caches["remainder"][i], pos=pos, name=f"unit/b{i}")
+            cache=cache, pos=pos, name=f"unit/b{i}")
+        _write_state(cache, new)
     x = _final_norm(cfg, params, x)
     return _head(cfg, ctx, params, x), caches

@@ -8,7 +8,9 @@ training run shows the learner's path through B5, a reduced-danube
 prefill the LM's through B4, and a reduced serve run decode through B3
 and PTQ through B5; the conv cases (``-k conv``) hold B1 at the conv
 actor's im2col shapes and the Catch conv actor, its QAT training and
-its anchors on the card.
+its anchors on the card; the family cases (``-k famil``) hold B3 and B4
+at the MoE and recurrent configs' shapes, their reduced prefill and
+decode against the CPU, and their serve runs counting B3 and B5.
 
 The kernels have no CPU mode, so every test here takes the ``cuda``
 fixture, which skips on a machine without a card.  The file imports no
@@ -267,6 +269,31 @@ def test_int8_cache_attention_lm_views_on_card(cuda, t, pos):
     assert torch.equal(via_op, got)
 
 
+@pytest.mark.parametrize("label,nb,nh,g,t,dh,path", [
+    ("recurrentgemma ring", 4, 1, 10, 2048, 256, "split"),
+    ("recurrentgemma short", 4, 1, 10, 20, 256, "small"),
+    ("mixtral ring", 4, 8, 4, 4096, 128, "split"),
+    ("mixtral parity", 1, 8, 4, 64, 128, "split"),
+    ("stablelm", 4, 8, 4, 1000, 160, "split"),
+    ("codeqwen", 4, 32, 1, 64, 128, "split")])
+@pytest.mark.parametrize("pos", ["last", "ragged"])
+def test_int8_cache_attention_lm_families_on_card(cuda, label, nb, nh, g, t,
+                                                  dh, path, pos):
+    """The families' decode shapes, read in place from (B, T, KV, Dh)
+    caches: recurrentgemma's G 10 (the kernel's 16-lane instance) at Dh
+    256 over its 2,048-slot ring and a short cache (the small path),
+    mixtral's G 4 / Dh 128 ring and the 64-slot cache of its
+    teacher-forced steps, stablelm's Dh 160, codeqwen's G 1."""
+    assert int8_cache_attention.plan(nb * nh, g, t, dh)["path"] == path
+    p = np.random.default_rng(t).integers(0, t, size=(nb, nh)) \
+        if pos == "ragged" else t - 1
+    args = _b3_inputs(cuda, nb, nh, g, t, dh, p, lm=True, seed=t + g)
+    got = _b3_one_launch(args, None)
+    before = int8_cache_attention.launches.value
+    assert torch.equal(ops.int8_cache_attention(*args), got)
+    assert int8_cache_attention.launches.value == before + 1
+
+
 @pytest.mark.parametrize("g,dh", [(3, 6), (2, 20), (16, 200), (5, 8)])
 @pytest.mark.parametrize("t", [40, 1500])
 def test_int8_cache_attention_odd_shapes_on_card(cuda, g, dh, t):
@@ -501,7 +528,14 @@ def test_qat_train_on_card_launches_b5(cuda):
     (1, 2, 1, 16, 8, 32, True, None, None),
     (1, 2, 1, 70, 90, 40, True, 20, None),
     (1, 2, 2, 65, 65, 200, False, 30, 30.0),
-    (3, 3, 1, 1, 77, 16, True, 5, None)])
+    (3, 3, 1, 1, 77, 16, True, 5, None),
+    # recurrentgemma's MQA (10 query heads on one KV head, D 256),
+    # mixtral's GQA 32/8 at D 128, stablelm's D 160 and codeqwen's MHA
+    # at D 128 (both padded to the 256 block), at reduced lengths
+    (1, 10, 1, 600, 600, 256, True, 256, None),
+    (1, 32, 8, 300, 300, 128, True, 128, None),
+    (1, 32, 8, 200, 200, 160, True, None, None),
+    (1, 32, 32, 130, 130, 128, True, None, None)])
 def test_flash_attention_kernel_vs_plain_on_card(cuda, shape):
     b, h, kv, s, t, d, causal, window, softcap = shape
     rng = np.random.default_rng(s + t + d)
@@ -592,7 +626,8 @@ def test_reduced_danube_prefill_on_card_launches_b4_per_layer(cuda):
 def test_reduced_serve_on_card_launches_b3_and_b5(cuda, capsys):
     """``launch.serve`` on the card with an int8 cache and PTQ int8
     weights: B3 once per layer and decode step, B5 once per weight leaf
-    (11 for danube), and the tokens of the same run on the CPU."""
+    (11 for danube), and the tokens of a greedy decode of the same params
+    (drawn by the launcher's generator on the card) on the CPU."""
     argv = ["--arch", "h2o-danube-1.8b", "--reduced", "--batch", "2",
             "--prompt-len", "8", "--new-tokens", "4", "--int8-cache",
             "--quant", "ptq_int8"]
@@ -602,9 +637,122 @@ def test_reduced_serve_on_card_launches_b3_and_b5(cuda, capsys):
     assert int8_cache_attention.launches.value - b3 == 2 * 11
     assert fake_quant.launches.value - b5 == 11
     assert torch.cuda.get_device_name(0) in card
-    assert serve.main(argv + ["--device", "cpu"]) == 0
-    host = capsys.readouterr().out
-    assert card.splitlines()[-1] == host.splitlines()[-1]
+    cfg = cfgs.get_reduced("h2o-danube-1.8b")
+    assert card.splitlines()[-1].split(":")[1].strip() == str(
+        _cpu_greedy(cuda, cfg, 2, 8, 4, int8=True, quant="ptq_int8"))
+
+
+def _cpu_greedy(cuda, cfg, batch, prompt, new, *, int8, quant="none",
+                seed=0):
+    """``launch.serve``'s decode of its first sequence, run on the CPU
+    over the params its generator draws on the card."""
+    import dataclasses
+    cfg = dataclasses.replace(cfg, quant=dataclasses.replace(
+        cfg.quant, int8_kv_cache=int8))
+    params = transformer.init_params(
+        cfg, torch.Generator(device=cuda).manual_seed(seed), cuda)
+    params = ptq.tree_to(ptq.ptq_simulate(params, QuantConfig.parse(quant)),
+                         "cpu")
+    tokens = torch.randint(0, cfg.vocab, (batch, prompt),
+                           generator=torch.Generator().manual_seed(seed))
+    caches = transformer.init_caches(cfg, batch, prompt + new, device="cpu")
+    tok, out = tokens[:, :1], []
+    for pos in range(prompt + new - 1):
+        logits, caches = transformer.decode_step(cfg, params, tok, caches, pos)
+        nxt = torch.argmax(logits[:, -1], -1)
+        tok = tokens[:, pos + 1:pos + 2] if pos + 1 < prompt else nxt[:, None]
+        if pos + 1 >= prompt:
+            out.append(int(nxt[0]))
+    return out
+
+
+# --- the MoE and recurrent families -----------------------------------------
+
+def _family_cfg(name):
+    """The reduced config; recurrentgemma's at five layers, its pattern
+    and an (rglru, rglru) remainder, as the full config is built."""
+    import dataclasses
+    cfg = cfgs.get_reduced(name)
+    if name == "recurrentgemma-2b":
+        cfg = dataclasses.replace(cfg, n_layers=5, pattern=(
+            cfgs.RGLRU, cfgs.RGLRU, cfgs.ATTN_LOCAL))
+    return cfg
+
+
+def _attention_layers(cfg):
+    kinds = list(cfg.pattern) * cfg.pattern_repeats \
+        + list(cfg.pattern_remainder)
+    return sum(k in (cfgs.ATTN, cfgs.ATTN_LOCAL, cfgs.MOE, cfgs.MOE_LOCAL)
+               for k in kinds)
+
+
+@pytest.mark.parametrize("name", ["recurrentgemma-2b", "xlstm-125m",
+                                  "mixtral-8x7b", "stablelm-12b"])
+def test_lm_family_prefill_and_decode_on_card(cuda, monkeypatch, name):
+    """A 64-token prefill on the card (B4 once an attention layer) within
+    1e-4 of the CPU path on the same params; 40 decode steps (the local
+    rings of 32 slots wrap, the recurrent states carried in place): with
+    float32 caches within 1e-4 of the same steps on the CPU, and with
+    int8 caches (B3 once an attention layer a step) within 1e-4 of the
+    same steps on the card through B3's plain version (the CPU's K / V
+    projections can move an int8 code by an ulp)."""
+    cfg = _family_cfg(name)
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                     "cpu")
+    card_params = ptq.tree_to(params, cuda)
+    tokens = torch.randint(0, cfg.vocab, (2, 64),
+                           generator=torch.Generator().manual_seed(1))
+    want = transformer.prefill(cfg, params, tokens)
+    before = flash_attention.launches.value
+    got = transformer.prefill(cfg, card_params, tokens.to(cuda))
+    torch.cuda.synchronize()
+    n_attn = _attention_layers(cfg)
+    assert flash_attention.launches.value - before == n_attn
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+    runs = {"cpu": (params, "cpu", False), "card": (card_params, cuda, False),
+            "int8": (card_params, cuda, True),
+            "int8 plain": (card_params, cuda, True)}
+    caches = {k: transformer.init_caches(cfg, 2, 40, int8=i8, device=dev)
+              for k, (_, dev, i8) in runs.items()}
+    b3 = int8_cache_attention.launches.value
+    plain = int8_cache_attention.int8_cache_attention_plain
+    for pos in range(40):
+        out = {}
+        for k, (p, dev, _) in runs.items():
+            if k == "int8 plain":
+                monkeypatch.setattr(int8_cache_attention,
+                                    "int8_cache_attention_cuda", plain)
+            out[k] = transformer.decode_step(
+                cfg, p, tokens[:, pos:pos + 1].to(dev), caches[k], pos)[0]
+            monkeypatch.undo()
+        torch.testing.assert_close(out["card"].cpu(), out["cpu"],
+                                   rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(out["int8"], out["int8 plain"],
+                                   rtol=1e-4, atol=1e-4)
+    assert int8_cache_attention.launches.value - b3 == 40 * n_attn
+
+
+@pytest.mark.parametrize("name", ["recurrentgemma-2b", "xlstm-125m",
+                                  "mixtral-8x7b", "codeqwen1.5-7b"])
+def test_lm_family_serve_on_card(cuda, capsys, name):
+    """``launch.serve`` on the card with an int8 cache and PTQ int8: B3
+    once an attention layer a step, B5 once a weight leaf of two or three
+    dims (four-dim expert stacks go per channel in plain torch), and the
+    tokens of the same decode on the CPU."""
+    argv = ["--arch", name, "--reduced", "--batch", "2", "--prompt-len",
+            "6", "--new-tokens", "4", "--int8-cache", "--quant", "ptq_int8"]
+    cfg = cfgs.get_reduced(name)
+    per_tensor = sum(1 for _, x in ptq.tree_tensors(transformer.init_params(
+        cfg, torch.Generator().manual_seed(0), "cpu")) if x.dim() in (2, 3))
+    b3, b5 = int8_cache_attention.launches.value, fake_quant.launches.value
+    assert serve.main(argv) == 0
+    card = capsys.readouterr().out
+    assert int8_cache_attention.launches.value - b3 == \
+        9 * _attention_layers(cfg)
+    assert fake_quant.launches.value - b5 == per_tensor
+    assert card.splitlines()[-1].split(":")[1].strip() == str(
+        _cpu_greedy(cuda, cfg, 2, 6, 4, int8=True, quant="ptq_int8"))
 
 
 # --- the actor-learner and async topologies --------------------------------

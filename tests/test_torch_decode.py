@@ -59,9 +59,14 @@ def test_plan_at_the_chip_smoke_rows(row):
         return
     assert p["path"] == "split" and p["smem"] <= SMEM
     assert p["per"] % p["tile"] == 0 or p["splits"] == 1
-    if t >= 4096:
-        # a wave of blocks on every SM, within the split cap
-        assert p["splits"] > 1 and SMS <= p["blocks"] <= 2 * SMS + r
+    if t >= 4096 or (r < SMS and n_max >= 2 * p["tile"]):
+        # few problems over many slots: a wave of blocks on every SM where
+        # the tiles allow it, no more than the SMs keep in flight unless
+        # the chunk limit forces more splits
+        assert p["splits"] > 1
+        assert p["blocks"] >= min(SMS, r * (n_max // p["tile"]))
+        assert p["blocks"] <= max(ca.BLOCKS_PER_SM * SMS + r,
+                                  r * math.ceil(n_max / ca.PER_MAX))
         assert p["scratch"] == 4 * r * p["splits"] * g * (
             2 + 4 * math.ceil(dh / 4))
     else:

@@ -37,7 +37,10 @@ def test_scan_sees_the_port():
             "transformer.py", "serve.py", "base.py", "h2o_danube_1_8b.py",
             "gemma2_9b.py", "quarl_atari.py", "mountaincar.py",
             "pendulum.py", "ddpg.py", "ppo.py", "a2c.py", "ckpt.py",
-            "manager.py", "guards.py", "faults.py", "supervisor.py"} <= names
+            "manager.py", "guards.py", "faults.py", "supervisor.py",
+            "moe.py", "recurrent.py", "recurrentgemma_2b.py",
+            "xlstm_125m.py", "mixtral_8x7b.py", "codeqwen1_5_7b.py",
+            "stablelm_12b.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -62,7 +65,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.rl.ddpg, repro_torch.rl.ppo, repro_torch.rl.a2c, "
             "repro_torch.checkpoint, repro_torch.resilience, "
             "repro_torch.resilience.faults, "
-            "repro_torch.resilience.supervisor\n"
+            "repro_torch.resilience.supervisor, repro_torch.models.moe, "
+            "repro_torch.models.recurrent\n"
+            "from repro_torch.configs import base\n"
+            "[base.get(n) for n in base.names()]\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro'))\n"
             "assert not bad, bad\n")
@@ -195,6 +201,15 @@ def _entry_points():
         "launch_serve": lambda: launch_serve.main(
             ["--reduced", "--batch", "1", "--prompt-len", "2",
              "--new-tokens", "1"]),
+        "recurrent_init_caches": lambda: transformer.init_caches(
+            cfgs.get_reduced("recurrentgemma-2b"), 1, 4)["stacked"][
+                "b0_rglru"]["h"],
+        "launch_serve_recurrent": lambda: launch_serve.main(
+            ["--arch", "xlstm-125m", "--reduced", "--batch", "1",
+             "--prompt-len", "2", "--new-tokens", "1"]),
+        "launch_serve_moe": lambda: launch_serve.main(
+            ["--arch", "mixtral-8x7b", "--reduced", "--batch", "1",
+             "--prompt-len", "2", "--new-tokens", "1", "--int8-cache"]),
         "launch_serve_rl": lambda: launch_serve.main(
             ["--rl-env", "cartpole", "--rl-iters", "1", "--serve-sessions",
              "2", "--serve-steps", "1"]),
@@ -218,6 +233,9 @@ def _entry_points():
                                   "transformer_init_params",
                                   "transformer_init_caches",
                                   "launch_serve", "launch_serve_rl",
+                                  "recurrent_init_caches",
+                                  "launch_serve_recurrent",
+                                  "launch_serve_moe",
                                   "supervise"])
 def test_entry_points_default_to_the_card(name):
     """``device=None`` means ``cuda``: it lands there with a card and

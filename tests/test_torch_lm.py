@@ -52,6 +52,9 @@ from repro_torch.launch import serve
 from repro_torch.models import attention, blocks, common, transformer
 
 ARCHS = ["h2o-danube-1.8b", "gemma2-9b"]
+# the MoE, recurrent and other dense configs (tests/test_torch_lm_families.py)
+FAMILIES = ["recurrentgemma-2b", "xlstm-125m", "mixtral-8x7b",
+            "codeqwen1.5-7b", "stablelm-12b"]
 TOL = 1e-5
 FLIP_ATOL = 5e-3
 TIGHT_SHARE = 0.75
@@ -90,20 +93,19 @@ def test_configs_are_the_references(name):
         assert t.n_params() == j.n_params()
         assert t.n_active_params() == j.n_active_params()
     assert cfgs.INPUT_SHAPES.keys() == jcfgs.INPUT_SHAPES.keys()
-    assert cfgs.names() == sorted(ARCHS)
+    assert cfgs.names() == sorted(ARCHS + FAMILIES)
 
 
 def test_unported_configs_and_kinds_raise():
     assert set(cfgs._NOT_PORTED) | set(cfgs.names()) == set(jcfgs.names()) \
         - {"quarl-atari"}
     with pytest.raises(NotImplementedError, match="item 13"):
-        cfgs.get("mixtral-8x7b")
+        cfgs.get("whisper-tiny")
     with pytest.raises(KeyError):
         cfgs.get("no-such-arch")
     cfg = cfgs.get_reduced("h2o-danube-1.8b")
-    for kind in (cfgs.MOE, cfgs.CROSS, cfgs.RGLRU, cfgs.MLSTM, cfgs.SLSTM):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            blocks.block_spec(kind, cfg)
+    with pytest.raises(NotImplementedError, match="item 13"):
+        blocks.block_spec(cfgs.CROSS, cfg)
     params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
                                      "cpu")
     qat = dataclasses.replace(cfg, quant=QuantConfig.qat(8))
