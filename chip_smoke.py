@@ -118,6 +118,18 @@ cache in place) and times both, then drives the port's four paths:
   held to the step through B3's plain version; then
   ``launch.serve.main`` for recurrentgemma (fp32, int8 cache, PTQ int8)
   and xlstm (fp32, PTQ int8) with exact B3 / B5 counts;
+* LM training -- ``launch.steps.make_train_step`` trains h2o-danube-1.8b
+  at full size (bfloat16 compute over float32 masters, float32 Adam,
+  per-unit activation checkpointing) for 8 steps of 2 x 2,048 synthetic
+  tokens: B4 twice an attention layer a step (forward and recompute) and
+  nothing else, finite and falling losses, per step the loss, grad norm,
+  time and peak memory; at full width and depth 2 one float32 step
+  against the host CPU (loss, every gradient and updated param), QAT int8
+  through its delay (B5 at every site, counted; the first collection
+  against the CPU's) and 8-bit Adam (moment bytes beside float32's);
+  xlstm-125m at full size; and B4's backward (the gradient of dense
+  attention in torch ops) timed at the training shape beside SDPA's
+  forward and backward;
 
 and checks that each path really launched its kernels.  Any failed check
 raises.  The last line of standard output is
@@ -128,7 +140,8 @@ the line before it the card's name and power limit, and the one before
 that a JSON object listing every ported kernel with its launches on the
 path it serves (serving for B1 and B2, the sequence-actor rollouts for
 B3, the QAT training run for B5, the LM prefill for B4; then B3 and B4
-again at the families' shapes, with the families' launches), its largest
+again at the families' shapes, with the families' launches, and B4 and
+B5 at LM training's, with its launches), its largest
 difference from the plain
 version and its times.  All rows are also written to
 ``chiprun_out/chip_smoke.json``.  Without CUDA, or outside the repository,
@@ -207,7 +220,11 @@ SITE_ROWS = (("cartpole fc0/w", "weight", (4, 64)),
              ("seq rollout blk/q/out", "activation", (8, 6, 32)),
              ("seq embed/w", "weight", (27, 32)),
              ("seq fc/w", "weight", (32, 64)),
-             ("seq head/w", "weight", (32, 3)))
+             ("seq head/w", "weight", (32, 3)),
+             # danube's widest QAT sites in LM training (full width, batch
+             # 2 x 256): the MLP's hidden activation and its wi weight
+             ("lm mlp/h", "activation", (2, 256, 6912)),
+             ("lm mlp/wi/w", "weight", (2560, 6912)))
 SITE_DELAY = 6                    # steps 5, 6, 9: before, at, after it
 # kernels a profiled QAT iteration may launch per fp32 iteration: fp32's
 # plus 6 site launches a forward (PERF.md, sections 2 and 5)
@@ -290,7 +307,9 @@ FLASH_ROWS = (
     ("recurrentgemma prefill", 1, 10, 1, 8192, 8192, 256, True, 2048, None),
     ("mixtral prefill", 1, 32, 8, 8192, 8192, 128, True, 4096, None),
     ("stablelm attention", 1, 32, 8, 4096, 4096, 160, True, None, None),
-    ("codeqwen attention", 1, 32, 32, 4096, 4096, 128, True, None, None))
+    ("codeqwen attention", 1, 32, 32, 4096, 4096, 128, True, None, None),
+    # the LM training step's attention layer (danube, batch 2 x 2,048)
+    ("danube train", 2, 32, 8, 2048, 2048, 80, True, 4096, None))
 FLASH_ATOL = 1e-5                 # docs/contracts.md, "Attention parity"
 # B3 at the shapes of its paths: (label, NB, NH, G, T, Dh, window, pos,
 # layout).  "rows" is the sequence actor's (R, T, Dh) cache, R = NB * NH;
@@ -356,6 +375,32 @@ FAMILY_SERVE_RUNS = (
     (FAMILY_RG, "ptq_int8", ["--quant", "ptq_int8"]),
     (FAMILY_XLSTM, "fp32 cache", []),
     (FAMILY_XLSTM, "ptq_int8", ["--quant", "ptq_int8"]))
+# the lm_train phase: LM training (launch.steps.make_train_step) of
+# h2o-danube-1.8b at full size, its own mp (bfloat16 compute over float32
+# master weights) and float32 Adam at the reference launcher's lr, on
+# SyntheticLMDataset(seed=SEED) batches
+LM_TRAIN_ARCH = "h2o-danube-1.8b"
+LM_TRAIN_SHAPE = (2, 2048)        # batch x sequence
+LM_TRAIN_STEPS = 8
+LM_TRAIN_LR = 3e-4
+# the checks at full width and depth 2: one float32-compute step on the
+# card and on the host CPU (loss within LM_TRAIN_LOSS_RTOL; each gradient
+# leaf within LM_TRAIN_GRAD_RTOL of its largest magnitude; each updated
+# param within 2.02 x lr: Adam's first step moves a param by lr times
+# g / (|g| + eps), so a near-zero gradient whose sign differs between the
+# two moves it by up to 2 lr), QAT int8 with its delay inside the run
+# (the collection after the first step within 1e-5 of the CPU's), and
+# 8-bit Adam
+LM_TRAIN_DEPTH = 2
+LM_TRAIN_SHORT = (2, 256)
+LM_TRAIN_LOSS_RTOL = 1e-5
+LM_TRAIN_GRAD_RTOL = 1e-3
+LM_TRAIN_PARAM_ATOL = 2.02 * LM_TRAIN_LR
+LM_TRAIN_QAT = (2, 4)             # quant_delay, steps
+LM_TRAIN_COLL_TOL = 1e-5
+LM_TRAIN_8BIT_STEPS = 4
+# a recurrent config at full size: xlstm-125m, batch 2 x 256, 4 steps
+LM_TRAIN_XLSTM = ("xlstm-125m", (2, 256), 4)
 # the conv phase: the paper's Atari conv actor (Appendix B; Policies A/B/C
 # of Table 10, src/repro/configs/quarl_atari.py:29-32, the port's copy in
 # src/repro_torch/configs/quarl_atari.py) on pixel Catch (10x10x1, 3
@@ -442,10 +487,10 @@ SMALL_DDPG = dict(n_envs=4, rollout_steps=4, updates_per_iter=2,
                   buffer_size=512, batch_size=16, warmup=8)
 # DDPG at Policy II's widths (Table 5): iterations each, in chunks taken
 # in turns
-ALGO_WIDE_ITERS, ALGO_WIDE_CHUNK = 10, 5   # cut from 40, 10, then 20, 5
+ALGO_WIDE_ITERS, ALGO_WIDE_CHUNK = 6, 3    # cut from 40, 10, 20, 5, 10, 5
 # the launcher's default run (PPO on CartPole), these of its default 200
 # iterations, for time
-ALGO_LAUNCH_ITERS = 40
+ALGO_LAUNCH_ITERS = 20            # cut from 40
 # the seq_train phase: DQN with the sequence actor (SEQ_NET) on catch_seq
 # at the reference's configs (tests/test_seq_policy.py:318-351): the
 # fused smoke, then the convergence bar in the three topologies, held to
@@ -468,7 +513,7 @@ SEQ_QAT_ITERS, SEQ_QAT_DELAY = 30, 40
 SEQ_TIME_RUNS = (("fp32", {}), ("int8", dict(actor_backend="int8")),
                  ("int4", dict(actor_backend="int4")),
                  ("qat8", dict(qat_delay=SEQ_QAT_DELAY)))
-SEQ_TIME_ITERS, SEQ_TIME_CHUNK = 6, 3      # cut from 20, 10, then 10, 5
+SEQ_TIME_ITERS, SEQ_TIME_CHUNK = 4, 2      # cut from 20, 10, 10, 5, 6, 3
 # the resume phase: tests/test_resume.py:31-99 at its small config (Catch
 # with hidden=(16,) is the default conv net), each case trained to
 # RESUME_AT with checkpoints, resumed to RESUME_TO, and held bitwise to the
@@ -3153,7 +3198,7 @@ def lm_phase(torch, dev, smi, counters) -> dict:
     check(diff <= LM_CPU_ATOL, f"card vs CPU prefill logits: max abs diff "
                                f"{diff} (tolerance {LM_CPU_ATOL})")
     # ... and against token-by-token decode on the card
-    full = transformer.forward(cfg, params, short)
+    full = transformer.forward(cfg, params, short)[0]
     caches = transformer.init_caches(cfg, b, LM_SHORT, device=dev)
     worst = 0.0
     for pos in range(LM_SHORT):
@@ -3365,10 +3410,10 @@ def family_parity(torch, dev, smi, counters, cfg, params) -> dict:
     params_cpu = ptq.tree_to(params, "cpu")
     to_cpu_s = time.perf_counter() - t
     with Routes() as on_card:
-        card = transformer.forward(cfg, params, short.to(dev)).cpu()
+        card = transformer.forward(cfg, params, short.to(dev))[0].cpu()
     t = time.perf_counter()
     with Routes(replay=on_card) as on_cpu:
-        cpu = transformer.forward(cfg, params_cpu, short)
+        cpu = transformer.forward(cfg, params_cpu, short)[0]
     cpu_s = time.perf_counter() - t
     del params_cpu
     flipped = on_cpu.flipped(on_card)
@@ -3381,7 +3426,7 @@ def family_parity(torch, dev, smi, counters, cfg, params) -> dict:
     dcfg = dataclasses.replace(cfg, capacity_factor=4.0) if cfg.n_experts \
         else cfg
     toks = short.to(dev)
-    full = transformer.forward(dcfg, params, toks)
+    full = transformer.forward(dcfg, params, toks)[0]
     caches = {i8: transformer.init_caches(dcfg, 1, LM_SHORT, int8=i8,
                                           device=dev) for i8 in (False, True)}
     worst, plain_diff, corrs = 0.0, 0.0, []
@@ -3616,6 +3661,316 @@ def decode_long(torch, dev, cfg, params, counters, smi,
     del c8, c32
     torch.cuda.empty_cache()
     return row
+
+
+def lm_qat_launches(cfg, batch: int, seq: int) -> int:
+    """B5 launches of one QAT train step of an attention + MLP config with
+    remat: each of a unit's 7 weight and 6 activation sites twice a
+    layer (the forward and the backward's recompute), ``embed/out`` once,
+    the head's weight site twice a loss chunk of 256; a site of more than
+    4,096 elements is two launches."""
+    def n(x):
+        return 1 if x <= 4096 else 2
+    d, f, t = cfg.d_model, cfg.d_ff, batch * seq
+    q, kv = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+    weights = (d * q, d * kv, d * kv, q * d, d * f, d * f, f * d)
+    acts = (t * q, t * kv, t * kv, t * d, t * f, t * d)
+    unit = sum(map(n, weights + acts))
+    chunk = min(256, seq)
+    chunks = seq // chunk if seq % chunk == 0 else 1
+    return 2 * cfg.n_layers * unit + n(t * d) + 2 * chunks * n(
+        d * cfg.vocab)
+
+
+def lm_batch(torch, batch, dev) -> dict:
+    """A ``SyntheticLMDataset`` batch as int64 tensors on ``dev``."""
+    return {k: torch.from_numpy(v).long().to(dev) for k, v in batch.items()}
+
+
+def lm_train_run(torch, dev, counters, cfg, params, shape, n_steps,
+                 adam_cfg, want, label, qat=None) -> dict:
+    """``n_steps`` of ``launch.steps.make_train_step`` from ``params`` on
+    ``SyntheticLMDataset(seed=SEED)`` batches of ``shape``; each step with
+    every count set to 0 just before it and read just after (held to
+    ``want``), its loss, grad norm, host ms around the synced step and
+    peak device memory printed.  Every loss finite."""
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.optim import adam
+    step_fn, adam_cfg = steps_lib.make_train_step(cfg, adam_cfg)
+    opt = adam.adam_init(params, adam_cfg)
+    b, s = shape
+    data = SyntheticLMDataset(vocab=cfg.vocab, seq_len=s, batch=b,
+                              seed=SEED).batches()
+    rows, first_qat = [], None
+    for i in range(n_steps):
+        batch = lm_batch(torch, next(data), dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.reset()
+        t = time.perf_counter()
+        params, opt, qat, m = step_fn(params, opt, batch, qat)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        n = {k: c.value for k, c in counters.items()}
+        check(n == want, f"lm_train {label} step {i}: launches {n}, want "
+                         f"{want}")
+        row = dict(step=i, loss=float(m["loss"]),
+                   grad_norm=float(m["grad_norm"]), step_ms=ms,
+                   peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   launches=n)
+        print(f"lm_train {label} " + json.dumps(row))
+        rows.append(row)
+        first_qat = qat if first_qat is None else first_qat
+    check(all(np.isfinite(r["loss"]) for r in rows),
+          f"lm_train {label}: finite losses")
+    return dict(rows=rows, params=params, opt=opt, first_qat=first_qat)
+
+
+def collection_diff(st, want, name: str) -> float:
+    """One observer against another: the same ``initialized``, and the
+    larger difference of the range ends, relative to ends above 1."""
+    check(bool(st.initialized) == bool(want.initialized),
+          f"{name}: initialized alike")
+    return max(float((a - b).abs()) / max(1.0, float(b.abs()))
+               for a, b in ((st.vmin, want.vmin), (st.vmax, want.vmax)))
+
+
+def lm_card_vs_cpu(torch, dev, cfg, params, batch, coll=None):
+    """One train step (``steps.value_and_grad`` then ``adam_update``: the
+    body of ``make_train_step`` at ``grad_accum`` 1) from the same params
+    and batch on the card and on the host CPU: the loss, every gradient
+    leaf (against its largest magnitude) and every updated param, and the
+    QAT collection with ``coll``.  Returns the comparison and the CPU's
+    new collection."""
+    from repro_torch.core import ptq
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.optim import adam
+    acfg = adam.AdamConfig(lr=LM_TRAIN_LR)
+    out = {}
+    for where in ("card", "cpu"):
+        d = dev if where == "card" else torch.device("cpu")
+        p = params if where == "card" else ptq.tree_to(params, "cpu")
+        c = None if coll is None else ptq.tree_to(coll, d)
+        opt = adam.adam_init(p, acfg)
+        t = time.perf_counter()
+        loss, metrics, grads = steps_lib.value_and_grad(
+            cfg, p, lm_batch(torch, batch, d), c, opt.step)
+        with torch.no_grad():
+            new_p, _, _ = adam.adam_update(grads, opt, p, acfg)
+        if where == "card":
+            torch.cuda.synchronize()
+        out[where] = dict(loss=float(loss), s=time.perf_counter() - t,
+                          grads=ptq.tree_to(grads, "cpu"),
+                          params=ptq.tree_to(new_p, "cpu"),
+                          coll=ptq.tree_to(metrics["qat_collection"], "cpu"))
+        del p, grads, new_p, opt
+    card, cpu = out["card"], out["cpu"]
+    loss_rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    grad_rel = 0.0
+    for (k, g), (_, w) in zip(ptq.tree_tensors(card["grads"]),
+                              ptq.tree_tensors(cpu["grads"])):
+        scale = float(w.abs().max())
+        grad_rel = max(grad_rel, float((g - w).abs().max()) / max(
+            scale, 1e-30))
+    param_diff, moved = 0.0, 0
+    for (k, x), (_, y) in zip(ptq.tree_tensors(card["params"]),
+                              ptq.tree_tensors(cpu["params"])):
+        dxy = (x - y).abs()
+        param_diff = max(param_diff, float(dxy.max()))
+        moved += int((dxy > 1e-6).sum())
+    coll_diff = 0.0
+    for k, st in card["coll"].items():
+        coll_diff = max(coll_diff, collection_diff(st, cpu["coll"][k], k))
+    return dict(card_loss=card["loss"], cpu_loss=cpu["loss"],
+                loss_rel_diff=loss_rel, grad_max_rel_diff=grad_rel,
+                param_max_abs_diff=param_diff,
+                params_differing_over_1e6=moved,
+                collection_max_diff=coll_diff if card["coll"] else None,
+                card_s=card["s"], cpu_s=cpu["s"]), cpu["coll"]
+
+
+def lm_train_phase(torch, dev, smi, counters) -> dict:
+    """LM training through ``launch.steps.make_train_step`` on the card.
+
+    h2o-danube-1.8b at full size: ``LM_TRAIN_STEPS`` steps of
+    ``LM_TRAIN_SHAPE`` (bfloat16 compute, float32 Adam, remat), B4 twice
+    an attention layer a step (the forward and the recompute) and nothing
+    else, every loss finite and the last below the first.  At full width
+    and depth ``LM_TRAIN_DEPTH``: one float32 step against the host CPU
+    (``lm_card_vs_cpu``), QAT int8 through its delay with B5 counted
+    (``lm_qat_launches``) and the first step's collection against the
+    CPU's, and 8-bit Adam with its moment bytes beside float32's.
+    xlstm-125m at full size (``LM_TRAIN_XLSTM``).  Last, B4's backward
+    (the gradient of dense attention in torch ops) timed at the training
+    shape beside SDPA's forward and backward."""
+    import dataclasses
+
+    import torch.nn.functional as F
+
+    from repro_torch.configs import base as cfgs
+    from repro_torch.core import ptq
+    from repro_torch.core.qconfig import MixedPrecisionConfig, QuantConfig
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.kernels import flash_attention, ref
+    from repro_torch.models import transformer
+    from repro_torch.optim import adam
+    rows = {}
+    zero = {k: 0 for k in counters}
+    cfg = cfgs.get(LM_TRAIN_ARCH)
+    check(cfg.mp.compute_dtype == "bfloat16" and cfg.remat,
+          f"{cfg.name}: bfloat16 compute with remat")
+    t = time.perf_counter()
+    params = transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    n_params = sum(x.numel() for _, x in ptq.tree_tensors(params))
+    init_s = time.perf_counter() - t
+    run = lm_train_run(torch, dev, counters, cfg, params, LM_TRAIN_SHAPE,
+                       LM_TRAIN_STEPS, adam.AdamConfig(lr=LM_TRAIN_LR),
+                       dict(zero, flash_attention=2 * cfg.n_layers),
+                       "full")
+    del params
+    losses = [r["loss"] for r in run["rows"]]
+    check(losses[-1] < losses[0], f"lm_train full: last loss {losses[-1]} "
+                                  f"below the first {losses[0]}")
+    b, s = LM_TRAIN_SHAPE
+    walls = [r["step_ms"] for r in run["rows"][1:]]
+    rows["full"] = dict(
+        arch=cfg.name, params=n_params, batch=b, seq=s, init_card_s=init_s,
+        steps=run["rows"], tokens_per_s=[b * s / (w / 1e3) for w in walls],
+        peak_gb=max(r["peak_gb"] for r in run["rows"]),
+        flash_launches=sum(r["launches"]["flash_attention"]
+                           for r in run["rows"]), card=smi)
+    del run
+    torch.cuda.empty_cache()
+
+    # full width, depth LM_TRAIN_DEPTH: the card against the host CPU
+    short = dataclasses.replace(cfg, n_layers=LM_TRAIN_DEPTH)
+    f32 = dataclasses.replace(short, mp=MixedPrecisionConfig.fp32())
+    params = transformer.init_params(
+        short, torch.Generator(device=dev).manual_seed(SEED + 1), dev)
+    b, s = LM_TRAIN_SHORT
+    batch = next(SyntheticLMDataset(vocab=cfg.vocab, seq_len=s, batch=b,
+                                    seed=SEED).batches())
+    par, _ = lm_card_vs_cpu(torch, dev, f32, params, batch)
+    print("lm_train card_vs_cpu " + json.dumps(par))
+    check(par["loss_rel_diff"] <= LM_TRAIN_LOSS_RTOL
+          and par["grad_max_rel_diff"] <= LM_TRAIN_GRAD_RTOL
+          and par["param_max_abs_diff"] <= LM_TRAIN_PARAM_ATOL,
+          f"lm_train card vs CPU float32 step: {par}")
+    rows["card_vs_cpu"] = par
+
+    # QAT int8 at full width, depth LM_TRAIN_DEPTH, through its delay
+    delay, n_q = LM_TRAIN_QAT
+    qcfg = dataclasses.replace(f32, quant=QuantConfig.qat(
+        8, quant_delay=delay))
+    coll = transformer.init_qat_collection(qcfg, dev)
+    per_step = lm_qat_launches(qcfg, b, s)
+    qrun = lm_train_run(torch, dev, counters, qcfg, params, LM_TRAIN_SHORT,
+                        n_q, adam.AdamConfig(lr=LM_TRAIN_LR),
+                        dict(zero, fake_quant=per_step,
+                             flash_attention=2 * qcfg.n_layers), "qat8",
+                        qat=coll)
+    qpar, cpu_coll = lm_card_vs_cpu(torch, dev, qcfg, params, batch, coll)
+    # the run's own collection after its first step against the CPU's
+    card_first = ptq.tree_to(qrun["first_qat"], "cpu")
+    check(sorted(card_first) == sorted(coll) == sorted(cpu_coll),
+          "lm_train qat8: the collection keeps its sites")
+    qpar["run_collection_max_diff"] = max(
+        collection_diff(st, cpu_coll[k], k) for k, st in card_first.items())
+    print("lm_train qat8 card_vs_cpu " + json.dumps(qpar))
+    check(qpar["run_collection_max_diff"] <= LM_TRAIN_COLL_TOL
+          and qpar["collection_max_diff"] <= LM_TRAIN_COLL_TOL
+          and qpar["loss_rel_diff"] <= LM_TRAIN_LOSS_RTOL,
+          f"lm_train qat8 first step against the CPU: {qpar}")
+    rows["qat8"] = dict(quant_delay=delay, steps=qrun["rows"],
+                        fake_quant_per_step=per_step,
+                        fake_quant_launches=per_step * n_q,
+                        sites=len(coll), first_step_vs_cpu=qpar)
+    del qrun, coll
+    torch.cuda.empty_cache()
+
+    # 8-bit Adam at full width, depth LM_TRAIN_DEPTH
+    q8 = dataclasses.replace(short, optimizer_8bit=True)
+    f32_bytes = adam.moment_bytes(adam.adam_init(params, adam.AdamConfig()))
+    erun = lm_train_run(torch, dev, counters, q8, params, LM_TRAIN_SHORT,
+                        LM_TRAIN_8BIT_STEPS, adam.AdamConfig(
+                            lr=LM_TRAIN_LR, eightbit=True),
+                        dict(zero, flash_attention=2 * q8.n_layers), "8bit")
+    q8_bytes = adam.moment_bytes(erun["opt"])
+    check(3.5 < f32_bytes / q8_bytes <= 4.0,
+          f"8-bit moments {q8_bytes} B against float32's {f32_bytes} B")
+    rows["eightbit"] = dict(steps=erun["rows"], moment_bytes=q8_bytes,
+                            f32_moment_bytes=f32_bytes,
+                            ratio=f32_bytes / q8_bytes)
+    print("lm_train 8bit moments " + json.dumps(
+        {k: v for k, v in rows["eightbit"].items() if k != "steps"}))
+    del erun, params
+    torch.cuda.empty_cache()
+
+    # a recurrent config at full size
+    arch, shape, n_x = LM_TRAIN_XLSTM
+    xcfg = cfgs.get(arch)
+    params = transformer.init_params(
+        xcfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+    xrun = lm_train_run(torch, dev, counters, xcfg, params, shape, n_x,
+                        adam.AdamConfig(lr=LM_TRAIN_LR), zero, arch)
+    rows["xlstm"] = dict(arch=arch, batch=shape[0], seq=shape[1],
+                         steps=xrun["rows"])
+    del xrun, params
+    torch.cuda.empty_cache()
+
+    # B4's backward at the training shape, beside SDPA's forward+backward
+    _, bb, h, kv, s_, t_, d, causal, window, _ = next(
+        r for r in FLASH_ROWS if r[0] == "danube train")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 32)
+    q = torch.randn((bb, s_, h, d), generator=gen, device=dev)
+    k = torch.randn((bb, t_, kv, d), generator=gen, device=dev)
+    v = torch.randn((bb, t_, kv, d), generator=gen, device=dev)
+    g = torch.randn((bb, s_, h, d), generator=gen, device=dev)
+    out = flash_attention.flash_attention_cuda(q, k, v, causal=causal,
+                                               window=window)
+    grads = flash_attention.dense_attention_grad(q, k, v, out, g,
+                                                 causal=causal,
+                                                 window=window)
+    check(all(bool(torch.isfinite(x).all()) for x in grads),
+          "B4 backward at the training shape: finite gradients")
+    del grads
+    reps = dict(reps=5, per_rep=2)
+    bwd_ms = device_ms(torch, lambda: flash_attention.dense_attention_grad(
+        q, k, v, out, g, causal=causal, window=window), **reps)
+    rep = h // kv
+    leaves = [q.transpose(1, 2).contiguous(),
+              k.transpose(1, 2).repeat_interleave(rep, 1).contiguous(),
+              v.transpose(1, 2).repeat_interleave(rep, 1).contiguous()]
+    leaves = [x.requires_grad_(True) for x in leaves]
+    gt = g.transpose(1, 2).contiguous()
+    mask = ref.attention_mask(s_, t_, causal=causal, window=window,
+                              device=dev)
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(*leaves, attn_mask=mask,
+                                           scale=d ** -0.5)
+        return torch.autograd.grad(o, leaves, gt)
+    sdpa_ms = device_ms(torch, sdpa_fwd_bwd, **reps)
+    pairs = bb * h * flash_pairs(s_, t_, causal, window)
+    # the dense backward's five products (scores, dv, dp, dq, dk) over
+    # the unmasked pairs, float32 FMA; q, k, v, out, g read, dq, dk, dv
+    # written
+    nbytes = 4 * (3 * bb * s_ * h * d + 4 * bb * t_ * kv * d)
+    b_ms, b_by = bound(nbytes, 5 * 2.0 * d * pairs, F32_OPS_PER_S)
+    rows["b4_backward"] = dict(
+        shape=dict(B=bb, H=h, KV=kv, S=s_, T=t_, D=d), window=window,
+        backward_ms=bwd_ms, backward_bound_ms=b_ms, backward_bound_by=b_by,
+        sdpa_fwd_bwd_ms=sdpa_ms,
+        sdpa="scaled_dot_product_attention forward + backward, K/V "
+             "repeated, boolean mask", card=smi)
+    print("lm_train b4_backward " + json.dumps(rows["b4_backward"]))
+    del q, k, v, g, out, leaves, gt, mask
+    torch.cuda.empty_cache()
+    return rows
 
 
 def _spec_weights(spec) -> int:
@@ -4216,6 +4571,14 @@ def main() -> int:
                             fake_quant.launches, flash_attention.launches)})
     print(f"families phase: {time.perf_counter() - t_fam:.1f}s")
 
+    # ---- lm_train phase (LM training, --mode lm) --------------------------
+    t_lmt = time.perf_counter()
+    lmt = lm_train_phase(torch, dev, smi, {
+        c.name: c for c in (int8_matmul.launches, fused_qmlp.launches,
+                            int8_cache_attention.launches,
+                            fake_quant.launches, flash_attention.launches)})
+    print(f"lm_train phase: {time.perf_counter() - t_lmt:.1f}s")
+
     # ---- report -----------------------------------------------------------
     def head(name, **want):
         """The kernel-phase row that stands for ``name`` in the report."""
@@ -4272,7 +4635,13 @@ def main() -> int:
              head("flash_attention", label="recurrentgemma prefill")),
             ("flash_attention",
              mx["prefill"]["launches"]["flash_attention"],
-             head("flash_attention", label="mixtral prefill"))):
+             head("flash_attention", label="mixtral prefill")),
+            # the lm_train phase: B4 in the full-size danube training run,
+            # B5's site kernel in the QAT run
+            ("flash_attention", lmt["full"]["flash_launches"],
+             head("flash_attention", label="danube train")),
+            ("fake_quant", lmt["qat8"]["fake_quant_launches"],
+             head("fake_quant", label="site lm mlp/h"))):
         base = next(r for r in report if r["name"] == name)
         report.append(dict(
             base, label=pick["label"], launches=n,
@@ -4295,7 +4664,7 @@ def main() -> int:
                                  seconds=seq["seconds"]),
              resume_rows=resume["rows"],
              resilience_rows=rz["rows"], serve_rl_rows=serve_rl["rows"],
-             lm_rows=lm, families_rows=fam,
+             lm_rows=lm, families_rows=fam, lm_train_rows=lmt,
              path_launches=dict(serve=launches, rollout=roll_launches,
                                 train_qat=train["qat_launches"],
                                 topology_async_int8=topo["launches"],
@@ -4306,7 +4675,11 @@ def main() -> int:
                                 serve_rl=serve_rl["launches"],
                                 lm_prefill=lm["prefill"]["launches"],
                                 families_rg_prefill=rg["prefill"][
-                                    "launches"]),
+                                    "launches"],
+                                lm_train_full_flash=lmt["full"][
+                                    "flash_launches"],
+                                lm_train_qat8_fake_quant=lmt["qat8"][
+                                    "fake_quant_launches"]),
              kernels=report, seconds=time.perf_counter() - t0), indent=1))
     print(f"total {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": report}))

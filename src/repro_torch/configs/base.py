@@ -4,14 +4,15 @@ Counterpart of ``repro/configs/base.py``.  Each ported architecture has a
 module here exporting ``CONFIG`` (the published dimensions, source cited)
 and ``REDUCED`` (the smoke-test variant of the same family), registered
 under its ``--arch`` name.  The port registers what its LM inference
-path runs: the dense-attention, MoE and recurrent (RG-LRU, xLSTM)
-configs.  The reference's other architectures are known by name, and
+and training paths run: the dense-attention, MoE and recurrent (RG-LRU,
+xLSTM) configs.  The reference's other architectures are known by name, and
 ``get`` of one raises ``NotImplementedError`` until what it needs is
 ported (ROADMAP queue A, item 13): grok-1-314b's bfloat16 parameters,
 and the encoder and cross-attention of whisper-tiny and
-llama-3.2-vision-90b.  The sharding fields (``sharding``, ``remat``,
-``scan_layers``) are kept as inert data: the port runs on one card with
-no mesh.
+llama-3.2-vision-90b.  ``remat`` turns on per-unit activation
+checkpointing in training; ``sharding`` and ``scan_layers`` are kept as
+inert data: the port runs on one card with no mesh, and loops over the
+stacked layers.
 """
 from __future__ import annotations
 
@@ -165,9 +166,9 @@ _REGISTRY: Dict[str, ArchEntry] = {}
 _ARCH_MODULES = ["h2o_danube_1_8b", "gemma2_9b", "recurrentgemma_2b",
                  "xlstm_125m", "mixtral_8x7b", "codeqwen1_5_7b",
                  "stablelm_12b"]
-# the reference's other architectures: grok-1's bfloat16 params wait for
-# mixed precision, whisper's encoder and llama-vision's cross-attention
-# for their frontends
+# the reference's other architectures: grok-1's bfloat16 params through
+# prefill and decode, whisper's encoder and llama-vision's cross-attention
+# wait for their own slices
 _NOT_PORTED = ("grok-1-314b", "llama-3.2-vision-90b", "whisper-tiny")
 
 

@@ -40,9 +40,8 @@ class QuantConfig:
     ``quantize_activations``: QAT quantizes activations as well as
     weights; PTQ weights only.  ``per_axis_conv``: per-output-channel
     quantization of conv kernels.  ``quantize_router``: whether MoE
-    router layers are quantized (MoE is not ported yet: ROADMAP queue A,
-    item 13).  ``int8_kv_cache``: store the LM decode KV cache as int8
-    codes with per-token scales.
+    router layers are quantized.  ``int8_kv_cache``: store the LM decode
+    KV cache as int8 codes with per-token scales.
     """
 
     mode: QuantMode = QuantMode.NONE
@@ -136,9 +135,9 @@ class MixedPrecisionConfig:
     Counterpart of ``repro/core/qconfig.py:129-157``.  ``compute_dtype``
     is the activations' and matmuls' type, ``param_dtype`` the master
     weights'; ``loss_scale`` / ``dynamic_loss_scale`` guard fp16
-    gradients.  Nothing in the port casts by it yet: the LM inference path
-    runs in float32, as the reference's serve launcher does (bf16 comes
-    with LM training, ROADMAP queue A, item 13).
+    gradients.  LM training casts by it (``core.mixed_precision.
+    to_compute`` in ``launch.steps.make_train_step``); the LM inference
+    path runs in float32, as the reference's serve launcher does.
     """
 
     compute_dtype: str = "float32"   # "bfloat16" | "float16" | "float32"

@@ -191,3 +191,51 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
     launches.add()
     return out
+
+
+def dense_attention_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         out: torch.Tensor, g: torch.Tensor, *,
+                         causal: bool = True, window: Optional[int] = None,
+                         softcap: Optional[float] = None,
+                         scale: Optional[float] = None):
+    """The gradient of dense softmax attention, ``(dq, dk, dv)`` float32.
+
+    What the reference's training path differentiates
+    (``repro/models/attention.py: dense_attention``, float32 logits,
+    masked ones ``-1e30``), written in torch ops as autodiff derives it:
+    the masked, soft-capped scores recomputed, ``p = softmax``, then ``dv
+    = p^T g``, ``ds = p * (g v^T - rowsum(g * out))`` through the
+    soft-cap's ``1 - tanh^2`` and the scale, ``dq = ds k``, ``dk = ds^T
+    q``.  ``q, out, g (B, S, H, D)``, ``k, v (B, T, KV, D)``: query head
+    ``h`` reads KV head ``h // G``, so K's and V's gradients are summed
+    over the G heads of a group (K and V are never repeated).  Holds
+    ``(B, H, S, T)`` float32 scores a few times over.
+    """
+    b, s, h, d = q.shape
+    t, kv = k.shape[1], k.shape[2]
+    g_ = h // kv
+    scale = _scale(d, scale)
+    f32 = torch.float32
+    q5 = q.to(f32).reshape(b, s, kv, g_, d)
+    k32, v32 = k.to(f32), v.to(f32)
+    g5 = g.to(f32).reshape(b, s, kv, g_, d)
+    mask = ref.attention_mask(s, t, causal=causal, window=window,
+                              device=q.device)
+    sc = torch.einsum("bqkgd,bskd->bkgqs", q5, k32) * scale
+    tanh = None
+    if softcap is not None:
+        tanh = torch.tanh(sc / softcap)
+        sc = softcap * tanh
+    p = torch.softmax(sc.masked_fill_(~mask, -1e30), dim=-1)
+    del sc
+    dv = torch.einsum("bkgqs,bqkgd->bskd", p, g5)
+    rows = torch.sum(g5 * out.to(f32).reshape(b, s, kv, g_, d), dim=-1)
+    ds = torch.einsum("bqkgd,bskd->bkgqs", g5, v32)
+    ds = p.mul_(ds.sub_(rows.permute(0, 2, 3, 1)[..., None]))
+    if tanh is not None:
+        ds = ds * (1.0 - tanh * tanh)
+        del tanh
+    ds = ds * scale
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds, k32).reshape(b, s, h, d)
+    dk = torch.einsum("bkgqs,bqkgd->bskd", ds, q5)
+    return dq, dk, dv

@@ -154,6 +154,37 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                      softcap=softcap, scale=scale)
 
 
+class FlashAttentionDenseGrad(torch.autograd.Function):
+    """``flash_attention`` forward (kernel B4 on the card, its plain
+    version on the CPU), backward the gradient of dense softmax attention
+    (``flash_attention.dense_attention_grad``, torch ops), as the
+    reference's training path differentiates ``dense_attention``.
+
+    ``apply(q, k, v, causal, window, softcap, scale)``: q, k and v go to
+    B4 in float32 and the output comes back in q's dtype (the reference's
+    float32 logits and ``astype(q.dtype)``); the gradients come back in
+    each input's dtype.  Saves q, k, v and the float32 output.
+    """
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, scale):
+        f32 = torch.float32
+        out = flash_attention(q.to(f32), k.to(f32), v.to(f32),
+                              causal=causal, window=window, softcap=softcap,
+                              scale=scale)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.kw = dict(causal=causal, window=window, softcap=softcap,
+                      scale=scale)
+        return out.to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out = ctx.saved_tensors
+        dq, dk, dv = _fa.dense_attention_grad(q, k, v, out, g, **ctx.kw)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None,
+                None, None)
+
+
 def int8_cache_attention(q: torch.Tensor, k_codes: torch.Tensor,
                          k_scale: torch.Tensor, v_codes: torch.Tensor,
                          v_scale: torch.Tensor, pos, *,

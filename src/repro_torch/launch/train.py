@@ -1,6 +1,6 @@
-"""Training launcher of the port: the ``--mode rl`` path.
+"""Training launcher of the port: ``--mode rl`` and ``--mode lm``.
 
-Counterpart of ``repro/launch/train.py:26-101``, with the same flags and
+Counterpart of ``repro/launch/train.py``, with the same flags and
 ``--actor-backend`` (the ActorQ actor: ``fp32``, ``int8`` or ``int4``).
 Trains any of the four algorithms with the fused driver on the card
 (``--device cpu`` runs the plain versions on the CPU) and prints the
@@ -30,13 +30,25 @@ and prints its report:
         --env cartpole --actor-backend int8 --fault-plan "5:nan_grad@4" \
         --ckpt-dir /tmp/ckpt --ckpt-every 2
 
-Not ported yet, and raising ``NotImplementedError`` naming the ROADMAP
-queue A item: ``--mode lm`` (item 13).
+``--mode lm`` trains a language model (``--arch``, ``--reduced`` for the
+smoke-test variant, ``--steps``, ``--batch``, ``--seq``, ``--lr``) on the
+synthetic token stream with the config's mixed precision, QAT and 8-bit
+Adam, through ``launch.steps.make_train_step``; ``--ckpt-dir`` /
+``--ckpt-every`` save the params and ``--resume`` warm-starts from the
+newest ones (params only, as the reference's LM loop):
+
+    PYTHONPATH=src python -m repro_torch.launch.train --mode lm \
+        --arch h2o-danube-1.8b --reduced --steps 4 --device cpu
+
+The encoder and cross-attention configs (whisper-tiny,
+llama-3.2-vision-90b) and grok-1-314b raise ``NotImplementedError``
+naming ROADMAP queue A, item 13.
 """
 from __future__ import annotations
 
 import argparse
 import sys
+import time
 
 
 def main(argv=None) -> int:
@@ -51,6 +63,13 @@ def main(argv=None) -> int:
                     choices=("fp32", "int8", "int4"),
                     help="the rollout and eval actor (ActorQ)")
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--arch", default="xlstm-125m")
+    ap.add_argument("--reduced", action="store_true",
+                    help="use the smoke-test-sized variant")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     ap.add_argument("--ckpt-dir", default=None)
@@ -75,8 +94,7 @@ def main(argv=None) -> int:
                          "escalations after retries exhaust")
     args = ap.parse_args(argv)
     if args.mode == "lm":
-        raise NotImplementedError("--mode lm is not ported yet (ROADMAP "
-                                  "queue A, item 13)")
+        return run_lm(args)
     return run_rl(args)
 
 
@@ -112,6 +130,62 @@ def run_rl(args) -> int:
     print(f"[train/rl] {args.algo} on {args.env} quant={quant.label()} "
           f"actor={args.actor_backend} device={res.device}: eval rewards "
           f"{['%.1f' % r for r in res.rewards]} ({res.wall_time_s:.0f}s)")
+    return 0
+
+
+def run_lm(args) -> int:
+    """Train the LM for ``--steps`` steps, printing the loss and the
+    grad norm about ten times; 0 on success."""
+    import torch
+
+    from repro_torch import checkpoint as ckpt_lib
+    from repro_torch.configs import base as cfgs
+    from repro_torch.core.ptq import tree_tensors
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.device import resolve_device
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import transformer
+    from repro_torch.optim import adam as adam_lib
+
+    cfg = cfgs.get_reduced(args.arch) if args.reduced else cfgs.get(args.arch)
+    dev = resolve_device(args.device)
+    adam_cfg = adam_lib.AdamConfig(lr=args.lr, eightbit=cfg.optimizer_8bit)
+    train_step, adam_cfg = steps_lib.make_train_step(cfg, adam_cfg)
+    params = transformer.init_params(
+        cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
+    if args.resume and args.ckpt_dir:
+        # params-only warm start, as the reference's LM loop
+        last = ckpt_lib.latest_step(args.ckpt_dir)
+        if last is not None:
+            params = ckpt_lib.load_checkpoint(
+                args.ckpt_dir, {"params": params}, step=last)["params"]
+            print(f"[train/lm] resumed params from step {last}")
+    opt = adam_lib.adam_init(params, adam_cfg)
+    qat = (transformer.init_qat_collection(cfg, dev) if cfg.quant.is_qat
+           else {})
+    n_params = sum(x.numel() for _, x in tree_tensors(params))
+    print(f"[train/lm] {cfg.name}: {n_params / 1e6:.1f}M params, "
+          f"quant={cfg.quant.label()}, mp={cfg.mp.compute_dtype}, "
+          f"8bit-adam={adam_cfg.eightbit}")
+
+    data = SyntheticLMDataset(vocab=cfg.vocab, seq_len=args.seq,
+                              batch=args.batch, seed=args.seed)
+    t0 = time.time()
+    for step, batch in enumerate(data.batches()):
+        if step >= args.steps:
+            break
+        tbatch = {k: torch.from_numpy(v).long().to(dev)
+                  for k, v in batch.items()}
+        params, opt, qat, metrics = train_step(params, opt, tbatch, qat)
+        if step % max(args.steps // 10, 1) == 0 or step == args.steps - 1:
+            print(f"  step {step:5d}  loss {float(metrics['loss']):.4f}  "
+                  f"grad_norm {float(metrics.get('grad_norm', 0)):.3f}  "
+                  f"({time.time() - t0:.0f}s)")
+        if args.ckpt_dir and args.ckpt_every and \
+                (step + 1) % args.ckpt_every == 0:
+            path = ckpt_lib.save_checkpoint(args.ckpt_dir,
+                                            {"params": params}, step=step)
+            print(f"  saved {path}")
     return 0
 
 

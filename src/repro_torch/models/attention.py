@@ -4,11 +4,14 @@ soft-capping, and decode KV caches (fp or int8-quantized).
 Counterpart of ``repro/models/attention.py`` for self-attention.
 
 * Prefill and forward (no cache): self-attention at every sequence
-  length goes through ``ops.flash_attention``, kernel B4 on the card.
-  That covers both branches the reference splits between
-  ``dense_attention`` (S <= 2048) and ``chunked_attention``; the latter's
-  mesh constraints and remat have no counterpart.  GQA is an index in the
-  kernel's grid: K and V are never repeated.
+  length goes through ``ops.FlashAttentionDenseGrad``: forward kernel B4
+  on the card (q, k and v in float32, the output back in the compute
+  dtype), backward the gradient of ``dense_attention`` in torch ops, as
+  the reference's training path differentiates it.  That covers both
+  branches the reference splits between ``dense_attention`` (S <= 2048)
+  and ``chunked_attention``; the latter's mesh constraints and remat have
+  no counterpart.  GQA is an index in the kernel's grid: K and V are
+  never repeated.
 * Decode (one token, a cache): an int8 cache without soft-cap decodes
   straight off the codes through ``ops.int8_cache_attention`` (kernel B3
   on the card); an fp cache, or a soft-capped config, runs
@@ -178,8 +181,9 @@ def attention_layer(ctx, params, x: torch.Tensor, *, n_heads: int,
     """Causal GQA self-attention over ``x (B, S, D)``, with RoPE.
 
     Prefill / forward: ``cache`` is None, every S through
-    ``ops.flash_attention``.  Decode: S == 1, ``cache`` given, ``pos`` the
-    absolute position (an int or a 0-d tensor).
+    ``ops.FlashAttentionDenseGrad`` (B4, differentiable).  Decode: S ==
+    1, ``cache`` given, ``pos`` the absolute position (an int or a 0-d
+    tensor).
     """
     b, s, _ = x.shape
     g = n_heads // n_kv
@@ -228,8 +232,8 @@ def attention_layer(ctx, params, x: torch.Tensor, *, n_heads: int,
                 kv_positions=new_cache.positions)
             out = out.reshape(b, 1, n_heads * head_dim)
     else:
-        out = ops.flash_attention(q, k, v, causal=True, window=window,
-                                  softcap=softcap, scale=head_dim ** -0.5)
+        out = ops.FlashAttentionDenseGrad.apply(q, k, v, True, window,
+                                                softcap, head_dim ** -0.5)
         out = out.reshape(b, s, n_heads * head_dim)
 
     out = common.dense(ctx, f"{name}/o", params["o"], out)

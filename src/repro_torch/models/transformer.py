@@ -1,36 +1,47 @@
 """The language model: embed -> stacked block pattern -> norm -> head.
 
-Counterpart of ``repro/models/transformer.py`` for inference:
-``param_specs``, ``init_params``, ``forward``, ``prefill``,
-``init_caches`` and ``decode_step``, plus ``params_from_jax``.
+Counterpart of ``repro/models/transformer.py``: ``param_specs``,
+``init_params``, ``qat_site_names``, ``init_qat_collection``,
+``forward``, ``loss_fn``, ``prefill``, ``init_caches`` and
+``decode_step``, plus ``params_from_jax``.
 
 ``cfg.pattern`` is the repeating unit of block kinds; the parameters of
 all repeats are stacked on a leading ``layers`` axis, as in the
 reference, and the remainder (``n_layers % len(pattern)``) is kept apart.
 Where the reference scans over the stacked axis, the port loops over it
-and takes each layer's slice as a view.  Decode state is stacked the
-same way: an attention block's KV cache is updated in place
-(``attention.cache_update``), and a recurrent block's new state is
-copied back into its slice of the stacked tensors.
+and takes each layer's slice as a view.  The QAT observers of the blocks
+(``unit/b{i}/...``) are one slot a site name shared by every repeat, and
+are carried through the layers in order as the scan carries them, then
+through the remainder.  With ``cfg.remat`` each repeat runs under
+``torch.utils.checkpoint`` (activation checkpointing, the reference's
+``jax.checkpoint``): the observer state is functional, passed in and
+returned, so the backward's recompute discards what it computes and the
+observers move once a step.  The recompute runs the whole unit (early
+stop off), so every site and attention layer of it launches its kernel
+a second time in a step.
 
-Prefill's attention goes through kernel B4 on the card, one launch per
-attention layer; decode through an int8 cache through kernel B3.  The
-MoE blocks' load-balance loss is summed over the layers, as the
-reference's ``forward`` returns it.  ``forward`` under a QAT config is LM
-training, and the encoder (whisper) and cross-attention frontends come
-with other configs (``param_specs`` refuses them): both raise
+Decode state is stacked the same way: an attention block's KV cache is
+updated in place (``attention.cache_update``), and a recurrent block's
+new state is copied back into its slice of the stacked tensors.
+
+Attention goes through kernel B4 on the card, one launch per attention
+layer (and one more per layer in a remat backward); decode through an
+int8 cache through kernel B3.  The MoE blocks' load-balance loss is
+summed over the layers.  The encoder (whisper) and cross-attention
+frontends come with other configs: ``param_specs`` raises
 ``NotImplementedError`` naming ROADMAP queue A, item 13.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Set, Tuple
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs import base as cfgs
-from repro_torch.core.fake_quant import NullQATContext
+from repro_torch.core import fake_quant
 from repro_torch.device import resolve_device
 from repro_torch.models import attention, blocks, common
 from repro_torch.models.common import P
@@ -123,7 +134,8 @@ def _embed(cfg: cfgs.ArchConfig, ctx, params: Params,
            tokens: torch.Tensor) -> torch.Tensor:
     x = params["embed"]["w"][tokens]
     if cfg.tie_embeddings:
-        x = x * math.sqrt(cfg.d_model)
+        # sqrt(d) rounded to float32, then to the compute dtype
+        x = x * torch.tensor(math.sqrt(cfg.d_model)).to(x.dtype)
     return ctx.activation("embed/out", x)
 
 
@@ -147,48 +159,162 @@ def _final_norm(cfg: cfgs.ArchConfig, params: Params,
     return norm(params["final_norm"], x)
 
 
-def _check_inference(cfg: cfgs.ArchConfig) -> None:
-    if cfg.quant.is_qat:
-        raise _not_ported("LM training (forward under a QAT config)")
+def _make_ctx(cfg: cfgs.ArchConfig, collection, step):
+    return fake_quant.make_context(cfg.quant, collection, step)
 
+
+def _checkpointed(fn, *args):
+    """``fn(*args)`` under activation checkpointing, recomputed whole in
+    the backward (early stop off), with no RNG state kept."""
+    with ckpt.set_checkpoint_early_stop(False):
+        return ckpt.checkpoint(fn, *args, use_reentrant=False,
+                               preserve_rng_state=False)
+
+
+# ---------------------------------------------------------------------------
+# QAT observer collection discovery
+# ---------------------------------------------------------------------------
+
+def _zeros(spec: Any) -> Any:
+    if isinstance(spec, dict):
+        return {k: _zeros(v) for k, v in spec.items()}
+    return torch.zeros(spec.shape)
+
+
+def qat_site_names(cfg: cfgs.ArchConfig) -> Tuple[Set[str], Set[str]]:
+    """The activation-observer site names inside the stacked layers
+    (``unit/...``) and outside them, found by one forward of zeros
+    through two ``NameRecorder``s under a ``FakeTensorMode``: shapes
+    only, as the reference's ``eval_shape``, so a full-size config
+    allocates nothing."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    rec_in = fake_quant.NameRecorder(cfg.quant)
+    rec_out = fake_quant.NameRecorder(cfg.quant)
+    with FakeTensorMode(), torch.no_grad():
+        tokens = torch.zeros((1, max(len(cfg.pattern), 2)),
+                             dtype=torch.long)
+        forward(cfg, _zeros(param_specs(cfg)), tokens, ctx_in=rec_in,
+                ctx_out=rec_out)
+    return rec_in.names, rec_out.names
+
+
+def init_qat_collection(cfg: cfgs.ArchConfig, device=None
+                        ) -> Dict[str, fake_quant.ObserverState]:
+    """A fresh observer slot for every activation site, in sorted order,
+    on ``device`` (``None`` is ``cuda``)."""
+    device = resolve_device(device)
+    inside, outside = qat_site_names(cfg)
+    return {name: fake_quant.ObserverState.init(device)
+            for name in sorted(inside | outside)}
+
+
+# ---------------------------------------------------------------------------
+# forward, loss
+# ---------------------------------------------------------------------------
 
 def forward(cfg: cfgs.ArchConfig, params: Params, tokens: torch.Tensor, *,
-            return_hidden: bool = False, return_aux: bool = False) -> Any:
-    """Full-sequence forward: logits ``(B, S, vocab)``, or the final
-    normed hidden states; with ``return_aux`` the pair ``(out, aux)``,
-    ``aux`` the MoE load-balance loss summed over the layers (a float32
-    scalar, 0 without MoE layers).
+            qat_collection: Optional[Dict] = None, step=0,
+            return_hidden: bool = False, ctx_in=None, ctx_out=None
+            ) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
+    """Full-sequence forward, as the reference's: ``(out, aux,
+    new_collection)``.  ``out`` is the logits ``(B, S, vocab)``, or with
+    ``return_hidden`` the final normed hidden states; ``aux`` the MoE
+    load-balance loss summed over the layers (a float32 scalar, 0 without
+    MoE layers).
 
-    ``tokens (B, S)`` int.  Every attention layer is one
-    ``ops.flash_attention`` call (kernel B4 on the card).  The
-    reference's third output, the QAT observers, comes with LM training.
+    ``tokens (B, S)`` int.  Under a QAT config, ``qat_collection`` holds
+    the observers (``init_qat_collection``) and ``step`` is the training
+    step (an int or a 0-d tensor; the quantization delay reads it on the
+    device); the new collection comes back with this forward's updates.
+    ``ctx_in`` / ``ctx_out`` replace the QAT contexts inside and outside
+    the stacked layers (site discovery).  Every attention layer is one
+    ``ops.FlashAttentionDenseGrad`` call (kernel B4 on the card).
     """
-    _check_inference(cfg)
-    ctx = NullQATContext()
-    x = _embed(cfg, ctx, params, tokens)
-    aux = torch.zeros((), device=x.device)
-    for li in range(cfg.pattern_repeats):
-        unit = _layer(params["layers"], li)
+    collection = qat_collection or {}
+    inside = {k: v for k, v in collection.items() if k.startswith("unit/")}
+    outside = {k: v for k, v in collection.items()
+               if not k.startswith("unit/")}
+    step = torch.as_tensor(step, device=tokens.device)
+    ctx_out = ctx_out or _make_ctx(cfg, outside, step)
+    x = _embed(cfg, ctx_out, params, tokens)
+
+    def unit_fn(x, obs, aux, unit):
+        ctx = ctx_in or _make_ctx(cfg, obs, step)
         for i, kind in enumerate(cfg.pattern):
             x, _, a = blocks.apply_block(kind, cfg, ctx,
                                          unit[f"b{i}_{kind}"], x,
                                          name=f"unit/b{i}")
             aux = aux + a
+        return x, (obs if ctx_in is not None else ctx.merged_collection()), \
+            aux
+
+    remat = cfg.remat and torch.is_grad_enabled()
+    aux = torch.zeros((), device=x.device)
+    for li in range(cfg.pattern_repeats):
+        args = (x, inside, aux, _layer(params["layers"], li))
+        x, inside, aux = _checkpointed(unit_fn, *args) if remat \
+            else unit_fn(*args)
     for i, kind in enumerate(cfg.pattern_remainder):
-        x, _, a = blocks.apply_block(kind, cfg, ctx,
+        ctx_r = ctx_in or _make_ctx(cfg, inside, step)
+        x, _, a = blocks.apply_block(kind, cfg, ctx_r,
                                      params["remainder"][f"r{i}_{kind}"], x,
                                      name=f"unit/b{i}")
+        if ctx_in is None:
+            inside = ctx_r.merged_collection()
         aux = aux + a
     x = _final_norm(cfg, params, x)
-    out = x if return_hidden else _head(cfg, ctx, params, x)
-    return (out, aux) if return_aux else out
+    out = x if return_hidden else _head(cfg, ctx_out, params, x)
+    return out, aux, {**ctx_out.merged_collection(), **inside}
+
+
+def loss_fn(cfg: cfgs.ArchConfig, params: Params,
+            batch: Dict[str, torch.Tensor], *, qat_collection=None, step=0,
+            ce_chunk: int = 256, aux_weight: float = 0.01
+            ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Causal-LM loss ``ce + aux_weight * aux`` and its metrics
+    (``ce_loss``, ``aux_loss``, ``qat_collection``: the forward's new
+    observers).  ``batch``: ``tokens`` and ``labels``, ``(B, S)`` int.
+
+    The head and the log-softmax run in ``ce_chunk`` sequence chunks
+    (one chunk when S is not a multiple), each under activation
+    checkpointing so the backward recomputes its logits: the ``(B, S,
+    vocab)`` logits never exist at once.
+    """
+    tokens, labels = batch["tokens"], batch["labels"]
+    hidden, aux, new_coll = forward(
+        cfg, params, tokens, qat_collection=qat_collection, step=step,
+        return_hidden=True)
+    ctx = _make_ctx(cfg, {k: v for k, v in (qat_collection or {}).items()
+                          if not k.startswith("unit/")},
+                    torch.as_tensor(step, device=tokens.device))
+    b, s, _ = hidden.shape
+    ce_chunk = min(ce_chunk, s)
+    if s % ce_chunk:
+        ce_chunk = s
+
+    def chunk_loss(h, y):
+        logits = _head(cfg, ctx, params, h).to(torch.float32)
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, y[..., None].long())[..., 0]
+        return torch.sum(logz - gold)
+
+    totals = []
+    for c0 in range(0, s, ce_chunk):
+        args = (hidden[:, c0:c0 + ce_chunk], labels[:, c0:c0 + ce_chunk])
+        totals.append(_checkpointed(chunk_loss, *args)
+                      if torch.is_grad_enabled() else chunk_loss(*args))
+    loss = torch.sum(torch.stack(totals)) / (b * s)
+    metrics = {"ce_loss": loss, "aux_loss": aux, "qat_collection": new_coll}
+    return loss + aux_weight * aux, metrics
 
 
 def prefill(cfg: cfgs.ArchConfig, params: Params,
             tokens: torch.Tensor) -> torch.Tensor:
     """Prompt pass returning the last token's logits ``(B, 1, vocab)``."""
-    hidden = forward(cfg, params, tokens, return_hidden=True)
-    return _head(cfg, NullQATContext(), params, hidden[:, -1:])
+    hidden, _, _ = forward(cfg, params, tokens, return_hidden=True)
+    ctx = _make_ctx(cfg, {}, torch.zeros((), dtype=torch.long,
+                                         device=tokens.device))
+    return _head(cfg, ctx, params, hidden[:, -1:])
 
 
 def init_caches(cfg: cfgs.ArchConfig, batch: int, seq_len: int, *,
@@ -228,8 +354,8 @@ def decode_step(cfg: cfgs.ArchConfig, params: Params, tokens: torch.Tensor,
     here: every layer reads it there, so a step copies nothing from the
     host when it is a device tensor already.
     """
-    _check_inference(cfg)
-    ctx = NullQATContext()
+    ctx = _make_ctx(cfg, {}, torch.zeros((), dtype=torch.long,
+                                         device=tokens.device))
     x = _embed(cfg, ctx, params, tokens)
     pos = torch.as_tensor(pos, device=x.device)
     for li in range(cfg.pattern_repeats):

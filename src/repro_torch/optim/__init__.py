@@ -1,1 +1,2 @@
-"""Optimizers of the port (the fp32 Adam of the RL learner so far)."""
+"""Optimizers of the port: Adam (float32 or 8-bit moments), SGD and the
+lr schedules."""

@@ -1426,3 +1426,98 @@ def test_resilience_supervised_convergence_on_card(cuda, tmp_path):
     assert rep.status == "ok" and len(rep.faults_fired) == 4
     assert _rz_same_params(ref, res)
     assert res.rewards[-1] == ref.rewards[-1]
+
+
+# ---------------------------------------------------------------------------
+# LM training (--mode lm): B4 under autograd, the QAT sites of a remat step
+# ---------------------------------------------------------------------------
+
+def test_lm_train_b4_at_the_training_shape_on_card(cuda):
+    """B4 at danube's training attention shape (batch 2 x 2,048, 32/8
+    heads, D 80, window 4,096) within 1e-5 of its plain version."""
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn((2, 2048, 32, 80), generator=gen, device=cuda)
+    k = torch.randn((2, 2048, 8, 80), generator=gen, device=cuda)
+    v = torch.randn((2, 2048, 8, 80), generator=gen, device=cuda)
+    kw = dict(causal=True, window=4096)
+    before = flash_attention.launches.value
+    got = flash_attention.flash_attention_cuda(q, k, v, **kw)
+    assert flash_attention.launches.value == before + 1
+    want = flash_attention.flash_attention_plain(q, k, v, **kw)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("kv,g,s,window,softcap", [
+    (2, 4, 256, 64, None), (1, 10, 130, None, 50.0), (8, 4, 512, 4096, None)])
+def test_lm_train_attention_backward_card_vs_cpu(cuda, kv, g, s, window,
+                                                 softcap):
+    """``ops.FlashAttentionDenseGrad`` on the card (B4 forward, one launch;
+    the dense backward in torch ops) against the same Function on the
+    CPU (B4's plain version): the output within 1e-5, each gradient
+    within 1e-5 of its largest magnitude (dv sums G x S products, up to
+    1,300 here: measured 9.6e-5 on a dv of magnitude 12.2)."""
+    rng = np.random.default_rng(s + g)
+    shapes = ((2, s, kv * g, 80), (2, s, kv, 80), (2, s, kv, 80))
+    ins = [rng.normal(size=sh).astype(np.float32) for sh in shapes]
+    ct = rng.normal(size=shapes[0]).astype(np.float32)
+    outs = {}
+    for dev in (cuda, torch.device("cpu")):
+        x = [torch.from_numpy(a).to(dev).requires_grad_(True) for a in ins]
+        before = flash_attention.launches.value
+        out = ops.FlashAttentionDenseGrad.apply(*x, True, window, softcap,
+                                                80 ** -0.5)
+        grads = torch.autograd.grad(out, x, torch.from_numpy(ct).to(dev))
+        assert flash_attention.launches.value - before == (
+            1 if dev.type == "cuda" else 0)
+        outs[dev.type] = [t.detach().cpu() for t in (out,) + grads]
+    for got, want in zip(outs["cuda"], outs["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5 * max(
+            1.0, float(want.abs().max())))
+
+
+def test_lm_train_remat_qat_step_launches_on_card(cuda):
+    """One QAT train step of the reduced danube with remat on the card:
+    each unit's 13 sites and its attention layer launch twice (forward and
+    recompute), ``embed/out`` once, the head's weight site twice a loss
+    chunk; every site of at most 4,096 elements is one launch, a larger
+    one two.  The result within 1e-4 of the same step on the CPU."""
+    import dataclasses
+
+    from repro_torch.core.qconfig import MixedPrecisionConfig
+    from repro_torch.launch import steps
+    from repro_torch.optim import adam
+    cfg = dataclasses.replace(
+        cfgs.get_reduced("h2o-danube-1.8b"), quant=QuantConfig.qat(
+            8, quant_delay=1), mp=MixedPrecisionConfig.fp32())
+    assert cfg.remat
+    b, s = 2, 16
+    rng = np.random.default_rng(0)
+    toks = rng.integers(0, cfg.vocab, (b, s + 1))
+    out = {}
+    for dev in (cuda, torch.device("cpu")):
+        params = transformer.init_params(cfg, torch.Generator().manual_seed(
+            0), dev)
+        step, acfg = steps.make_train_step(cfg)
+        batch = {"tokens": torch.from_numpy(toks[:, :-1]).to(dev),
+                 "labels": torch.from_numpy(toks[:, 1:]).to(dev)}
+        coll = transformer.init_qat_collection(cfg, dev)
+        fq, fa = fake_quant.launches.value, flash_attention.launches.value
+        p, _, c, m = step(params, adam.adam_init(params, acfg), batch, coll)
+        torch.cuda.synchronize()
+        out[dev.type] = (fake_quant.launches.value - fq,
+                         flash_attention.launches.value - fa, m, c)
+
+    def n(x):
+        return 1 if x <= 4096 else 2
+    d, f, t = cfg.d_model, cfg.d_ff, b * s
+    q, kv = cfg.n_heads * cfg.hd, cfg.n_kv_heads * cfg.hd
+    unit = sum(map(n, (d * q, d * kv, d * kv, q * d, d * f, d * f, f * d,
+                       t * q, t * kv, t * kv, t * d, t * f, t * d)))
+    want = 2 * cfg.n_layers * unit + n(t * d) + 2 * n(d * cfg.vocab)
+    assert out["cuda"][:2] == (want, 2 * cfg.n_layers)
+    assert out["cpu"][:2] == (0, 0)
+    np.testing.assert_allclose(float(out["cuda"][2]["loss"]),
+                               float(out["cpu"][2]["loss"]), rtol=1e-5)
+    for k, st in out["cuda"][3].items():
+        for a, b_ in zip(st, out["cpu"][3][k]):
+            torch.testing.assert_close(a.cpu(), b_, rtol=1e-4, atol=1e-4)

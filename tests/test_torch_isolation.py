@@ -40,7 +40,8 @@ def test_scan_sees_the_port():
             "manager.py", "guards.py", "faults.py", "supervisor.py",
             "moe.py", "recurrent.py", "recurrentgemma_2b.py",
             "xlstm_125m.py", "mixtral_8x7b.py", "codeqwen1_5_7b.py",
-            "stablelm_12b.py"} <= names
+            "stablelm_12b.py", "mixed_precision.py", "synthetic.py",
+            "sgd.py", "schedule.py", "steps.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -66,7 +67,10 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.checkpoint, repro_torch.resilience, "
             "repro_torch.resilience.faults, "
             "repro_torch.resilience.supervisor, repro_torch.models.moe, "
-            "repro_torch.models.recurrent\n"
+            "repro_torch.models.recurrent, repro_torch.core.mixed_precision, "
+            "repro_torch.data, repro_torch.data.synthetic, "
+            "repro_torch.optim.sgd, repro_torch.optim.schedule, "
+            "repro_torch.optim.adam, repro_torch.launch.steps\n"
             "from repro_torch.configs import base\n"
             "[base.get(n) for n in base.names()]\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -131,10 +135,13 @@ def test_resilience_uses_no_jax_msgpack_or_pickle():
 
 
 def _entry_points():
+    import dataclasses
+
     import numpy as np
     import torch
 
     from repro_torch.configs import base as cfgs
+    from repro_torch.core.qconfig import QuantConfig
     from repro_torch.launch import serve as launch_serve
     from repro_torch.launch import train as launch_train
     from repro_torch.models import transformer
@@ -215,6 +222,13 @@ def _entry_points():
              "2", "--serve-steps", "1"]),
         "supervise": lambda: supervise(dict(
             algo="dqn", env_name="cartpole", iterations=1))[0].device,
+        "init_qat_collection": lambda: transformer.init_qat_collection(
+            dataclasses.replace(cfgs.get_reduced("h2o-danube-1.8b"),
+                                quant=QuantConfig.qat(8)))["embed/out"]
+        .vmin,
+        "launch_train_lm": lambda: launch_train.main(
+            ["--mode", "lm", "--arch", "h2o-danube-1.8b", "--reduced",
+             "--steps", "1", "--batch", "2", "--seq", "8"]),
     }
 
 
@@ -236,7 +250,8 @@ def _entry_points():
                                   "recurrent_init_caches",
                                   "launch_serve_recurrent",
                                   "launch_serve_moe",
-                                  "supervise"])
+                                  "supervise", "init_qat_collection",
+                                  "launch_train_lm"])
 def test_entry_points_default_to_the_card(name):
     """``device=None`` means ``cuda``: it lands there with a card and
     raises without one, never falling back to the CPU."""

@@ -108,9 +108,14 @@ def test_unported_configs_and_kinds_raise():
         blocks.block_spec(cfgs.CROSS, cfg)
     params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
                                      "cpu")
-    qat = dataclasses.replace(cfg, quant=QuantConfig.qat(8))
     with pytest.raises(NotImplementedError, match="item 13"):
-        transformer.forward(qat, params, torch.zeros(1, 4, dtype=torch.long))
+        transformer.param_specs(dataclasses.replace(cfg, encoder_layers=1))
+    # LM training is ported: a QAT forward returns the observers
+    qat = dataclasses.replace(cfg, quant=QuantConfig.qat(8))
+    coll = transformer.init_qat_collection(qat, "cpu")
+    _, _, new = transformer.forward(qat, params, torch.zeros(
+        1, 4, dtype=torch.long), qat_collection=coll)
+    assert set(new) == set(coll)
     # --rl-env (item 10) is ported: the launcher trains and serves
     assert serve.main(["--rl-env", "cartpole", "--rl-iters", "1",
                        "--serve-sessions", "2", "--serve-steps", "1",
@@ -256,7 +261,7 @@ def test_forward_logits_match_jax(name):
     jcfg, cfg, jp, tp = _models(name, seed=2)
     toks = _tokens(2, 24, cfg.vocab, seed=11)
     want, _, _ = jtr.forward(jcfg, jp, jnp.asarray(toks))
-    got = transformer.forward(cfg, tp, torch.from_numpy(toks).long())
+    got, _, _ = transformer.forward(cfg, tp, torch.from_numpy(toks).long())
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
                                atol=TOL)
 
@@ -293,7 +298,7 @@ def test_prefill_matches_token_by_token_decode(name):
     params = transformer.init_params(cfg, torch.Generator().manual_seed(4),
                                      "cpu")
     toks = torch.from_numpy(_tokens(1, 40, cfg.vocab, seed=4)).long()
-    full = transformer.forward(cfg, params, toks)
+    full, _, _ = transformer.forward(cfg, params, toks)
     caches = transformer.init_caches(cfg, 1, 40, device="cpu")
     for pos in range(40):
         logits, caches = transformer.decode_step(cfg, params,

@@ -134,8 +134,8 @@ def test_forward_matches_jax(name):
     toks = _tokens(2, 16, cfg.vocab, seed=11)
     want, jaux, _ = jax.jit(lambda p, t: jtr.forward(jcfg, p, t))(
         jp, jnp.asarray(toks))
-    got, aux = transformer.forward(cfg, tp, torch.from_numpy(toks).long(),
-                                   return_aux=True)
+    got, aux, _ = transformer.forward(cfg, tp,
+                                      torch.from_numpy(toks).long())
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=TOL,
                                atol=TOL)
     np.testing.assert_allclose(float(aux), float(jaux), rtol=TOL, atol=TOL)
@@ -192,7 +192,7 @@ def test_decode_matches_forward(name):
     params = transformer.init_params(cfg, torch.Generator().manual_seed(4),
                                      "cpu")
     toks = torch.from_numpy(_tokens(1, 40, cfg.vocab, seed=4)).long()
-    full = transformer.forward(cfg, params, toks)
+    full, _, _ = transformer.forward(cfg, params, toks)
     caches = transformer.init_caches(cfg, 1, 40, device="cpu")
     for pos in range(40):
         logits, caches = transformer.decode_step(cfg, params,
