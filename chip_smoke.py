@@ -92,8 +92,9 @@ cache in place) and times both, then drives the port's four paths:
   8 and 256 envs bitwise its plain replay on the card (B1 five times a
   forward: three im2col convs, the fc and the head), fp32 through cuDNN,
   each within 1e-4 of the CPU at 8 envs, timed, profiled and rolled out
-  for 100 steps; ``loops.train`` DQN on Catch at Policy A width (fp32,
-  ActorQ int8 and int4, QAT int8 with exact B1 / B5 counts, one TD update
+  for ``CONV_ROLL_STEPS`` steps; ``loops.train`` DQN on Catch at Policy A
+  width (fp32, ActorQ int8 and int4, QAT int8 with exact B1 / B5 counts,
+  one TD update
   replayed on the CPU), the async int8 Catch run of
   ``tests/test_async_actor_learner.py:215-228`` held to its bar, the
   three anchors bitwise at a small conv net, and B1 bitwise and timed at
@@ -130,6 +131,19 @@ cache in place) and times both, then drives the port's four paths:
   xlstm-125m at full size; and B4's backward (the gradient of dense
   attention in torch ops) timed at the training shape beside SDPA's
   forward and backward;
+* the encoder and cross-attention frontends and grok-1 -- whisper-tiny
+  at full size (a non-causal transformer encoder over 1,500 stub frame
+  embeddings, cross-attending decoder), llama-3.2-vision-90b at full
+  width and depth 5 (four self-attention layers and one cross-attending
+  to 1,601 stub patch embeddings) and grok-1-314b at full width and
+  depth 2 (top-2 of 8 experts) prefill (B4 once a self-attention,
+  encoder and cross-attention layer, non-causal at S != T) and decode
+  64 teacher-forced steps, the encoder re-run and the cross K/V
+  re-projected at every step (B4, and B3 with int8 caches), each held
+  against the CPU path and its forward; whisper serves three ways and
+  trains 4 steps (B4 counted under remat) with a float32 step held
+  against the CPU; grok's bfloat16-parameter, 8-bit Adam, grad_accum 4
+  step at the reduced widths held against the CPU's;
 
 and checks that each path really launched its kernels.  Any failed check
 raises.  The last line of standard output is
@@ -140,8 +154,9 @@ the line before it the card's name and power limit, and the one before
 that a JSON object listing every ported kernel with its launches on the
 path it serves (serving for B1 and B2, the sequence-actor rollouts for
 B3, the QAT training run for B5, the LM prefill for B4; then B3 and B4
-again at the families' shapes, with the families' launches, and B4 and
-B5 at LM training's, with its launches), its largest
+again at the families' shapes, with the families' launches, B4 and B5
+at LM training's, and B3 and B4 at the frontends' shapes, each with its
+launches), its largest
 difference from the plain
 version and its times.  All rows are also written to
 ``chiprun_out/chip_smoke.json``.  Without CUDA, or outside the repository,
@@ -153,6 +168,8 @@ import contextlib
 import importlib.util
 import json
 import os
+import shutil
+import signal
 import statistics
 import subprocess
 import sys
@@ -163,6 +180,7 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
+T_START = time.perf_counter()
 OUT_DIR = ROOT / "chiprun_out"
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, int8 ops/s,
@@ -286,9 +304,10 @@ LM_SHORT = 64                     # the CPU and token-by-token comparisons
 LM_CPU_ATOL = 1e-3
 LM_DECODE_ATOL = 2e-2             # tests/test_arch_smoke.py:155-186
 # the reference serve launcher's defaults (src/repro/launch/serve.py:
-# 192-198): batch 4, prompt 32, 32 new tokens, three ways
+# 192-198), batch 4 and prompt 32, with 16 new tokens (cut from its 32),
+# three ways
 LM_SERVE_ARGS = ["--arch", LM_ARCH, "--batch", "4", "--prompt-len", "32",
-                 "--new-tokens", "32", "--seed", str(SEED)]
+                 "--new-tokens", "16", "--seed", str(SEED)]
 LM_SERVE_RUNS = (("fp32 cache", []), ("int8 cache", ["--int8-cache"]),
                  ("ptq_int8", ["--quant", "ptq_int8"]))
 # B4 at the shapes of its paths: (label, B, H, KV, S, T, D, causal,
@@ -309,13 +328,26 @@ FLASH_ROWS = (
     ("stablelm attention", 1, 32, 8, 4096, 4096, 160, True, None, None),
     ("codeqwen attention", 1, 32, 32, 4096, 4096, 128, True, None, None),
     # the LM training step's attention layer (danube, batch 2 x 2,048)
-    ("danube train", 2, 32, 8, 2048, 2048, 80, True, 4096, None))
+    ("danube train", 2, 32, 8, 2048, 2048, 80, True, 4096, None),
+    # the frontends phase: whisper's cross-attention over its 1,500
+    # encoder frames in the batch-4 prefill and in a decode step of the
+    # batch-4 serve runs and of the teacher-forced steps (batch 1),
+    # llama-vision's self-attention and its cross-attention over 1,601
+    # patches (S > T), grok's prefill
+    ("whisper cross", 4, 6, 6, 448, 1500, 64, False, None, None),
+    ("whisper cross decode", 4, 6, 6, 1, 1500, 64, False, None, None),
+    ("whisper parity cross decode", 1, 6, 6, 1, 1500, 64, False, None,
+     None),
+    ("llama-vision self", 1, 64, 8, 2048, 2048, 128, True, None, None),
+    ("llama-vision cross", 1, 64, 8, 2048, 1601, 128, False, None, None),
+    ("grok prefill", 1, 48, 8, 8192, 8192, 128, True, None, None))
 FLASH_ATOL = 1e-5                 # docs/contracts.md, "Attention parity"
 # B3 at the shapes of its paths: (label, NB, NH, G, T, Dh, window, pos,
 # layout).  "rows" is the sequence actor's (R, T, Dh) cache, R = NB * NH;
 # "lm" the LM's (NB, T, NH, Dh) cache read through transpose(1, 2), as
 # its decode step reads it: danube's 4 x 8 KV heads at the 4,096-slot ring
-# (the window) and at the serve default of 64 slots
+# (the window) and at the 48 slots of LM_SERVE_ARGS' runs (prompt 32 + 16
+# new tokens)
 CACHE_ROWS = (
     ("airnav_seq", 1, ROLL_ENVS, 1, 121, 32, 8, "ragged", "rows"),
     ("airnav_seq", 1, ROLL_ENVS, 1, 121, 32, 8, "last", "rows"),
@@ -326,19 +358,25 @@ CACHE_ROWS = (
     ("catch_seq train 2 actors", 1, 16, 1, 8, 32, 6, "ragged", "rows"),
     ("long", 1, 8, 4, 4096, 128, None, "last", "rows"),
     ("danube decode", 4, 8, 4, 4096, 80, None, "last", "lm"),
-    ("danube serve", 4, 8, 4, 64, 80, None, "ragged", "lm"),
+    ("danube serve", 4, 8, 4, 48, 80, None, "ragged", "lm"),
     # the families' decode shapes: recurrentgemma's G 10 (B3's 16-lane
-    # instance) at Dh 256 over its 2,048-slot ring and the serve default's
-    # 64 slots, mixtral's G 4 / Dh 128 ring, stablelm's Dh 160 and
+    # instance) at Dh 256 over its 2,048-slot ring and the serve runs' 48
+    # slots, mixtral's G 4 / Dh 128 ring, stablelm's Dh 160 and
     # codeqwen's G 1 at 4,096 slots
     ("recurrentgemma decode", 4, 1, 10, 2048, 256, None, "last", "lm"),
-    ("recurrentgemma serve", 4, 1, 10, 64, 256, None, "ragged", "lm"),
+    ("recurrentgemma serve", 4, 1, 10, 48, 256, None, "ragged", "lm"),
     ("mixtral decode", 4, 8, 4, 4096, 128, None, "last", "lm"),
     # the families phase's teacher-forced mixtral steps: one sequence
     # over the 64-slot cache
     ("mixtral parity decode", 1, 8, 4, 64, 128, None, "last", "lm"),
     ("stablelm decode", 4, 8, 4, 4096, 160, None, "last", "lm"),
-    ("codeqwen decode", 4, 32, 1, 4096, 128, None, "last", "lm"))
+    ("codeqwen decode", 4, 32, 1, 4096, 128, None, "last", "lm"),
+    # the frontends phase's decode shapes: whisper's G 1 / Dh 64 in the
+    # batch-4 serve runs, llama-vision's G 8 and grok's G 6 at Dh 128 in
+    # the teacher-forced steps
+    ("whisper serve", 4, 6, 1, 48, 64, None, "ragged", "lm"),
+    ("llama-vision parity decode", 1, 8, 8, 64, 128, None, "last", "lm"),
+    ("grok parity decode", 1, 8, 6, 64, 128, None, "last", "lm"))
 CACHE_ATOL = 1e-5                 # docs/contracts.md, "Attention parity"
 # the LM decode step at a long context: batch 4 over a full 4,096-slot
 # ring (danube's window), its logits held to the same step through B3's
@@ -399,18 +437,54 @@ LM_TRAIN_PARAM_ATOL = 2.02 * LM_TRAIN_LR
 LM_TRAIN_QAT = (2, 4)             # quant_delay, steps
 LM_TRAIN_COLL_TOL = 1e-5
 LM_TRAIN_8BIT_STEPS = 4
-# a recurrent config at full size: xlstm-125m, batch 2 x 256, 4 steps
-LM_TRAIN_XLSTM = ("xlstm-125m", (2, 256), 4)
+# a recurrent config at full size: xlstm-125m, batch 2 x 256, 2 steps
+# (cut from 4: each is a host-bound 8.7-10.4 s)
+LM_TRAIN_XLSTM = ("xlstm-125m", (2, 256), 2)
+# the frontends phase: whisper-tiny at full size
+# (src/repro/configs/whisper_tiny.py), llama-3.2-vision-90b at full width
+# and depth 5, one repeat of its (attn x 4, cross) pattern (its 100
+# layers are 522 GB of float32; 5 are 26.1 GB), grok-1-314b at full width
+# and depth 2 (64 layers are 1.26 TB; 2 are 45.8 GB), float32 params from
+# SEED as the serve launcher draws them; the frontends' stub embeddings
+# (whisper's 1,500 frames, llama-vision's 1,601 patches) seeded normals
+# times 0.02, as the launcher draws them
+FRONT_WHISPER, FRONT_VISION, FRONT_GROK = (
+    "whisper-tiny", "llama-3.2-vision-90b", "grok-1-314b")
+FRONT_DEPTH = {FRONT_VISION: 5, FRONT_GROK: 2}
+FRONT_PREFILL = {FRONT_WHISPER: (4, 448), FRONT_VISION: (1, 2048),
+                 FRONT_GROK: (1, 8192)}
+FRONT_SERVE_RUNS = (
+    (FRONT_WHISPER, "fp32 cache", []),
+    (FRONT_WHISPER, "int8 cache", ["--int8-cache"]),
+    (FRONT_WHISPER, "ptq_int8", ["--quant", "ptq_int8"]))
+# whisper's training: batch x sequence, steps (its own mp: bfloat16
+# compute over float32 masters; remat)
+FRONT_TRAIN = ((2, 448), 4)
+# grok's bfloat16-parameter step as its full config trains (bfloat16
+# params and compute, 8-bit Adam, grad_accum 4) at the reduced widths,
+# the card against the host CPU: the loss within FRONT_BF16_LOSS_RTOL
+# (tests/torch_lm_parity.py: BF16_LOSS_RTOL), every new param bfloat16
+# and within two Adam steps and one ulp of the CPU's (a near-zero
+# gradient of the other sign steps the other way), and at most
+# FRONT_BF16_FAR_SHARE of them more than one ulp apart (a step that left
+# the params as they were, or stepped them the wrong way, puts most of
+# them there)
+FRONT_BF16_BATCH = (4, 64)
+FRONT_BF16_LOSS_RTOL = 2e-3
+FRONT_BF16_FAR_SHARE = 0.05
+# the staging buffers of the card-to-host copies of the LM params
+# (``host_copy``), bytes each
+HOST_CHUNK = 1 << 26
 # the conv phase: the paper's Atari conv actor (Appendix B; Policies A/B/C
 # of Table 10, src/repro/configs/quarl_atari.py:29-32, the port's copy in
 # src/repro_torch/configs/quarl_atari.py) on pixel Catch (10x10x1, 3
 # actions): the forward at DQNConfig's 8 behaviour envs and at the 256 of
-# benchmarks/actor_throughput.py:45-49, a 100-step rollout of each
+# benchmarks/actor_throughput.py:45-49, a CONV_ROLL_STEPS rollout of each
 CONV_ENVS = (8, 256)
 # the rollouts take the backends in this order, reversed at every other
 # (policy, envs) cell, so no backend always runs first
 CONV_BACKENDS = ("fp32", "int8", "int4")
-CONV_ROLL_STEPS = 50
+CONV_ROLL_STEPS = 25               # cut from 100, then 50
 CONV_CPU_ATOL = 1e-4              # the card's forward against the CPU's
 # DQN on Catch at Policy A width (ATARI_DQN) with DQNConfig's defaults:
 # (name, loops.train keywords); the QAT run's delay is QAT_DELAY
@@ -514,6 +588,26 @@ SEQ_TIME_RUNS = (("fp32", {}), ("int8", dict(actor_backend="int8")),
                  ("int4", dict(actor_backend="int4")),
                  ("qat8", dict(qat_delay=SEQ_QAT_DELAY)))
 SEQ_TIME_ITERS, SEQ_TIME_CHUNK = 4, 2      # cut from 20, 10, 10, 5, 6, 3
+# the RL training work that runs in worker processes on the same card
+# (``Worker``) while the main process runs the rest: one tuple of jobs a
+# worker, run in order; ("phase", name) a whole phase (train, topology,
+# resume, resilience: none times a kernel), ("seq", name) a
+# ``seq_runs`` run, ("a7",) A7's run for the conv phase, ("algo", name)
+# an ``ALGO_RUNS`` run.  Each job is one whose result nothing later reads
+# but its rows (and B1's shapes on its path); the jobs are split so the
+# workers take about equal times (PERF.md)
+WORKER_JOBS = (
+    (("phase", "train"),),
+    (("phase", "topology"), ("phase", "resume")),
+    (("phase", "resilience"), ("seq", "bar_actor-learner")),
+    (("seq", "bar_async"), ("a7",)),
+    (("seq", "bar_fused"), ("algo", "ppo_int8"), ("algo", "a2c_int8"),
+     ("algo", "ddpg_fp32"), ("algo", "ddpg_int4_calib"),
+     ("algo", "ddpg_al_int8")),
+    (("algo", "a2c_fp32"), ("algo", "ppo_int4_calib"), ("algo", "ddpg_int8"),
+     ("algo", "ddpg_per"), ("algo", "ppo_qat8"), ("algo", "ddpg_async_int8")),
+)
+WORKER_TIMEOUT_S = 600.0
 # the resume phase: tests/test_resume.py:31-99 at its small config (Catch
 # with hidden=(16,) is the default conv net), each case trained to
 # RESUME_AT with checkpoints, resumed to RESUME_TO, and held bitwise to the
@@ -558,7 +652,7 @@ RZ_MATRIX = (
       "crash_commit", "dropped_sync"}, set()))
 RZ_CONVERGE_PLAN = "11:actor_crash@5,nan_grad@10,bitflip_push@15," \
     "crash_commit@12"
-RZ_OVERHEAD_ITERS, RZ_OVERHEAD_RECORD = 40, 20
+RZ_OVERHEAD_ITERS, RZ_OVERHEAD_RECORD = 20, 10    # cut from 40, 20
 # the load-shedding burst: offered at SHED_FACTOR x the rate the server
 # sustains with a full queue, for SHED_S seconds, against a bound of
 # SHED_QUEUE requests.  The server is a straggler (its fault hook sleeps
@@ -1716,78 +1810,91 @@ def wide_rows(torch, dev, smi, counters, widths) -> list:
     return rows
 
 
-def algo_phase(torch, dev, smi, counters, widths) -> dict:
+def algo_run(torch, smi, counters, name, algo, env_name, bar,
+             spec) -> tuple:
+    """One ``ALGO_RUNS`` run through ``loops.train``, driven with every
+    count set to 0 just before it and read just after, held to its launch
+    counts, finite rewards, its bar, observers, divergences and actor
+    lags: ``(row, result)``."""
+    from repro_torch.core.qconfig import QuantConfig
+    from repro_torch.rl import loops
+    kw = dict(spec)
+    if "qat_delay" in kw:
+        kw["quant"] = QuantConfig.qat(8, quant_delay=kw.pop("qat_delay"))
+    for c in counters.values():
+        c.reset()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    res = loops.train(algo, env_name, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    n = {k: c.value for k, c in counters.items()}
+    iters = kw["iterations"]
+    want = algo_launches(algo, res, spec, iters, counters)
+    check(n == want, f"algo {name}: launches {n}, the config implies "
+                     f"{want}")
+    check(len(res.rewards) == iters // kw["record_every"]
+          and all(np.isfinite(res.rewards)),
+          f"algo {name}: rewards {res.rewards}")
+    check(bar is None or max(res.rewards) > bar,
+          f"algo {name}: max eval reward {max(res.rewards)} does not "
+          f"clear its bar {bar} ({res.rewards})")
+    cfg = res.algo_cfg
+    if "quant" in kw:
+        n_obs = 6 if algo == "ddpg" else 3
+        check(len(res.state.observers) == n_obs and all(
+            bool(o.initialized) for o in res.state.observers.values()),
+            f"algo {name}: observers {sorted(res.state.observers)}")
+    topo = kw.get("topology", "fused")
+    actors = kw.get("num_actors", 1)
+    divs = np.asarray(res.divergences, dtype=np.float64)
+    if topo != "fused":
+        check(divs.ndim == 2 and divs.shape[1] == actors
+              and divs.shape[0] > 0 and np.isfinite(divs).all()
+              and bool((divs > 0).any()),
+              f"algo {name}: divergences {res.divergences}")
+    if topo == "async":
+        check(len(res.actor_lags) > 0 and all(
+            lag == kw["sync_every"] for lag in res.actor_lags),
+            f"algo {name}: actor lags {sorted(set(res.actor_lags))}")
+    if algo == "ddpg":
+        per_it, updates = cfg.rollout_steps, iters * cfg.updates_per_iter
+    elif algo == "ppo":
+        per_it = cfg.n_steps
+        updates = iters * cfg.epochs * cfg.n_minibatches
+    else:
+        per_it, updates = cfg.n_steps, iters
+    row = dict(run=name, algo=algo, env=env_name, rewards=res.rewards,
+               bar=bar, wall_s=wall, updates_per_s=updates / wall,
+               env_steps_per_s=iters * per_it * cfg.n_envs * actors
+               / wall,
+               eval_env_steps=res.eval_steps, launches=n,
+               action_variances=res.action_variances,
+               divergence_last=divs[-1].tolist() if divs.size else None,
+               actor_lags=sorted(set(res.actor_lags)), card=smi)
+    print("algo " + json.dumps(row))
+    return row, res
+
+
+def algo_phase(torch, dev, smi, counters, away) -> dict:
     """The other three algorithms through ``loops.train``: PPO and A2C on
     CartPole and DDPG on Pendulum (``ALGO_RUNS``), each driven with every
     kernel count set to 0 just before it and read just after, held to
     its launch counts, finite rewards and, where the JAX package has one,
     its bar; ``quarl_ptq`` on the PPO run; DDPG's three anchors bitwise
-    and one DDPG update replayed on the CPU; DDPG at Policy II's width
-    (``wide_rows``); ``launch.train``'s default run; B1 and B2 at every
-    shape these paths gave them (``algo_shape_rows``)."""
-    from repro_torch.core.qconfig import QuantConfig
+    and one DDPG update replayed on the CPU; ``launch.train``'s default
+    run.  The runs named in ``away`` run in worker processes
+    (``WORKER_JOBS``) and their rows are added by the caller; the timed
+    rows are ``algo_timed``'s."""
     from repro_torch.launch import train as launch_train
     from repro_torch.rl import loops
     rows, results, seconds = [], {}, {}
     t_part = time.perf_counter()
     for name, algo, env_name, bar, spec in ALGO_RUNS:
-        kw = dict(spec)
-        if "qat_delay" in kw:
-            kw["quant"] = QuantConfig.qat(8, quant_delay=kw.pop("qat_delay"))
-        for c in counters.values():
-            c.reset()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        res = loops.train(algo, env_name, **kw)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        n = {k: c.value for k, c in counters.items()}
-        iters = kw["iterations"]
-        want = algo_launches(algo, res, spec, iters, counters)
-        check(n == want, f"algo {name}: launches {n}, the config implies "
-                         f"{want}")
-        check(len(res.rewards) == iters // kw["record_every"]
-              and all(np.isfinite(res.rewards)),
-              f"algo {name}: rewards {res.rewards}")
-        check(bar is None or max(res.rewards) > bar,
-              f"algo {name}: max eval reward {max(res.rewards)} does not "
-              f"clear its bar {bar} ({res.rewards})")
-        cfg = res.algo_cfg
-        if "quant" in kw:
-            n_obs = 6 if algo == "ddpg" else 3
-            check(len(res.state.observers) == n_obs and all(
-                bool(o.initialized) for o in res.state.observers.values()),
-                f"algo {name}: observers {sorted(res.state.observers)}")
-        topo = kw.get("topology", "fused")
-        actors = kw.get("num_actors", 1)
-        divs = np.asarray(res.divergences, dtype=np.float64)
-        if topo != "fused":
-            check(divs.ndim == 2 and divs.shape[1] == actors
-                  and divs.shape[0] > 0 and np.isfinite(divs).all()
-                  and bool((divs > 0).any()),
-                  f"algo {name}: divergences {res.divergences}")
-        if topo == "async":
-            check(len(res.actor_lags) > 0 and all(
-                lag == kw["sync_every"] for lag in res.actor_lags),
-                f"algo {name}: actor lags {sorted(set(res.actor_lags))}")
-        if algo == "ddpg":
-            per_it, updates = cfg.rollout_steps, iters * cfg.updates_per_iter
-        elif algo == "ppo":
-            per_it = cfg.n_steps
-            updates = iters * cfg.epochs * cfg.n_minibatches
-        else:
-            per_it, updates = cfg.n_steps, iters
-        row = dict(run=name, algo=algo, env=env_name, rewards=res.rewards,
-                   bar=bar, wall_s=wall, updates_per_s=updates / wall,
-                   env_steps_per_s=iters * per_it * cfg.n_envs * actors
-                   / wall,
-                   eval_env_steps=res.eval_steps, launches=n,
-                   action_variances=res.action_variances,
-                   divergence_last=divs[-1].tolist() if divs.size else None,
-                   actor_lags=sorted(set(res.actor_lags)), card=smi)
-        rows.append(row)
-        print("algo " + json.dumps(row))
-        results[name] = res
+        if name not in away:
+            row, results[name] = algo_run(torch, smi, counters, name, algo,
+                                          env_name, bar, spec)
+            rows.append(row)
     seconds["runs"] = time.perf_counter() - t_part
 
     # quarl_ptq on the PPO fp32 run: the int8 weights through B5
@@ -1811,10 +1918,6 @@ def algo_phase(torch, dev, smi, counters, widths) -> dict:
                                              smi)))
     seconds["ptq_anchors_replay"] = time.perf_counter() - t_part
 
-    t_part = time.perf_counter()
-    rows += wide_rows(torch, dev, smi, counters, widths)
-    seconds["policy_ii"] = time.perf_counter() - t_part
-
     # the launcher's default run (PPO on CartPole), ALGO_LAUNCH_ITERS of
     # its 200 iterations
     t_part = time.perf_counter()
@@ -1825,15 +1928,25 @@ def algo_phase(torch, dev, smi, counters, widths) -> dict:
     n = {k: c.value for k, c in counters.items()}
     check(not any(n.values()), f"the default fp32 PPO run: launches {n}")
     seconds["launch_train"] = time.perf_counter() - t_part
+    return dict(rows=rows, seconds=seconds)
 
+
+def algo_timed(torch, dev, smi, counters, widths, algo: dict) -> dict:
+    """``algo_phase``'s result ``algo`` (with the workers' rows) completed:
+    DDPG at Policy II's width in turns (``wide_rows``), B1 and B2 at
+    every shape the algo paths gave them (``algo_shape_rows``), and every
+    run's launches."""
+    seconds = algo["seconds"]
     t_part = time.perf_counter()
-    shape_rows = algo_shape_rows(torch, dev, smi, widths)
+    algo["rows"] += wide_rows(torch, dev, smi, counters, widths)
+    seconds["policy_ii"] = time.perf_counter() - t_part
+    t_part = time.perf_counter()
+    algo["shape_rows"] = algo_shape_rows(torch, dev, smi, widths)
     seconds["shapes"] = time.perf_counter() - t_part
     print("algo seconds " + json.dumps(seconds))
-    launches = {r["run"]: r["launches"] for r in rows if "launches" in r
-                and "run" in r}
-    return dict(rows=rows, shape_rows=shape_rows, launches=launches,
-                seconds=seconds)
+    algo["launches"] = {r["run"]: r["launches"] for r in algo["rows"]
+                        if "launches" in r and "run" in r}
+    return algo
 
 
 def conv_boards(torch, dev, n: int, seed: int):
@@ -1875,36 +1988,65 @@ def qat_site_launches(filters, fc_width: int, batch: int, hw: int = 100,
             + site(fc_width * n_out) + site(batch * n_out))
 
 
-def conv_phase(torch, dev, smi, counters) -> dict:
-    """The conv path: the paper's Atari conv actor on pixel Catch.
+def a7_run(torch, dev, smi, counters):
+    """A7's convergence bar (``A7_RUN``: async int8 on Catch, verbatim),
+    driven with every count set to 0 just before it and read just after,
+    held to its launch counts, divergences, actor lags and bar: ``(row,
+    B1's shapes on its path)``."""
+    from repro_torch.rl import loops
+    for c in counters.values():
+        c.reset()
+    box = []
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    seen = b1_path_shapes(torch, dev, lambda: box.append(
+        loops.train("dqn", "catch", **A7_RUN)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    n = {k: c.value for k, c in counters.items()}
+    res = box[0]
+    cfg = res.algo_cfg
+    steps = A7_RUN["iterations"] * cfg.rollout_steps
+    pushes = len(res.actor_lags)
+    a7_layers = len(A7_RUN["net_kwargs"]["conv_filters"]) + 2
+    want = dict.fromkeys(counters, 0)
+    want["int8_matmul"] = a7_layers * (steps + res.eval_steps
+                                       + pushes * A7_RUN["num_actors"])
+    check(n == want, f"conv async: launches {n}, the config implies {want}")
+    divs = np.asarray(res.divergences, dtype=np.float64)
+    check(divs.shape == (pushes, A7_RUN["num_actors"])
+          and np.isfinite(divs).all() and bool((divs > 0).any()),
+          f"conv async: divergences of shape {divs.shape}")
+    check(pushes > 0 and all(lag == A7_RUN["sync_every"]
+                             for lag in res.actor_lags),
+          f"conv async: actor lags {sorted(set(res.actor_lags))}")
+    check(max(res.rewards) > A7_BAR,
+          f"conv async: max eval reward {max(res.rewards)} does not clear "
+          f"{A7_BAR} ({res.rewards})")
+    updates = A7_RUN["iterations"] * cfg.updates_per_iter
+    row = dict(run="a7_async_int8", rewards=res.rewards, bar=A7_BAR,
+               wall_s=wall, updates_per_s=updates / wall,
+               env_steps_per_s=steps * cfg.n_envs * A7_RUN["num_actors"]
+               / wall, eval_env_steps=res.eval_steps, launches=n,
+               pushes=pushes, divergence_first=divs[0].tolist(),
+               divergence_last=divs[-1].tolist(),
+               divergence_mean=divs.mean(0).tolist(),
+               actor_lags=sorted(set(res.actor_lags)), card=smi)
+    print("conv async " + json.dumps(row))
+    return row, seen
 
-    The int8 / int4 / fp32 actors of Policies A, B and C at ``CONV_ENVS``
-    envs: each forward's launches, the quantized ones bitwise their plain
-    replay on the card (B1's plain version), at 8 envs within
-    ``CONV_CPU_ATOL`` of the CPU's, timed and profiled; a
-    ``CONV_ROLL_STEPS`` rollout of each, in turns.  Then DQN on Catch at
-    Policy A width (``CONV_TRAIN_RUNS``: exact launch counts, one QAT TD
-    update replayed on the CPU, two profiled iterations a run), A7's async
-    int8 bar (``A7_RUN``), the three anchors at a small conv net, and B1
-    bitwise and timed at every shape these paths gave it.  Each run is
-    driven with every count set to 0 just before it and read just after.
-    """
-    from repro_torch.core import ptq
-    from repro_torch.core.qconfig import QuantConfig
-    from repro_torch.rl import actorq, dqn, loops
-    from repro_torch.rl import env as env_mod
-    from repro_torch.rl import networks
-    from repro_torch.rl.env import batched_env
-    from repro_torch.rl.envs import make
-    cfgs = quarl_atari()
-    env = make("catch")
-    rows = dict(forward=[], rollout=[], train=[], b1=[], seconds={})
-    b1_seen = []
+
+def conv_helpers(torch, dev, counters, seconds: dict, b1_seen: list):
+    """The conv phases' helpers: ``part_done(name)`` writes the seconds
+    since the last part to ``seconds``; ``record(label, fn)`` runs ``fn``
+    and adds B1's new shapes on its path to ``b1_seen``; ``counted(fn)``
+    runs ``fn`` with every count set to 0 just before and returns its
+    output, wall seconds and launches."""
     t_part = [time.perf_counter()]
 
     def part_done(name):
         now = time.perf_counter()
-        rows["seconds"][name] = now - t_part[0]
+        seconds[name] = now - t_part[0]
         t_part[0] = now
 
     def record(label, fn):
@@ -1921,6 +2063,115 @@ def conv_phase(torch, dev, smi, counters) -> dict:
         torch.cuda.synchronize()
         return out, time.perf_counter() - t, {k: c.value
                                               for k, c in counters.items()}
+    return part_done, record, counted
+
+
+def conv_train_phase(torch, dev, smi, counters) -> dict:
+    """DQN on Catch at Policy A width (``CONV_TRAIN_RUNS``: exact launch
+    counts, one QAT TD update replayed on the CPU, two profiled
+    iterations a run) and the three anchors at a small conv net, each
+    run driven with every count set to 0 just before it and read just
+    after: its rows, B1's shapes on these paths (timed by
+    ``conv_phase``) and its seconds."""
+    from repro_torch.core.qconfig import QuantConfig
+    from repro_torch.rl import actorq, loops
+    cfgs = quarl_atari()
+    rows = dict(train=[], seconds={})
+    b1_seen = []
+    part_done, record, counted = conv_helpers(torch, dev, counters,
+                                              rows["seconds"], b1_seen)
+
+    # ---- DQN on Catch at Policy A width
+    atari = cfgs.ATARI_DQN
+    net_kw = dict(conv_filters=atari.conv_filters, fc_width=atari.fc_width)
+    layers = len(atari.conv_filters) + 2
+    results = {}
+    for name, kw in CONV_TRAIN_RUNS:
+        if name == "qat8":
+            kw = dict(kw, quant=QuantConfig.qat(8, quant_delay=QAT_DELAY))
+        box = []
+        _, wall, n = counted(lambda kw=kw: record(
+            "conv train", lambda: box.append(loops.train(
+                "dqn", "catch", iterations=CONV_TRAIN_ITERS,
+                record_every=CONV_TRAIN_RECORD, steps_per_call=TRAIN_SPC,
+                seed=SEED, net_kwargs=net_kw, **kw))))
+        res = box[0]
+        cfg = res.algo_cfg
+        steps = CONV_TRAIN_ITERS * cfg.rollout_steps    # batched env steps
+        updates = CONV_TRAIN_ITERS * cfg.updates_per_iter
+        want = dict.fromkeys(counters, 0)
+        if name == "qat8":
+            # the fp32 actor's forwards (8 envs; evaluations of 8 episodes)
+            # and the learner's two a TD update
+            f = atari.conv_filters
+            want["fake_quant"] = (
+                qat_site_launches(f, atari.fc_width, cfg.n_envs) * steps
+                + qat_site_launches(f, atari.fc_width, 8) * res.eval_steps
+                + 2 * qat_site_launches(f, atari.fc_width, cfg.batch_size)
+                * updates)
+        elif actorq.is_quantized(cfg.actor_backend):
+            want["int8_matmul"] = layers * (steps + res.eval_steps)
+        check(n == want, f"conv train {name}: launches {n}, the config "
+                         f"implies {want}")
+        check(len(res.rewards) == CONV_TRAIN_ITERS // CONV_TRAIN_RECORD
+              and all(np.isfinite(res.rewards)),
+              f"conv train {name}: rewards {res.rewards}")
+        bar = CONV_TRAIN_BARS.get(name)
+        check(bar is None or max(res.rewards) > bar,
+              f"conv train {name}: max eval reward {max(res.rewards)} does "
+              f"not clear its bar {bar} ({res.rewards})")
+        row = dict(run=name, rewards=res.rewards, bar=bar, wall_s=wall,
+                   updates_per_s=updates / wall,
+                   env_steps_per_s=steps * cfg.n_envs / wall,
+                   eval_env_steps=res.eval_steps, launches=n,
+                   observers={k: [float(o.vmin), float(o.vmax)]
+                              for k, o in res.state.observers.items()},
+                   card=smi)
+        rows["train"].append(row)
+        print("conv train " + json.dumps(row))
+        results[name] = res
+
+    rows["train"].append(dict(td_replay=td_replay(
+        torch, dev, results["qat8"], smi, "conv train")))
+    rows["train"] += profile_iterations(torch, dev, results, "conv train")
+    del results, res
+    part_done("train")
+
+    # ---- the anchors on the card at a small conv net (cuDNN deterministic)
+    check(torch.backends.cudnn.deterministic, "cuDNN is deterministic")
+    rows["train"].append(dict(anchors=anchor_runs(
+        torch, "catch", smi, "conv",
+        net_kwargs=dict(conv_filters=(8, 8), fc_width=32))))
+    part_done("anchors")
+
+    return dict(train=rows["train"], b1=b1_seen, seconds=rows["seconds"])
+
+
+def conv_phase(torch, dev, smi, counters, trained, a7) -> dict:
+    """The conv path: the paper's Atari conv actor on pixel Catch.
+
+    The int8 / int4 / fp32 actors of Policies A, B and C at ``CONV_ENVS``
+    envs: each forward's launches, the quantized ones bitwise their plain
+    replay on the card (B1's plain version), at 8 envs within
+    ``CONV_CPU_ATOL`` of the CPU's, timed and profiled; a
+    ``CONV_ROLL_STEPS`` rollout of each, in turns.  Each is driven with
+    every count set to 0 just before it and read just after.  Then B1
+    bitwise and timed at every shape these paths, DQN on Catch
+    (``trained``: ``conv_train_phase``) and A7's async int8 bar (``a7``:
+    ``a7_run``'s result from a worker) gave it."""
+    from repro_torch.core import ptq
+    from repro_torch.rl import actorq, dqn
+    from repro_torch.rl import env as env_mod
+    from repro_torch.rl import networks
+    from repro_torch.rl.env import batched_env
+    from repro_torch.rl.envs import make
+    cfgs = quarl_atari()
+    env = make("catch")
+    rows = dict(forward=[], rollout=[], train=trained["train"], b1=[],
+                seconds=trained["seconds"])
+    b1_seen = []
+    part_done, record, counted = conv_helpers(torch, dev, counters,
+                                              rows["seconds"], b1_seen)
 
     # ---- the actors of Policies A, B and C, params drawn on the card
     actors = {}
@@ -2034,104 +2285,12 @@ def conv_phase(torch, dev, smi, counters) -> dict:
     del actors
     part_done("rollouts")
 
-    # ---- DQN on Catch at Policy A width
-    atari = cfgs.ATARI_DQN
-    net_kw = dict(conv_filters=atari.conv_filters, fc_width=atari.fc_width)
-    layers = len(atari.conv_filters) + 2
-    results = {}
-    for name, kw in CONV_TRAIN_RUNS:
-        if name == "qat8":
-            kw = dict(kw, quant=QuantConfig.qat(8, quant_delay=QAT_DELAY))
-        box = []
-        _, wall, n = counted(lambda kw=kw: record(
-            "conv train", lambda: box.append(loops.train(
-                "dqn", "catch", iterations=CONV_TRAIN_ITERS,
-                record_every=CONV_TRAIN_RECORD, steps_per_call=TRAIN_SPC,
-                seed=SEED, net_kwargs=net_kw, **kw))))
-        res = box[0]
-        cfg = res.algo_cfg
-        steps = CONV_TRAIN_ITERS * cfg.rollout_steps    # batched env steps
-        updates = CONV_TRAIN_ITERS * cfg.updates_per_iter
-        want = dict.fromkeys(counters, 0)
-        if name == "qat8":
-            # the fp32 actor's forwards (8 envs; evaluations of 8 episodes)
-            # and the learner's two a TD update
-            f = atari.conv_filters
-            want["fake_quant"] = (
-                qat_site_launches(f, atari.fc_width, cfg.n_envs) * steps
-                + qat_site_launches(f, atari.fc_width, 8) * res.eval_steps
-                + 2 * qat_site_launches(f, atari.fc_width, cfg.batch_size)
-                * updates)
-        elif actorq.is_quantized(cfg.actor_backend):
-            want["int8_matmul"] = layers * (steps + res.eval_steps)
-        check(n == want, f"conv train {name}: launches {n}, the config "
-                         f"implies {want}")
-        check(len(res.rewards) == CONV_TRAIN_ITERS // CONV_TRAIN_RECORD
-              and all(np.isfinite(res.rewards)),
-              f"conv train {name}: rewards {res.rewards}")
-        bar = CONV_TRAIN_BARS.get(name)
-        check(bar is None or max(res.rewards) > bar,
-              f"conv train {name}: max eval reward {max(res.rewards)} does "
-              f"not clear its bar {bar} ({res.rewards})")
-        row = dict(run=name, rewards=res.rewards, bar=bar, wall_s=wall,
-                   updates_per_s=updates / wall,
-                   env_steps_per_s=steps * cfg.n_envs / wall,
-                   eval_env_steps=res.eval_steps, launches=n,
-                   observers={k: [float(o.vmin), float(o.vmax)]
-                              for k, o in res.state.observers.items()},
-                   card=smi)
-        rows["train"].append(row)
-        print("conv train " + json.dumps(row))
-        results[name] = res
-
-    rows["train"].append(dict(td_replay=td_replay(
-        torch, dev, results["qat8"], smi, "conv train")))
-    rows["train"] += profile_iterations(torch, dev, results, "conv train")
-    del results, res
-    part_done("train")
-
-    # ---- A7's convergence bar: async int8 on Catch, verbatim
-    box = []
-    _, wall, n = counted(lambda: record("conv async", lambda: box.append(
-        loops.train("dqn", "catch", **A7_RUN))))
-    res = box[0]
-    cfg = res.algo_cfg
-    steps = A7_RUN["iterations"] * cfg.rollout_steps
-    pushes = len(res.actor_lags)
-    a7_layers = len(A7_RUN["net_kwargs"]["conv_filters"]) + 2
-    want = dict.fromkeys(counters, 0)
-    want["int8_matmul"] = a7_layers * (steps + res.eval_steps
-                                       + pushes * A7_RUN["num_actors"])
-    check(n == want, f"conv async: launches {n}, the config implies {want}")
-    divs = np.asarray(res.divergences, dtype=np.float64)
-    check(divs.shape == (pushes, A7_RUN["num_actors"])
-          and np.isfinite(divs).all() and bool((divs > 0).any()),
-          f"conv async: divergences of shape {divs.shape}")
-    check(pushes > 0 and all(lag == A7_RUN["sync_every"]
-                             for lag in res.actor_lags),
-          f"conv async: actor lags {sorted(set(res.actor_lags))}")
-    check(max(res.rewards) > A7_BAR,
-          f"conv async: max eval reward {max(res.rewards)} does not clear "
-          f"{A7_BAR} ({res.rewards})")
-    updates = A7_RUN["iterations"] * cfg.updates_per_iter
-    row = dict(run="a7_async_int8", rewards=res.rewards, bar=A7_BAR,
-               wall_s=wall, updates_per_s=updates / wall,
-               env_steps_per_s=steps * cfg.n_envs * A7_RUN["num_actors"]
-               / wall, eval_env_steps=res.eval_steps, launches=n,
-               pushes=pushes, divergence_first=divs[0].tolist(),
-               divergence_last=divs[-1].tolist(),
-               divergence_mean=divs.mean(0).tolist(),
-               actor_lags=sorted(set(res.actor_lags)), card=smi)
-    rows["train"].append(row)
-    print("conv async " + json.dumps(row))
-    part_done("async")
-
-    # ---- the anchors on the card at a small conv net (cuDNN deterministic)
-    check(torch.backends.cudnn.deterministic, "cuDNN is deterministic")
-    rows["train"].append(dict(anchors=anchor_runs(
-        torch, "catch", smi, "conv",
-        net_kwargs=dict(conv_filters=(8, 8), fc_width=32))))
-    part_done("anchors")
+    # ---- B1's shapes on the DQN runs' and A7's paths, after the forwards'
+    for label, m, k, n, bits in list(trained["b1"]) + [
+            ("conv async", *x) for x in a7["b1"]]:
+        if all((m, k, n, bits) != x[1:] for x in b1_seen):
+            b1_seen.append((label, m, k, n, bits))
+    rows["train"].append(a7["out"])
 
     # ---- B1 at every shape the conv paths gave it
     gen = torch.Generator(device=dev).manual_seed(SEED + 83)
@@ -2294,19 +2453,10 @@ def seq_time_rows(torch, dev, smi, counters) -> list:
     return rows
 
 
-def seq_train_phase(torch, dev, smi, counters) -> dict:
-    """The sequence actor in training through ``loops.train``: the
-    reference's fused smoke and its convergence bar in the three
-    topologies (int8 actors: B1 and B3), a fused QAT int8 run (B5 at every
-    site of the TD forwards), each driven with every kernel count set to
-    0 just before it and read just after, and held to its counts; the
-    anchors bitwise on the card; one TD update of the QAT run and of an
-    fp32 run replayed on the CPU within 1e-5; the four actors timed in
-    turns (``seq_time_rows``); and B1 at every shape these paths gave it
-    (B3's and B5's shapes are ``CACHE_ROWS`` and ``SITE_ROWS`` rows)."""
+def seq_runs() -> list:
+    """The ``loops.train`` runs of ``seq_train_phase``: ``(name, keywords,
+    bar on the last eval reward)``."""
     from repro_torch.core.qconfig import QuantConfig
-    from repro_torch.rl import loops
-    rows, results, seconds, b1_seen = [], {}, {}, []
     runs = [("smoke", seq_train_kw("fused", 3, SEQ_SMOKE), None)]
     runs += [(f"bar_{topo}", seq_train_kw(topo, SEQ_BAR_ITERS, SEQ_ALGO,
                                           SEQ_BAR_RECORD), SEQ_BAR)
@@ -2317,67 +2467,94 @@ def seq_train_phase(torch, dev, smi, counters) -> dict:
     fp32 = seq_train_kw("fused", SEQ_QAT_ITERS, SEQ_ALGO)
     fp32["actor_backend"] = "fp32"
     runs.append(("fp32", fp32, None))
-    for name, kw, bar in runs:
+    return runs
+
+
+def seq_run(torch, dev, smi, counters, name, kw, bar):
+    """One ``seq_runs`` run, driven with every count set to 0 just before
+    it and read just after, held to its launch counts, finite rewards,
+    its bar, its divergences, actor lags and observers: ``(row, result,
+    B1's shapes on its path)``, the shapes recorded for the fused bar run
+    only (``seq_timed`` times B1 at them)."""
+    from repro_torch.rl import loops
+    for c in counters.values():
+        c.reset()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    box = []
+
+    def run():
+        box.append(loops.train("dqn", "catch_seq", **kw))
+    seen = b1_path_shapes(torch, dev, run) if name == "bar_fused" \
+        else run()
+    res = box[0]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    n = {k: c.value for k, c in counters.items()}
+    want = seq_launches(res, kw, counters)
+    check(n == want, f"seq_train {name}: launches {n}, the config "
+                     f"implies {want}")
+    check(all(np.isfinite(res.rewards)) and len(res.rewards) == (
+        kw["iterations"] // kw["record_every"]),
+          f"seq_train {name}: rewards {res.rewards}")
+    check(bar is None or res.rewards[-1] >= bar,
+          f"seq_train {name}: last eval reward {res.rewards[-1]} does "
+          f"not clear {bar} ({res.rewards})")
+    if kw["topology"] != "fused":
+        divs = np.asarray(res.divergences, dtype=np.float64)
+        check(divs.ndim == 2 and divs.shape[1] == 2
+              and np.isfinite(divs).all() and bool((divs > 0).any()),
+              f"seq_train {name}: divergences {res.divergences}")
+    if kw["topology"] == "async":
+        # a push at the first round end sync_every updates on: rounds
+        # of one rollout and updates_per_iter updates
+        per = res.algo_cfg.updates_per_iter
+        lag = -(-kw["sync_every"] // per) * per
+        check(len(res.actor_lags) > 0 and all(
+            x == lag for x in res.actor_lags),
+            f"seq_train {name}: actor lags {sorted(set(res.actor_lags))}"
+            f" (want {lag})")
+    if "quant" in kw:
+        check(len(res.state.observers) == 2 + 6 * SEQ_NET["n_layers"]
+              and all(bool(o.initialized)
+                      for o in res.state.observers.values()),
+              f"seq_train {name}: observers "
+              f"{sorted(res.state.observers)}")
+    cfg = res.algo_cfg
+    iters = kw["iterations"]
+    actors = kw["num_actors"]
+    row = dict(run=name, topology=kw["topology"],
+               actor=kw["actor_backend"], iterations=iters,
+               rewards=res.rewards, bar=bar, wall_s=wall,
+               updates_per_s=iters * cfg.updates_per_iter / wall,
+               env_steps_per_s=iters * cfg.rollout_steps * cfg.n_envs
+               * actors / wall,
+               eval_env_steps=res.eval_steps, launches=n,
+               divergence_last=(res.divergences[-1] if res.divergences
+                                else None),
+               actor_lags=sorted(set(res.actor_lags)), card=smi)
+    print("seq_train " + json.dumps(row))
+    return row, res, seen or []
+
+
+def seq_train_phase(torch, dev, smi, counters, away) -> dict:
+    """The sequence actor in training through ``loops.train``: the
+    reference's fused smoke and its convergence bar in the three
+    topologies (int8 actors: B1 and B3), a fused QAT int8 run (B5 at every
+    site of the TD forwards), each driven with every kernel count set to
+    0 just before it and read just after, and held to its counts; the
+    anchors bitwise on the card; one TD update of the QAT run and of an
+    fp32 run replayed on the CPU within 1e-5.  The runs named in
+    ``away`` run in worker processes (``WORKER_JOBS``) and their rows are
+    added by the caller; the timed rows are ``seq_timed``'s."""
+    rows, results, seconds = [], {}, {}
+    for name, kw, bar in seq_runs():
+        if name in away:
+            continue
         t_part = time.perf_counter()
-        for c in counters.values():
-            c.reset()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        if name == "bar_fused":      # B1's shapes on this path, recorded
-            seen = b1_path_shapes(torch, dev, lambda: results.__setitem__(
-                name, loops.train("dqn", "catch_seq", **kw)))
-            b1_seen += [("seq train", *x) for x in seen]
-            res = results[name]
-        else:
-            res = loops.train("dqn", "catch_seq", **kw)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        n = {k: c.value for k, c in counters.items()}
-        want = seq_launches(res, kw, counters)
-        check(n == want, f"seq_train {name}: launches {n}, the config "
-                         f"implies {want}")
-        check(all(np.isfinite(res.rewards)) and len(res.rewards) == (
-            kw["iterations"] // kw["record_every"]),
-              f"seq_train {name}: rewards {res.rewards}")
-        check(bar is None or res.rewards[-1] >= bar,
-              f"seq_train {name}: last eval reward {res.rewards[-1]} does "
-              f"not clear {bar} ({res.rewards})")
-        if kw["topology"] != "fused":
-            divs = np.asarray(res.divergences, dtype=np.float64)
-            check(divs.ndim == 2 and divs.shape[1] == 2
-                  and np.isfinite(divs).all() and bool((divs > 0).any()),
-                  f"seq_train {name}: divergences {res.divergences}")
-        if kw["topology"] == "async":
-            # a push at the first round end sync_every updates on: rounds
-            # of one rollout and updates_per_iter updates
-            per = res.algo_cfg.updates_per_iter
-            lag = -(-kw["sync_every"] // per) * per
-            check(len(res.actor_lags) > 0 and all(
-                x == lag for x in res.actor_lags),
-                f"seq_train {name}: actor lags {sorted(set(res.actor_lags))}"
-                f" (want {lag})")
-        if "quant" in kw:
-            check(len(res.state.observers) == 2 + 6 * SEQ_NET["n_layers"]
-                  and all(bool(o.initialized)
-                          for o in res.state.observers.values()),
-                  f"seq_train {name}: observers "
-                  f"{sorted(res.state.observers)}")
-        cfg = res.algo_cfg
-        iters = kw["iterations"]
-        actors = kw["num_actors"]
-        row = dict(run=name, topology=kw["topology"],
-                   actor=kw["actor_backend"], iterations=iters,
-                   rewards=res.rewards, bar=bar, wall_s=wall,
-                   updates_per_s=iters * cfg.updates_per_iter / wall,
-                   env_steps_per_s=iters * cfg.rollout_steps * cfg.n_envs
-                   * actors / wall,
-                   eval_env_steps=res.eval_steps, launches=n,
-                   divergence_last=(res.divergences[-1] if res.divergences
-                                    else None),
-                   actor_lags=sorted(set(res.actor_lags)), card=smi)
+        row, results[name], _ = seq_run(torch, dev, smi, counters, name,
+                                        kw, bar)
         rows.append(row)
-        print("seq_train " + json.dumps(row))
-        results[name] = res
         seconds[name] = time.perf_counter() - t_part
     t_part = time.perf_counter()
     rows.append(dict(anchors=anchor_runs(
@@ -2388,23 +2565,32 @@ def seq_train_phase(torch, dev, smi, counters) -> dict:
     rows.append(dict(td_replay=td_replay(torch, dev, results["fp32"], smi,
                                          "seq_train fp32")))
     seconds["anchors_replays"] = time.perf_counter() - t_part
+    return dict(rows=rows, seconds=seconds,
+                qat_launches=next(r["launches"] for r in rows
+                                  if r.get("run") == "qat8_int8"))
+
+
+def seq_timed(torch, dev, smi, counters, seq: dict, b1_seen) -> dict:
+    """``seq_train_phase``'s result ``seq`` (with the workers' rows)
+    completed: the four actors timed in turns (``seq_time_rows``) and B1
+    at ``b1_seen``, every shape the fused bar run gave it (B3's and B5's
+    shapes are ``CACHE_ROWS`` and ``SITE_ROWS`` rows)."""
+    seconds = seq["seconds"]
     t_part = time.perf_counter()
-    rows += seq_time_rows(torch, dev, smi, counters)
+    seq["rows"] += seq_time_rows(torch, dev, smi, counters)
     seconds["timed"] = time.perf_counter() - t_part
     t_part = time.perf_counter()
-    shape_rows = []
+    seq["shape_rows"] = []
     gen = torch.Generator(device=dev).manual_seed(SEED + 92)
-    for label, m, k, n, bits in b1_seen:
-        shape_rows.append(b1_row(torch, dev, gen, label, m, k, n, bits,
-                                 reps=10))
-        print("seq_train kernel " + json.dumps(shape_rows[-1]))
+    for m, k, n, bits in b1_seen:
+        seq["shape_rows"].append(b1_row(torch, dev, gen, "seq train", m, k,
+                                        n, bits, reps=10))
+        print("seq_train kernel " + json.dumps(seq["shape_rows"][-1]))
     seconds["b1_rows"] = time.perf_counter() - t_part
     print("seq_train seconds " + json.dumps(seconds))
-    return dict(rows=rows, shape_rows=shape_rows, seconds=seconds,
-                qat_launches=next(r["launches"] for r in rows
-                                  if r.get("run") == "qat8_int8"),
-                bar_launches=next(r["launches"] for r in rows
-                                  if r.get("run") == "bar_fused"))
+    seq["bar_launches"] = next(r["launches"] for r in seq["rows"]
+                               if r.get("run") == "bar_fused")
+    return seq
 
 
 def resume_phase(torch, dev, smi) -> dict:
@@ -3084,7 +3270,7 @@ def flash_rows(torch, dev, gen) -> list:
         if fma_ms < b_ms:
             b_ms, b_by, kind = fma_ms, fma_by, "float32 FMA"
         big = s * t > 2 ** 22
-        reps = dict(reps=5, per_rep=2) if big else {}
+        reps = dict(reps=3, per_rep=2) if big else {}
         lib_ms = lib_err = None
         if softcap is None:
             g = h // kv
@@ -3148,7 +3334,7 @@ def lm_phase(torch, dev, smi, counters) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t
     t = time.perf_counter()
-    params_cpu = ptq.tree_to(params, "cpu")
+    params_cpu = host_copy(torch, params)
     to_cpu_s = time.perf_counter() - t
     n_params = sum(x.numel() for _, x in ptq.tree_tensors(params))
     b, s = LM_PREFILL
@@ -3242,7 +3428,8 @@ def lm_serve(torch, counters, smi, argv, label, cfg) -> dict:
     """``launch.serve.main(argv)`` with every count set to 0 just before
     and read just after: B3 once an attention layer a step with
     ``--int8-cache``, B5 once a per-tensor weight leaf with ``--quant``,
-    nothing else; the rate printed on the card."""
+    B4 ``frontend_flash`` times a step for an encoder or cross-attention
+    config, nothing else; the rate printed on the card."""
     import contextlib
     import io
     import re
@@ -3266,6 +3453,8 @@ def lm_serve(torch, counters, smi, argv, label, cfg) -> dict:
         want["int8_cache_attention"] = attention_layers(cfg) * steps
     if "--quant" in argv:
         want["fake_quant"] = _spec_weights(transformer.param_specs(cfg))
+    if frontend_flash(cfg):
+        want["flash_attention"] = frontend_flash(cfg) * steps
     check(rc == 0, f"serve {cfg.name} {label}: exit {rc}")
     check(n == want, f"serve {cfg.name} {label}: launches {n}, want {want}")
     m = re.search(r"in ([\d.]+)s \(([\d.]+) tok/s on (.+)\)", out)
@@ -3281,13 +3470,23 @@ def lm_serve(torch, counters, smi, argv, label, cfg) -> dict:
     return row
 
 
-def attention_layers(cfg) -> int:
-    """The attention layers of ``cfg``: B4 once each in a prefill, B3 once
-    each in an int8-cache decode step."""
-    kinds = list(cfg.pattern) * cfg.pattern_repeats \
+def _kinds(cfg) -> list:
+    return list(cfg.pattern) * cfg.pattern_repeats \
         + list(cfg.pattern_remainder)
-    return sum(k in ("attn", "attn_local", "moe", "moe_local")
-               for k in kinds)
+
+
+def attention_layers(cfg) -> int:
+    """The self-attention layers of ``cfg`` (a ``cross`` block's too): B4
+    once each in a prefill, B3 once each in an int8-cache decode step."""
+    return sum(k in ("attn", "attn_local", "moe", "moe_local", "cross")
+               for k in _kinds(cfg))
+
+
+def frontend_flash(cfg) -> int:
+    """B4 launches of a decode step given ``encoder_out``: the encoder's
+    layers, re-run every step, and each ``cross`` block's cross-attention
+    (a prefill adds them to ``attention_layers``)."""
+    return cfg.encoder_layers + sum(k == "cross" for k in _kinds(cfg))
 
 
 def families_phase(torch, dev, smi, counters) -> dict:
@@ -3336,13 +3535,16 @@ def families_phase(torch, dev, smi, counters) -> dict:
                 "--arch", a] + extra, label, cfg)
             for a, label, extra in FAMILY_SERVE_RUNS if a == arch]
         rows[arch] = row
+        progress(f"families: {arch} done")
     return rows
 
 
 def family_prefill(torch, dev, smi, counters, cfg, params, shape,
-                   profile: bool) -> dict:
+                   profile: bool, enc=None) -> dict:
     """``transformer.prefill`` of ``shape = (batch, tokens)`` seeded
-    tokens: B4 once an attention layer and nothing else, finite logits;
+    tokens (over ``enc``, the frontend's embeddings, for an encoder or
+    cross-attention config): B4 once an attention layer (and once an
+    encoder and cross-attention layer) and nothing else, finite logits;
     with ``profile``, timed twice more (the first call apart) and
     profiled once, else the first call's time stands (xlstm's loop over
     time, no kernel of the port's to warm)."""
@@ -3352,7 +3554,7 @@ def family_prefill(torch, dev, smi, counters, cfg, params, shape,
         ).manual_seed(SEED + 40)).to(dev)
 
     def prefill():
-        return transformer.prefill(cfg, params, tokens)
+        return transformer.prefill(cfg, params, tokens, encoder_out=enc)
     torch.cuda.reset_peak_memory_stats()
     for c in counters.values():
         c.reset()
@@ -3363,7 +3565,8 @@ def family_prefill(torch, dev, smi, counters, cfg, params, shape,
     first_s = time.perf_counter() - t
     n = {k: c.value for k, c in counters.items()}
     want = {k: 0 for k in counters}
-    want["flash_attention"] = attention_layers(cfg)
+    want["flash_attention"] = attention_layers(cfg) + (
+        0 if enc is None else frontend_flash(cfg))
     check(n == want, f"{cfg.name} prefill launches {n}, want {want}")
     check(tuple(logits.shape) == (b, 1, cfg.vocab)
           and bool(torch.isfinite(logits).all()),
@@ -3386,7 +3589,7 @@ def family_prefill(torch, dev, smi, counters, cfg, params, shape,
     return row
 
 
-def family_parity(torch, dev, smi, counters, cfg, params) -> dict:
+def family_parity(torch, dev, smi, counters, cfg, params, enc=None) -> dict:
     """On ``LM_SHORT`` seeded tokens: the card's forward logits against
     the port's CPU path on the same params within ``LM_CPU_ATOL`` (a MoE
     config's router choices recorded on both: at most ``FAMILY_FLIP_MAX``
@@ -3399,21 +3602,30 @@ def family_parity(torch, dev, smi, counters, cfg, params) -> dict:
     contract, stated for a dense config); a MoE config at the median step,
     since the int8 cache's noise can flip a near-tied router choice and
     move that token's whole FFN output (a reduced mixtral on the CPU: 4 of
-    64 steps below, the lowest 0.897); timed."""
+    64 steps below, the lowest 0.897); timed.  The plain-B3 step writes
+    the kernel step's K / V codes (``Codes``): B3's rounding moves the
+    next layer's K and V by an ulp, which can move one int8 code, and one
+    such code moves a reduced llama-vision's logits by 2.2e-3 (on the
+    CPU, B3's plain version against itself times 1 + 1e-6); the codes
+    that would have differed are counted.  An encoder or
+    cross-attention config runs over ``enc`` (batch 1) everywhere, and
+    each decode step adds ``frontend_flash`` B4 launches."""
     import dataclasses
 
-    from repro_torch.core import ptq
     from repro_torch.models import transformer
     short = torch.randint(0, cfg.vocab, (1, LM_SHORT), generator=torch.
                           Generator().manual_seed(SEED + 41))
     t = time.perf_counter()
-    params_cpu = ptq.tree_to(params, "cpu")
+    params_cpu = host_copy(torch, params)
     to_cpu_s = time.perf_counter() - t
     with Routes() as on_card:
-        card = transformer.forward(cfg, params, short.to(dev))[0].cpu()
+        card = transformer.forward(cfg, params, short.to(dev),
+                                   encoder_out=enc)[0].cpu()
     t = time.perf_counter()
     with Routes(replay=on_card) as on_cpu:
-        cpu = transformer.forward(cfg, params_cpu, short)[0]
+        cpu = transformer.forward(
+            cfg, params_cpu, short,
+            encoder_out=None if enc is None else enc.cpu())[0]
     cpu_s = time.perf_counter() - t
     del params_cpu
     flipped = on_cpu.flipped(on_card)
@@ -3426,10 +3638,10 @@ def family_parity(torch, dev, smi, counters, cfg, params) -> dict:
     dcfg = dataclasses.replace(cfg, capacity_factor=4.0) if cfg.n_experts \
         else cfg
     toks = short.to(dev)
-    full = transformer.forward(dcfg, params, toks)[0]
+    full = transformer.forward(dcfg, params, toks, encoder_out=enc)[0]
     caches = {i8: transformer.init_caches(dcfg, 1, LM_SHORT, int8=i8,
                                           device=dev) for i8 in (False, True)}
-    worst, plain_diff, corrs = 0.0, 0.0, []
+    worst, plain_diff, corrs, code_flips = 0.0, 0.0, [], 0
     walls, plain_flips = {False: 0.0, True: 0.0}, []
     for c in counters.values():
         c.reset()
@@ -3438,16 +3650,21 @@ def family_parity(torch, dev, smi, counters, cfg, params) -> dict:
         for i8 in (False, True):
             torch.cuda.synchronize()
             t = time.perf_counter()
-            with Routes() as routed:
+            with Routes() as routed, Codes() as coded:
                 step[i8], _ = transformer.decode_step(
-                    dcfg, params, toks[:, pos:pos + 1], caches[i8], pos)
+                    dcfg, params, toks[:, pos:pos + 1], caches[i8], pos,
+                    encoder_out=enc)
             torch.cuda.synchronize()
             walls[i8] += time.perf_counter() - t
         # the int8 step again through B3's plain version, from a clone of
-        # the caches it started from, routed as the kernel's step
-        with plain_b3(), Routes(replay=routed) as again:
+        # the caches it started from, routed as the kernel's step and
+        # writing the kernel's step's K / V codes
+        with plain_b3(), Routes(replay=routed) as again, \
+                Codes(replay=coded) as recoded:
             plain, _ = transformer.decode_step(
-                dcfg, params, toks[:, pos:pos + 1], start, pos)
+                dcfg, params, toks[:, pos:pos + 1], start, pos,
+                encoder_out=enc)
+        code_flips += recoded.flipped(coded)
         plain_diff = max(plain_diff, float((step[True] - plain).abs().max()))
         if again.flipped(routed):
             plain_flips.append(pos)
@@ -3459,6 +3676,8 @@ def family_parity(torch, dev, smi, counters, cfg, params) -> dict:
     n = {k: c.value for k, c in counters.items()}
     want = {k: 0 for k in counters}
     want["int8_cache_attention"] = attention_layers(cfg) * LM_SHORT
+    if enc is not None:        # the float32, int8 and plain-B3 steps
+        want["flash_attention"] = 3 * frontend_flash(cfg) * LM_SHORT
     check(n == want, f"{cfg.name} {LM_SHORT} decode steps launches {n}, "
                      f"want {want}")
     check(plain_diff <= LM_LONG_ATOL and len(plain_flips) <= FAMILY_FLIP_MAX,
@@ -3481,6 +3700,7 @@ def family_parity(torch, dev, smi, counters, cfg, params) -> dict:
                int8_vs_plain_b3_tolerance=LM_LONG_ATOL,
                int8_vs_plain_b3_flipped_steps=plain_flips
                if cfg.n_experts else None,
+               int8_vs_plain_b3_code_flips=code_flips,
                int8_vs_fp32_min_corr=min(corrs),
                int8_vs_fp32_median_corr=statistics.median(corrs),
                int8_steps_below_corr=sum(c <= FAMILY_INT8_CORR
@@ -3531,6 +3751,40 @@ class Routes:
                     for x in (a, b))
             rows.update((a != b).any(-1).nonzero().reshape(-1).tolist())
         return sorted(rows)
+
+
+class Codes:
+    """The int8 KV caches' per-token codes and scales in one run
+    (``affine.quantize_symmetric``, which ``attention.cache_update``
+    calls once a K and once a V a layer), in call order.  With
+    ``replay``, an earlier run's ``Codes``, each call returns that run's
+    codes and scales, so both runs write the same cache entries; this
+    run's own are recorded all the same."""
+
+    def __init__(self, replay=None):
+        self.replay, self.out = replay, []
+
+    def __enter__(self):
+        from repro_torch.core import affine
+        real = self._real = affine.quantize_symmetric
+
+        def quantize(x):
+            got = real(x)
+            self.out.append(got)
+            if self.replay is None:
+                return got
+            return self.replay.out[len(self.out) - 1]
+        affine.quantize_symmetric = quantize
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import affine
+        affine.quantize_symmetric = self._real
+
+    def flipped(self, other) -> int:
+        """The codes that differ between this run and ``other``."""
+        return sum(int((a[0] != b[0]).sum())
+                   for a, b in zip(self.out, other.out))
 
 
 @contextlib.contextmanager
@@ -3683,17 +3937,20 @@ def lm_qat_launches(cfg, batch: int, seq: int) -> int:
 
 
 def lm_batch(torch, batch, dev) -> dict:
-    """A ``SyntheticLMDataset`` batch as int64 tensors on ``dev``."""
-    return {k: torch.from_numpy(v).long().to(dev) for k, v in batch.items()}
+    """A ``SyntheticLMDataset`` batch as int64 tensors on ``dev`` (a float
+    entry, ``encoder_out``, as it is)."""
+    return {k: (torch.from_numpy(v).long() if v.dtype.kind in "iu"
+                else torch.from_numpy(v)).to(dev) for k, v in batch.items()}
 
 
 def lm_train_run(torch, dev, counters, cfg, params, shape, n_steps,
-                 adam_cfg, want, label, qat=None) -> dict:
+                 adam_cfg, want, label, qat=None, enc=None) -> dict:
     """``n_steps`` of ``launch.steps.make_train_step`` from ``params`` on
-    ``SyntheticLMDataset(seed=SEED)`` batches of ``shape``; each step with
-    every count set to 0 just before it and read just after (held to
-    ``want``), its loss, grad norm, host ms around the synced step and
-    peak device memory printed.  Every loss finite."""
+    ``SyntheticLMDataset(seed=SEED)`` batches of ``shape`` (with ``enc``
+    as every batch's ``encoder_out``); each step with every count set to
+    0 just before it and read just after (held to ``want``), its loss,
+    grad norm, host ms around the synced step and peak device memory
+    printed.  Every loss finite."""
     from repro_torch.data import SyntheticLMDataset
     from repro_torch.launch import steps as steps_lib
     from repro_torch.optim import adam
@@ -3705,6 +3962,8 @@ def lm_train_run(torch, dev, counters, cfg, params, shape, n_steps,
     rows, first_qat = [], None
     for i in range(n_steps):
         batch = lm_batch(torch, next(data), dev)
+        if enc is not None:
+            batch["encoder_out"] = enc
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for c in counters.values():
@@ -3973,6 +4232,252 @@ def lm_train_phase(torch, dev, smi, counters) -> dict:
     return rows
 
 
+def host_copy(torch, tree):
+    """``ptq.tree_to(tree, "cpu")`` for a tree of large card tensors, bit
+    for bit, through two pinned staging buffers of ``HOST_CHUNK`` bytes
+    taken in turns: a chunk's copy from the card into one overlaps the
+    host's copy of the last chunk out of the other, split over up to four
+    threads (``.to("cpu")`` copies into pageable memory, 2.0-2.3 GB/s on
+    the H100's host: PERF.md)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from repro_torch.core import ptq
+    bufs = [torch.empty(HOST_CHUNK, dtype=torch.uint8, pin_memory=True)
+            for _ in range(2)]
+    ready = [torch.cuda.Event(), torch.cuda.Event()]
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    n_threads = min(4, usable_cpus())
+    pending = []
+
+    def drain(pool):
+        b, dst, n = pending.pop()
+        ready[b].synchronize()
+        step = -(-n // n_threads)
+        list(pool.map(lambda i: dst[i:i + step].copy_(
+            bufs[b][i:min(i + step, n)]), range(0, n, step)))
+
+    def one(leaf, pool):
+        if not (isinstance(leaf, torch.Tensor) and leaf.is_cuda):
+            return ptq.tree_to(leaf, "cpu")
+        out = torch.empty(leaf.shape, dtype=leaf.dtype)
+        src = leaf.contiguous().view(-1).view(torch.uint8)
+        src.record_stream(stream)
+        dst = out.view(-1).view(torch.uint8)
+        for i in range(0, src.numel(), HOST_CHUNK):
+            n = min(HOST_CHUNK, src.numel() - i)
+            b = one.chunks % 2
+            one.chunks += 1
+            with torch.cuda.stream(stream):
+                bufs[b][:n].copy_(src[i:i + n], non_blocking=True)
+                ready[b].record(stream)
+            if pending:
+                drain(pool)
+            pending.append((b, dst[i:i + n], n))
+        return out
+    one.chunks = 0
+    with ThreadPoolExecutor(n_threads) as pool:
+        out = ptq.tree_map(lambda leaf: one(leaf, pool), tree)
+        if pending:
+            drain(pool)
+    torch.cuda.current_stream().wait_stream(stream)
+    return out
+
+
+def frontend_enc(torch, dev, cfg, batch: int):
+    """The stub frontend's embeddings for ``batch`` sequences: seeded
+    normals times 0.02 of ``(batch, max(encoder_seq, 4), d_model)`` on
+    ``dev``."""
+    gen = torch.Generator(device=dev).manual_seed(SEED + 42)
+    return torch.randn((batch, max(cfg.encoder_seq, 4), cfg.d_model),
+                       generator=gen, device=dev) * 0.02
+
+
+def frontends_phase(torch, dev, smi, counters) -> dict:
+    """The encoder and cross-attention configs and grok-1 on the card.
+
+    For each of whisper-tiny (full size), llama-3.2-vision-90b (full
+    width, ``FRONT_DEPTH``) and grok-1-314b (full width, ``FRONT_DEPTH``):
+    ``transformer.prefill`` of ``FRONT_PREFILL`` tokens over the stub
+    embeddings (``family_prefill``: B4 once a self-attention, encoder and
+    cross-attention layer, counted, timed, profiled), then
+    ``family_parity``: the 64-token forward against the CPU path (grok's
+    router choices compared), 64 teacher-forced decode steps with float32
+    and int8 caches (B3 once a self-attention layer a step, B4 once an
+    encoder and cross-attention layer a step, each counted) against the
+    forward and against B3's plain version.  whisper then runs
+    ``launch.serve.main`` three ways, ``FRONT_TRAIN`` steps of
+    ``make_train_step`` (B4 counted: the encoder once, the decoder's
+    self- and cross-attention twice under remat) and a float32 step
+    against the CPU (``lm_card_vs_cpu``); grok its bfloat16-parameter
+    step against the CPU (``bf16_step_card_vs_cpu``).  Every count is set
+    to 0 just before each run and read just after."""
+    import dataclasses
+
+    from repro_torch.configs import base as cfgs
+    from repro_torch.core.qconfig import MixedPrecisionConfig
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.models import transformer
+    from repro_torch.optim import adam
+    rows = {}
+    zero = {k: 0 for k in counters}
+    for arch in (FRONT_WHISPER, FRONT_VISION, FRONT_GROK):
+        cfg = cfgs.get(arch)
+        if arch in FRONT_DEPTH:
+            cfg = dataclasses.replace(cfg, n_layers=FRONT_DEPTH[arch])
+        t = time.perf_counter()
+        params = transformer.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(SEED), dev)
+        torch.cuda.synchronize()
+        row = dict(init_card_s=time.perf_counter() - t)
+        shape = FRONT_PREFILL[arch]
+        frontend = frontend_flash(cfg) > 0
+        enc = frontend_enc(torch, dev, cfg, shape[0]) if frontend else None
+        # grok's prefill (seconds of MoE GEMMs) is timed once, unprofiled
+        row["prefill"] = family_prefill(torch, dev, smi, counters, cfg,
+                                        params, shape,
+                                        profile=arch != FRONT_GROK, enc=enc)
+        enc = frontend_enc(torch, dev, cfg, 1) if frontend else None
+        row["parity"] = family_parity(torch, dev, smi, counters, cfg, params,
+                                      enc=enc)
+        del enc
+        torch.cuda.empty_cache()
+        if arch == FRONT_WHISPER:
+            (b, s), n_steps = FRONT_TRAIN
+            # in the compute dtype, as the reference's training loop
+            enc = frontend_enc(torch, dev, cfg, b).to(getattr(
+                torch, cfg.mp.compute_dtype))
+            cross = frontend_flash(cfg) - cfg.encoder_layers
+            flash = cfg.encoder_layers + 2 * (attention_layers(cfg) + cross)
+            run = lm_train_run(torch, dev, counters, cfg, params, (b, s),
+                               n_steps, adam.AdamConfig(lr=LM_TRAIN_LR),
+                               dict(zero, flash_attention=flash), arch,
+                               enc=enc)
+            walls = [r["step_ms"] for r in run["rows"][1:]]
+            row["train"] = dict(
+                batch=b, seq=s, steps=run["rows"],
+                tokens_per_s=[b * s / (w / 1e3) for w in walls],
+                peak_gb=max(r["peak_gb"] for r in run["rows"]),
+                flash_per_step=flash, flash_launches=flash * n_steps,
+                card=smi)
+            del run
+            batch = next(SyntheticLMDataset(vocab=cfg.vocab, seq_len=s,
+                                            batch=b, seed=SEED).batches())
+            batch["encoder_out"] = enc.float().cpu().numpy()
+            f32 = dataclasses.replace(cfg, mp=MixedPrecisionConfig.fp32())
+            par, _ = lm_card_vs_cpu(torch, dev, f32, params, batch)
+            print("frontends whisper card_vs_cpu " + json.dumps(par))
+            check(par["loss_rel_diff"] <= LM_TRAIN_LOSS_RTOL
+                  and par["grad_max_rel_diff"] <= LM_TRAIN_GRAD_RTOL
+                  and par["param_max_abs_diff"] <= LM_TRAIN_PARAM_ATOL,
+                  f"whisper card vs CPU float32 step: {par}")
+            row["train"]["card_vs_cpu"] = par
+            del enc
+        del params
+        torch.cuda.empty_cache()
+        row["serve"] = [
+            lm_serve(torch, counters, smi, LM_SERVE_ARGS[2:] + [
+                "--arch", a] + extra, label, cfg)
+            for a, label, extra in FRONT_SERVE_RUNS if a == arch]
+        if arch == FRONT_GROK:
+            row["bf16_step"] = bf16_step_card_vs_cpu(torch, dev, counters,
+                                                     smi)
+        rows[arch] = row
+        progress(f"frontends: {arch} done")
+    return rows
+
+
+def bf16_step_card_vs_cpu(torch, dev, counters, smi) -> dict:
+    """grok-1's training step as its full config takes it (bfloat16 params
+    and compute, 8-bit Adam, ``grad_accum`` 4 through
+    ``make_train_step``) at the reduced widths, from the same bfloat16
+    params and ``FRONT_BF16_BATCH`` batch on the card and on the host
+    CPU: B4 twice an attention layer a micro-batch on the card (remat)
+    and nothing else, the loss within ``FRONT_BF16_LOSS_RTOL``, every new
+    param bfloat16 and within two Adam steps and one ulp of the CPU's,
+    and at most ``FRONT_BF16_FAR_SHARE`` of them more than one ulp apart;
+    the share of params that differ, and by more than one ulp,
+    reported."""
+    import dataclasses
+
+    from repro_torch.configs import base as cfgs
+    from repro_torch.core import ptq
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import transformer
+    from repro_torch.optim import adam
+    full = cfgs.get(FRONT_GROK)
+    cfg = dataclasses.replace(cfgs.get_reduced(FRONT_GROK), mp=full.mp,
+                              grad_accum=full.grad_accum)
+    check(cfg.optimizer_8bit and cfg.mp.param_dtype == "bfloat16"
+          and cfg.mp.compute_dtype == "bfloat16" and cfg.grad_accum == 4,
+          f"{cfg.name}: bfloat16 params and compute, 8-bit Adam, "
+          f"grad_accum 4")
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(
+        SEED), "cpu", dtype=torch.bfloat16)
+    b, s = FRONT_BF16_BATCH
+    batch = next(SyntheticLMDataset(vocab=cfg.vocab, seq_len=s, batch=b,
+                                    seed=SEED).batches())
+    out = {}
+    for where in ("card", "cpu"):
+        d = dev if where == "card" else torch.device("cpu")
+        p = ptq.tree_to(params, d)
+        step_fn, acfg = steps_lib.make_train_step(cfg)
+        opt = adam.adam_init(p, acfg)
+        tb = lm_batch(torch, batch, d)
+        for c in counters.values():
+            c.reset()
+        t = time.perf_counter()
+        new_p, _, _, m = step_fn(p, opt, tb, {})
+        loss = float(m["loss"])                  # syncs the card
+        out[where] = dict(loss=loss, s=time.perf_counter() - t,
+                          params=ptq.tree_to(new_p, "cpu"),
+                          launches={k: c.value for k, c in counters.items()})
+        del p, opt, new_p
+    want = {k: 0 for k in counters}
+    want["flash_attention"] = 2 * attention_layers(cfg) * cfg.grad_accum
+    check(out["card"]["launches"] == want,
+          f"grok bf16 step launches {out['card']['launches']}, want {want}")
+    lr = acfg.lr
+    n = differ = far = 0
+    worst = 0.0
+    for (k, x), (_, y) in zip(ptq.tree_tensors(out["card"]["params"]),
+                              ptq.tree_tensors(out["cpu"]["params"])):
+        check(x.dtype == y.dtype == torch.bfloat16,
+              f"grok bf16 step: {k} stays bfloat16 ({x.dtype}, {y.dtype})")
+        bits = [t.view(torch.int16).to(torch.int32) for t in (x, y)]
+        ordered = [torch.where(v < 0, -(v & 0x7FFF), v) for v in bits]
+        ulps = (ordered[0] - ordered[1]).abs()
+        n += ulps.numel()
+        differ += int((ulps > 0).sum())
+        far += int((ulps > 1).sum())
+        x32, y32 = x.float(), y.float()
+        # one ulp of the larger value: frexp's mantissa is in [0.5, 1)
+        ulp = 2.0 ** (torch.frexp(torch.maximum(x32.abs(), y32.abs()))[1]
+                      - 8).float()
+        err = (x32 - y32).abs()
+        check(bool((err <= 2 * lr + ulp).all()),
+              f"grok bf16 step: {k} within 2 lr + one ulp of the CPU's "
+              f"(max abs diff {float(err.max())})")
+        worst = max(worst, float(err.max()))
+    check(far / n <= FRONT_BF16_FAR_SHARE,
+          f"grok bf16 step: {far} of {n} params more than one ulp from the "
+          f"CPU's (at most a share of {FRONT_BF16_FAR_SHARE})")
+    card, cpu = out["card"], out["cpu"]
+    loss_rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
+    check(loss_rel <= FRONT_BF16_LOSS_RTOL,
+          f"grok bf16 step loss: card {card['loss']}, CPU {cpu['loss']} "
+          f"(relative {loss_rel}, tolerance {FRONT_BF16_LOSS_RTOL})")
+    row = dict(arch=cfg.name, batch=b, seq=s, grad_accum=cfg.grad_accum,
+               card_loss=card["loss"], cpu_loss=cpu["loss"],
+               loss_rel_diff=loss_rel, params_differing_share=differ / n,
+               params_over_one_ulp_share=far / n, param_max_abs_diff=worst,
+               launches=card["launches"], card_s=card["s"], cpu_s=cpu["s"],
+               card=smi)
+    print("frontends grok bf16_step " + json.dumps(row))
+    return row
+
+
 def _spec_weights(spec) -> int:
     """Leaves of two or three dims in a spec tree: what PTQ quantizes per
     tensor, through B5 (four-dim leaves, such as stacked expert weights,
@@ -3980,6 +4485,140 @@ def _spec_weights(spec) -> int:
     if isinstance(spec, dict):
         return sum(_spec_weights(v) for v in spec.values())
     return int(len(spec.shape) in (2, 3))
+
+
+def usable_cpus() -> int:
+    """The CPUs this process may run on: its affinity, capped by the
+    cgroup's CPU quota where one is set (read, never written)."""
+    n = len(os.sched_getaffinity(0))
+    with contextlib.suppress(OSError, ValueError):
+        quota, period = Path("/sys/fs/cgroup/cpu.max").read_text().split()
+        if quota != "max":
+            n = min(n, max(1, int(quota) // int(period)))
+    return n
+
+
+def host_state() -> str:
+    """This process's resident and peak memory, the host's available
+    memory and its load."""
+    import resource
+    peak = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+    rss = int(Path("/proc/self/statm").read_text().split()[1]) \
+        * os.sysconf("SC_PAGE_SIZE") / 1e9
+    avail = float("nan")
+    for line in Path("/proc/meminfo").read_text().splitlines():
+        if line.startswith("MemAvailable:"):
+            avail = int(line.split()[1]) / 1e6
+    return (f"rss {rss:.1f} GB (peak {peak:.1f}), host available "
+            f"{avail:.1f} GB, load {os.getloadavg()[0]:.1f}")
+
+
+def progress(msg: str) -> None:
+    """``msg`` with the time since the start and ``host_state`` on
+    stderr, at once: where a run that is stopped got to."""
+    print(f"chip_smoke [{time.perf_counter() - T_START:.1f}s] {msg}; "
+          f"{host_state()}", file=sys.stderr, flush=True)
+
+
+def phase_done(name: str, t: float) -> None:
+    """The phase that started at ``t`` has ended: its seconds on stdout,
+    and ``progress``."""
+    print(f"{name} phase: {time.perf_counter() - t:.1f}s")
+    progress(f"{name} phase done in {time.perf_counter() - t:.1f}s")
+
+
+class Worker:
+    """A process on the same card running ``jobs`` through ``worker_main``
+    (``python3 chip_smoke.py --worker``), started at once; ``collect``
+    waits for it and returns each job's result.  Every worker started is
+    killed at exit if it still runs (``stop_all``)."""
+
+    started: list = []
+
+    def __init__(self, smi: str, jobs):
+        self.jobs = [list(j) for j in jobs]
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_worker_")
+        self.out = os.path.join(self.dir, "out.json")
+        self.log = os.path.join(self.dir, "stdout.log")
+        self.t0 = time.perf_counter()
+        with open(self.log, "w") as log:
+            self.proc = subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--worker",
+                 json.dumps(dict(smi=smi, jobs=self.jobs)), self.out],
+                cwd=str(ROOT), stdout=log)
+        Worker.started.append(self)
+
+    def collect(self) -> dict:
+        """``{job: {"out", "b1", "s"}}``, each job a tuple; the worker's
+        standard output goes to ours."""
+        rc = self.proc.wait(timeout=WORKER_TIMEOUT_S)
+        sys.stdout.write(Path(self.log).read_text())
+        check(rc == 0, f"worker {self.jobs}: exit code {rc} (its traceback "
+                       f"is on stderr)")
+        got = json.loads(Path(self.out).read_text())
+        shutil.rmtree(self.dir, ignore_errors=True)
+        progress(f"worker {[j[-1] for j in self.jobs]} took "
+                 f"{time.perf_counter() - self.t0:.1f}s (startup "
+                 f"{got['startup_s']:.1f}s)")
+        return {tuple(g["job"]): g for g in got["jobs"]}
+
+    @classmethod
+    def stop_all(cls) -> None:
+        for w in cls.started:
+            if w.proc.poll() is None:
+                w.proc.kill()
+                w.proc.wait()
+            shutil.rmtree(w.dir, ignore_errors=True)
+
+
+def worker_main(spec: str, out: str) -> int:
+    """``--worker SPEC OUT``: run SPEC's jobs (``WORKER_JOBS``) on the card
+    in order, each held to its checks with its own launch counts, and
+    write each one's result (a phase's dict or a run's row), B1's shapes
+    on its path and its seconds to OUT as JSON."""
+    t0 = time.perf_counter()
+    import torch
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import (build, fake_quant, fused_qmlp,
+                                     int8_cache_attention, int8_matmul)
+    from repro_torch.rl import networks
+    spec = json.loads(spec)
+    networks.full_fp32()
+    build.build()                 # the main process has built them all
+    dev = torch.device("cuda")
+    torch.zeros(1, device=dev)
+    counters = {c.name: c for c in (int8_matmul.launches, fused_qmlp.launches,
+                                    int8_cache_attention.launches,
+                                    fake_quant.launches)}
+    smi = spec["smi"]
+    seq = {name: (kw, bar) for name, kw, bar in seq_runs()}
+    algo = {run[0]: run for run in ALGO_RUNS}
+    phases = dict(train=train_phase, topology=topology_phase,
+                  resilience=resilience_phase)
+    done = dict(startup_s=time.perf_counter() - t0, jobs=[])
+    for job in spec["jobs"]:
+        t = time.perf_counter()
+        seen = []
+        if job[0] == "phase" and job[1] == "resume":
+            got = resume_phase(torch, dev, smi)
+        elif job[0] == "phase":
+            keep = ("int8_matmul", "fused_qmlp") \
+                if job[1] == "resilience" else tuple(counters)
+            got = phases[job[1]](torch, dev, smi,
+                                 {k: counters[k] for k in keep})
+        elif job[0] == "seq":
+            got, _, seen = seq_run(torch, dev, smi, counters, job[1],
+                                   *seq[job[1]])
+        elif job[0] == "a7":
+            got, seen = a7_run(torch, dev, smi, counters)
+        else:
+            got, _ = algo_run(torch, smi, counters, *algo[job[1]])
+        done["jobs"].append(dict(job=job, out=got, b1=seen,
+                                 s=time.perf_counter() - t))
+        print(f"worker job {job}: {time.perf_counter() - t:.1f}s",
+              flush=True)
+    Path(out).write_text(json.dumps(done))
+    return 0
 
 
 def check(cond: bool, what: str) -> None:
@@ -4022,6 +4661,13 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(f"card: {smi}")
+    cpus = usable_cpus()
+    if cpus < torch.get_num_threads():
+        torch.set_num_threads(cpus)
+    host = (f"host: {os.cpu_count()} CPUs, {cpus} usable, torch threads "
+            f"{torch.get_num_threads()}")
+    print(f"{host}; {host_state()}")
+    progress(host)
     dev = torch.device("cuda")
     networks.full_fp32()
     t0 = time.perf_counter()
@@ -4177,6 +4823,8 @@ def main() -> int:
           f"within 1e-5; B4 rows {flash_s:.1f}s), "
           f"{time.perf_counter() - t0:.1f}s so far")
 
+    progress("kernel phase done")
+
     # ---- serve phase (the main path) --------------------------------------
     counters = (int8_matmul.launches, fused_qmlp.launches)
     for c in counters:
@@ -4323,6 +4971,8 @@ def main() -> int:
     for name, n in launches.items():
         check(n > 0, f"{name} was never launched on the serving path")
 
+    progress("serve phase done")
+
     # ---- rollout phase (the sequence-actor path) --------------------------
     seq_env = make("airnav_seq")
     spec = seq_env.spec
@@ -4448,6 +5098,8 @@ def main() -> int:
         roll_rows.append(dict(profile=prof))
         print("rollout profile " + json.dumps(prof))
 
+    progress("rollout phase done")
+
     # ---- eval phase -------------------------------------------------------
     qp8 = actorq.pack_actor_params(seq_params, 8)
     t_eval = time.perf_counter()
@@ -4495,65 +5147,68 @@ def main() -> int:
                     card=smi)
     print("eval " + json.dumps(eval_row))
 
-    # ---- train phase (the learner's path) ---------------------------------
-    t_train = time.perf_counter()
-    train = train_phase(torch, dev, smi, {
-        c.name: c for c in (int8_matmul.launches, fused_qmlp.launches,
-                            int8_cache_attention.launches,
-                            fake_quant.launches)})
-    print(f"train phase: {time.perf_counter() - t_train:.1f}s")
+    progress("eval phase done")
 
-    # ---- topology phase (the actor-learner and async topologies) ---------
-    t_topo = time.perf_counter()
-    topo = topology_phase(torch, dev, smi, {
-        c.name: c for c in (int8_matmul.launches, fused_qmlp.launches,
-                            int8_cache_attention.launches,
-                            fake_quant.launches)})
-    print(f"topology phase: {time.perf_counter() - t_topo:.1f}s")
-
-    # ---- algo phase (DDPG, PPO and A2C) -----------------------------------
+    # ---- the RL training phases ------------------------------------------
+    # The train, topology, resume and resilience phases and the long runs
+    # of the algo, seq_train and conv phases go to worker processes on
+    # the card (WORKER_JOBS); this process runs the rest of those three
+    # meanwhile, collects the workers, and only then times anything
+    # (wide_rows, the actors in turns, the serve_rl phase, the conv
+    # forwards, B1 at every shape): no other process is on the card then.
+    t_rl = time.perf_counter()
+    kernels4 = {c.name: c for c in (int8_matmul.launches, fused_qmlp.launches,
+                                    int8_cache_attention.launches,
+                                    fake_quant.launches)}
+    workers = [Worker(smi, jobs) for jobs in WORKER_JOBS]
+    away = {job[-1] for jobs in WORKER_JOBS for job in jobs}
     t_algo = time.perf_counter()
-    algo = algo_phase(torch, dev, smi, {
-        c.name: c for c in (int8_matmul.launches, fused_qmlp.launches,
-                            int8_cache_attention.launches,
-                            fake_quant.launches)}, POLICY_II)
-    rows += algo["shape_rows"]
-    print(f"algo phase: {time.perf_counter() - t_algo:.1f}s")
-
-    # ---- seq_train phase (the sequence actor in training) ----------------
+    algo = algo_phase(torch, dev, smi, kernels4, away)
+    phase_done("algo runs", t_algo)
     t_seq = time.perf_counter()
-    seq = seq_train_phase(torch, dev, smi, {
-        c.name: c for c in (int8_matmul.launches, fused_qmlp.launches,
-                            int8_cache_attention.launches,
-                            fake_quant.launches)})
+    seq = seq_train_phase(torch, dev, smi, kernels4, away)
+    phase_done("seq_train runs", t_seq)
+    t_conv = time.perf_counter()
+    conv_trained = conv_train_phase(torch, dev, smi, kernels4)
+    phase_done("conv train", t_conv)
+    done = {}
+    for w in workers:
+        done.update(w.collect())
+    train = done[("phase", "train")]["out"]
+    topo = done[("phase", "topology")]["out"]
+    resume = done[("phase", "resume")]["out"]
+    rz = done[("phase", "resilience")]["out"]
+    algo["rows"] += [done[("algo", run[0])]["out"] for run in ALGO_RUNS
+                     if ("algo", run[0]) in done]
+    seq["rows"] += [done[("seq", name)]["out"] for name, _, _ in seq_runs()
+                    if ("seq", name) in done]
+    for job, got in done.items():
+        if job[0] in ("algo", "seq"):
+            (algo if job[0] == "algo" else seq)["seconds"][job[1]] = got["s"]
+    phase_done("RL runs", t_rl)
+
+    t_algo = time.perf_counter()
+    algo = algo_timed(torch, dev, smi, kernels4, POLICY_II, algo)
+    rows += algo["shape_rows"]
+    phase_done("algo timed", t_algo)
+    t_seq = time.perf_counter()
+    seq = seq_timed(torch, dev, smi, kernels4, seq,
+                    done[("seq", "bar_fused")]["b1"])
     rows += seq["shape_rows"]
-    print(f"seq_train phase: {time.perf_counter() - t_seq:.1f}s")
-
-    # ---- resume phase (checkpoints and bitwise resume) --------------------
-    t_resume = time.perf_counter()
-    resume = resume_phase(torch, dev, smi)
-    print(f"resume phase: {time.perf_counter() - t_resume:.1f}s")
-
-    # ---- resilience phase (the self-healing runtime) ----------------------
-    t_rz = time.perf_counter()
-    rz = resilience_phase(torch, dev, smi, {
-        c.name: c for c in (int8_matmul.launches, fused_qmlp.launches)})
-    print(f"resilience phase: {time.perf_counter() - t_rz:.1f}s")
+    phase_done("seq_train timed", t_seq)
 
     # ---- serve_rl phase (launch.serve --rl-env) ---------------------------
     t_srl = time.perf_counter()
     serve_rl = serve_rl_phase(torch, dev, smi, {
         c.name: c for c in (int8_matmul.launches, fused_qmlp.launches)})
-    print(f"serve_rl phase: {time.perf_counter() - t_srl:.1f}s")
+    phase_done("serve_rl", t_srl)
 
     # ---- conv phase (the paper's Atari conv actor on pixel Catch) --------
     t_conv = time.perf_counter()
-    conv = conv_phase(torch, dev, smi, {
-        c.name: c for c in (int8_matmul.launches, fused_qmlp.launches,
-                            int8_cache_attention.launches,
-                            fake_quant.launches)})
+    conv = conv_phase(torch, dev, smi, kernels4, conv_trained,
+                      done[("a7",)])
     rows += conv["b1"]
-    print(f"conv phase: {time.perf_counter() - t_conv:.1f}s")
+    phase_done("conv", t_conv)
 
     # ---- LM phase (prefill and greedy decode) -----------------------------
     t_lm = time.perf_counter()
@@ -4561,7 +5216,7 @@ def main() -> int:
         c.name: c for c in (int8_matmul.launches, fused_qmlp.launches,
                             int8_cache_attention.launches,
                             fake_quant.launches, flash_attention.launches)})
-    print(f"lm phase: {time.perf_counter() - t_lm:.1f}s")
+    phase_done("lm", t_lm)
 
     # ---- families phase (the MoE, RG-LRU and xLSTM decoders) -------------
     t_fam = time.perf_counter()
@@ -4569,7 +5224,7 @@ def main() -> int:
         c.name: c for c in (int8_matmul.launches, fused_qmlp.launches,
                             int8_cache_attention.launches,
                             fake_quant.launches, flash_attention.launches)})
-    print(f"families phase: {time.perf_counter() - t_fam:.1f}s")
+    phase_done("families", t_fam)
 
     # ---- lm_train phase (LM training, --mode lm) --------------------------
     t_lmt = time.perf_counter()
@@ -4577,7 +5232,15 @@ def main() -> int:
         c.name: c for c in (int8_matmul.launches, fused_qmlp.launches,
                             int8_cache_attention.launches,
                             fake_quant.launches, flash_attention.launches)})
-    print(f"lm_train phase: {time.perf_counter() - t_lmt:.1f}s")
+    phase_done("lm_train", t_lmt)
+
+    # ---- frontends phase (whisper, llama-vision, grok-1) -----------------
+    t_front = time.perf_counter()
+    front = frontends_phase(torch, dev, smi, {
+        c.name: c for c in (int8_matmul.launches, fused_qmlp.launches,
+                            int8_cache_attention.launches,
+                            fake_quant.launches, flash_attention.launches)})
+    phase_done("frontends", t_front)
 
     # ---- report -----------------------------------------------------------
     def head(name, **want):
@@ -4616,10 +5279,13 @@ def main() -> int:
             ms=pick["ms"], plain_ms=pick["plain_ms"],
             bound_ms=pick["bound_ms"], bound_by=pick["bound_by"],
             library_ms=pick["library_ms"]))
-    # the families' rows: B3 and B4 at the shapes of the families phase,
-    # with its launches
+    # the later phases' rows: B3, B4 and B5 at the shapes of the
+    # families, lm_train and frontends phases, with their launches
     rg, mx = fam[FAMILY_RG], fam[FAMILY_MOE]
     rg_int8 = next(r for r in rg["serve"] if r["run"] == "int8 cache")
+    fw, fv, fg = (front[a] for a in (FRONT_WHISPER, FRONT_VISION,
+                                      FRONT_GROK))
+    fw_int8 = next(r for r in fw["serve"] if r["run"] == "int8 cache")
     for name, n, pick in (
             ("int8_cache_attention",
              rg_int8["launches"]["int8_cache_attention"],
@@ -4641,7 +5307,35 @@ def main() -> int:
             ("flash_attention", lmt["full"]["flash_launches"],
              head("flash_attention", label="danube train")),
             ("fake_quant", lmt["qat8"]["fake_quant_launches"],
-             head("fake_quant", label="site lm mlp/h"))):
+             head("fake_quant", label="site lm mlp/h")),
+            # the frontends phase: B4 in whisper's prefill (the cross row
+            # stands for it), its int8 serve run's and teacher-forced
+            # decode steps, its training and llama-vision's and grok's
+            # prefills; B3 in whisper's int8 serve run and the
+            # teacher-forced llama-vision and grok steps
+            ("flash_attention", fw["prefill"]["launches"]["flash_attention"],
+             head("flash_attention", label="whisper cross")),
+            ("flash_attention", fw_int8["launches"]["flash_attention"],
+             head("flash_attention", label="whisper cross decode")),
+            ("flash_attention",
+             fw["parity"]["decode_launches"]["flash_attention"],
+             head("flash_attention", label="whisper parity cross decode")),
+            ("flash_attention", fw["train"]["flash_launches"],
+             head("flash_attention", label="whisper encoder")),
+            ("flash_attention", fv["prefill"]["launches"]["flash_attention"],
+             head("flash_attention", label="llama-vision cross")),
+            ("flash_attention", fg["prefill"]["launches"]["flash_attention"],
+             head("flash_attention", label="grok prefill")),
+            ("int8_cache_attention",
+             fw_int8["launches"]["int8_cache_attention"],
+             head("int8_cache_attention", label="whisper serve")),
+            ("int8_cache_attention",
+             fv["parity"]["decode_launches"]["int8_cache_attention"],
+             head("int8_cache_attention",
+                  label="llama-vision parity decode")),
+            ("int8_cache_attention",
+             fg["parity"]["decode_launches"]["int8_cache_attention"],
+             head("int8_cache_attention", label="grok parity decode"))):
         base = next(r for r in report if r["name"] == name)
         report.append(dict(
             base, label=pick["label"], launches=n,
@@ -4665,6 +5359,7 @@ def main() -> int:
              resume_rows=resume["rows"],
              resilience_rows=rz["rows"], serve_rl_rows=serve_rl["rows"],
              lm_rows=lm, families_rows=fam, lm_train_rows=lmt,
+             frontends_rows=front,
              path_launches=dict(serve=launches, rollout=roll_launches,
                                 train_qat=train["qat_launches"],
                                 topology_async_int8=topo["launches"],
@@ -4679,7 +5374,11 @@ def main() -> int:
                                 lm_train_full_flash=lmt["full"][
                                     "flash_launches"],
                                 lm_train_qat8_fake_quant=lmt["qat8"][
-                                    "fake_quant_launches"]),
+                                    "fake_quant_launches"],
+                                frontends_whisper_prefill=fw["prefill"][
+                                    "launches"],
+                                frontends_whisper_train_flash=fw["train"][
+                                    "flash_launches"]),
              kernels=report, seconds=time.perf_counter() - t0), indent=1))
     print(f"total {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": report}))
@@ -4691,4 +5390,11 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    # a stop by SIGTERM still runs the finally below: no worker outlives us
+    signal.signal(signal.SIGTERM, lambda *_: sys.exit(143))
+    try:
+        if len(sys.argv) == 4 and sys.argv[1] == "--worker":
+            sys.exit(worker_main(sys.argv[2], sys.argv[3]))
+        sys.exit(main())
+    finally:
+        Worker.stop_all()

@@ -3,13 +3,10 @@
 Counterpart of ``repro/configs/base.py``.  Each ported architecture has a
 module here exporting ``CONFIG`` (the published dimensions, source cited)
 and ``REDUCED`` (the smoke-test variant of the same family), registered
-under its ``--arch`` name.  The port registers what its LM inference
-and training paths run: the dense-attention, MoE and recurrent (RG-LRU,
-xLSTM) configs.  The reference's other architectures are known by name, and
-``get`` of one raises ``NotImplementedError`` until what it needs is
-ported (ROADMAP queue A, item 13): grok-1-314b's bfloat16 parameters,
-and the encoder and cross-attention of whisper-tiny and
-llama-3.2-vision-90b.  ``remat`` turns on per-unit activation
+under its ``--arch`` name: every LM config of the reference, dense
+attention, MoE, recurrent (RG-LRU, xLSTM), the encoder-decoder
+(whisper-tiny) and cross-attention (llama-3.2-vision-90b) ones, and
+grok-1-314b with bfloat16 parameters.  ``remat`` turns on per-unit activation
 checkpointing in training; ``sharding`` and ``scan_layers`` are kept as
 inert data: the port runs on one card with no mesh, and loops over the
 stacked layers.
@@ -165,11 +162,8 @@ _REGISTRY: Dict[str, ArchEntry] = {}
 # the port's config modules: the LM configs it runs
 _ARCH_MODULES = ["h2o_danube_1_8b", "gemma2_9b", "recurrentgemma_2b",
                  "xlstm_125m", "mixtral_8x7b", "codeqwen1_5_7b",
-                 "stablelm_12b"]
-# the reference's other architectures: grok-1's bfloat16 params through
-# prefill and decode, whisper's encoder and llama-vision's cross-attention
-# wait for their own slices
-_NOT_PORTED = ("grok-1-314b", "llama-3.2-vision-90b", "whisper-tiny")
+                 "stablelm_12b", "whisper_tiny", "llama_3_2_vision_90b",
+                 "grok_1_314b"]
 
 
 def register(config: ArchConfig, reduced: ArchConfig) -> ArchConfig:
@@ -182,10 +176,6 @@ def _entry(name: str) -> ArchEntry:
     _ensure_loaded()
     if name in _REGISTRY:
         return _REGISTRY[name]
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"{name} is not ported yet: the port runs the LM configs "
-            f"{names()} (ROADMAP queue A, item 13)")
     raise KeyError(f"unknown architecture {name!r}")
 
 

@@ -57,8 +57,10 @@ def plan(b: int, s: int, t: int, h: int, kv: int, d: int, *,
     Rows of a KV head are its ``s * G`` (query, head) pairs; a block takes
     ``bq`` of them.  Where the (tile, KV head, batch) blocks number fewer
     than the card's SMs, the key axis is split over a cluster of
-    ``cluster`` blocks: the size in 1, 2, 4, 8 that minimises waves x (key
-    tiles a block + ``MERGE_TILES``), with at least two key tiles a block.
+    ``cluster`` blocks: of the sizes in 1, 2, 4, 8 (at least two key tiles
+    a block) whose blocks fill the card, or else the largest, the one that
+    minimises waves x (key tiles a block + ``MERGE_TILES``).  A size that
+    leaves SMs idle is never taken where a larger one would fill them.
     """
     dp = _padded_d(d)
     wide = dp > 80
@@ -78,7 +80,8 @@ def plan(b: int, s: int, t: int, h: int, kv: int, d: int, *,
             return -(-items * c // SMS) * (-(-key_tiles // c) + MERGE_TILES)
         sizes = [c for c in (1, 2, 4, MAX_CLUSTER)
                  if c == 1 or key_tiles >= 2 * c]
-        cluster = min(sizes, key=cost)
+        cluster = min([c for c in sizes if items * c >= SMS]
+                      or sizes[-1:], key=cost)
     q_floats = bq * (dp + 4) if wide else 2 * bq * dp
     smem = 4 * (stages * 4 * bk * dp + q_floats + 2 * bq) + 16 * stages
     return dict(d_padded=dp, consumers=nwg, bq=bq, bk=bk, stages=stages,

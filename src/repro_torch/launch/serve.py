@@ -3,15 +3,17 @@
 Counterpart of ``repro/launch/serve.py``, with its flags and ``--device``.
 
 **LM mode** (the default): a seeded model of ``--arch`` (``--reduced`` for the smoke-test
-variant; h2o-danube-1.8b, gemma2-9b, recurrentgemma-2b, xlstm-125m,
-mixtral-8x7b, codeqwen1.5-7b or stablelm-12b), its params drawn by a
-generator on the device, optionally PTQ-simulated weights (``--quant
+variant; any LM config of the reference), its float32 params drawn
+by a generator on the device, optionally PTQ-simulated weights (``--quant
 ptq_int8``: every weight of two or three dims through kernel B5 on the
 card, four-dim ones per output channel) and an int8 KV cache
 (``--int8-cache``, decode attention through kernel B3; a recurrent
 layer's state stays float32), then a teacher-forced pass over a random
 prompt and greedy decoding, one token at a time through
-``transformer.decode_step``:
+``transformer.decode_step``.  The encoder and cross-attention configs
+(whisper-tiny, llama-3.2-vision-90b) get seeded stub embeddings, normal
+times 0.02 of ``(batch, max(encoder_seq, 4), d_model)``, fed to every
+step:
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch recurrentgemma-2b --batch 4 --prompt-len 32 \\
@@ -331,9 +333,14 @@ def main(argv=None) -> int:
     total_len = args.prompt_len + args.new_tokens
     caches = transformer.init_caches(cfg, args.batch, total_len,
                                      device=device)
+    gen = torch.Generator().manual_seed(args.seed)
     tokens = torch.randint(0, cfg.vocab, (args.batch, args.prompt_len),
-                           generator=torch.Generator().manual_seed(
-                               args.seed)).to(device)
+                           generator=gen).to(device)
+    # the encoder / vision frontend's stub embeddings, fed to every step
+    enc = None
+    if cfg.cross_attn or cfg.encoder_layers:
+        enc = (torch.randn((args.batch, max(cfg.encoder_seq, 4),
+                            cfg.d_model), generator=gen) * 0.02).to(device)
 
     # prompt token by token (teacher forcing), then greedy decode; the
     # positions live on the device, so no step waits on a host copy
@@ -345,8 +352,8 @@ def main(argv=None) -> int:
         out_tokens = []
         tok = tokens[:, :1]
         for pos in range(total_len - 1):
-            logits, caches = transformer.decode_step(cfg, params, tok,
-                                                     caches, positions[pos])
+            logits, caches = transformer.decode_step(
+                cfg, params, tok, caches, positions[pos], encoder_out=enc)
             nxt = torch.argmax(logits[:, -1], -1)
             tok = tokens[:, pos + 1:pos + 2] if pos + 1 < args.prompt_len \
                 else nxt[:, None]

@@ -1,13 +1,17 @@
 """The LM training step.
 
 Counterpart of ``repro/launch/steps.py: make_train_step``.  One step
-casts the float32 master params to the config's compute dtype
+casts the master params (float32, or the config's ``param_dtype``:
+grok-1's bfloat16) to the config's compute dtype
 (``core.mixed_precision.to_compute``), takes the value and gradient of
 ``transformer.loss_fn`` (the gradient flows back through the cast to the
-masters), accumulates ``cfg.grad_accum`` micro-batches as the reference
-does (each from the step's incoming QAT collection; the collection and
-metrics of the last one are kept, the loss and gradients are averaged),
-then applies ``optim.adam.adam_update``.  The reference's shardings and
+masters, in their dtype), accumulates ``cfg.grad_accum`` micro-batches as
+the reference does (every batch entry, ``encoder_out`` too, split on its
+leading axis; each micro-batch from the step's incoming QAT collection;
+the collection and metrics of the last one are kept, the loss and
+gradients are averaged, the sum in float32 as the reference's
+``zero_g``), then applies ``optim.adam.adam_update``, which returns each
+param in its own dtype.  The reference's shardings and
 ``lower_step`` have no counterpart on one card (ROADMAP queue A, item
 14).
 """
@@ -42,7 +46,7 @@ def value_and_grad(cfg: cfgs.ArchConfig, params: Tree,
                    batch: Dict[str, torch.Tensor], qat_collection,
                    step: torch.Tensor):
     """``(loss, metrics, grads)`` of ``loss_fn`` at the compute dtype,
-    the gradients float32 in ``params``' structure; ``loss`` and the
+    the gradients in ``params``' structure and dtypes; ``loss`` and the
     metrics detached."""
     leaves = [t.detach().requires_grad_(True)
               for _, t in tree_tensors(params)]
@@ -64,7 +68,8 @@ def make_train_step(cfg: cfgs.ArchConfig,
     qat_collection) -> (params, opt_state, qat_collection, metrics)``,
     ``metrics`` holding ``loss``, ``ce_loss``, ``aux_loss`` and the
     pre-clip ``grad_norm`` (device scalars: no host sync).  ``batch``
-    holds ``tokens`` and ``labels`` ``(B, S)`` on the params' device; the
+    holds ``tokens`` and ``labels`` ``(B, S)`` on the params' device (and
+    ``encoder_out`` for the encoder and cross-attention configs); the
     step is ``opt_state.step`` (the QAT delay reads it)."""
     adam_cfg = adam_cfg or adam_lib.AdamConfig(eightbit=cfg.optimizer_8bit)
 

@@ -40,9 +40,11 @@ newest ones (params only, as the reference's LM loop):
     PYTHONPATH=src python -m repro_torch.launch.train --mode lm \
         --arch h2o-danube-1.8b --reduced --steps 4 --device cpu
 
-The encoder and cross-attention configs (whisper-tiny,
-llama-3.2-vision-90b) and grok-1-314b raise ``NotImplementedError``
-naming ROADMAP queue A, item 13.
+The params are drawn in the config's ``param_dtype`` (grok-1-314b:
+bfloat16); the encoder and cross-attention configs (whisper-tiny,
+llama-3.2-vision-90b) train on a zero ``encoder_out`` of ``(batch,
+max(encoder_seq, 4), d_model)`` in the compute dtype, as the
+reference's loop feeds them.
 """
 from __future__ import annotations
 
@@ -152,7 +154,8 @@ def run_lm(args) -> int:
     adam_cfg = adam_lib.AdamConfig(lr=args.lr, eightbit=cfg.optimizer_8bit)
     train_step, adam_cfg = steps_lib.make_train_step(cfg, adam_cfg)
     params = transformer.init_params(
-        cfg, torch.Generator(device=dev).manual_seed(args.seed), dev)
+        cfg, torch.Generator(device=dev).manual_seed(args.seed), dev,
+        dtype=getattr(torch, cfg.mp.param_dtype))
     if args.resume and args.ckpt_dir:
         # params-only warm start, as the reference's LM loop
         last = ckpt_lib.latest_step(args.ckpt_dir)
@@ -176,6 +179,10 @@ def run_lm(args) -> int:
             break
         tbatch = {k: torch.from_numpy(v).long().to(dev)
                   for k, v in batch.items()}
+        if cfg.cross_attn or cfg.encoder_layers:
+            tbatch["encoder_out"] = torch.zeros(
+                (args.batch, max(cfg.encoder_seq, 4), cfg.d_model),
+                dtype=getattr(torch, cfg.mp.compute_dtype), device=dev)
         params, opt, qat, metrics = train_step(params, opt, tbatch, qat)
         if step % max(args.steps // 10, 1) == 0 or step == args.steps - 1:
             print(f"  step {step:5d}  loss {float(metrics['loss']):.4f}  "

@@ -1,7 +1,8 @@
 """Attention layers of the LM: GQA with RoPE, sliding windows, logit
-soft-capping, and decode KV caches (fp or int8-quantized).
+soft-capping, cross-attention, and decode KV caches (fp or
+int8-quantized).
 
-Counterpart of ``repro/models/attention.py`` for self-attention.
+Counterpart of ``repro/models/attention.py``.
 
 * Prefill and forward (no cache): self-attention at every sequence
   length goes through ``ops.FlashAttentionDenseGrad``: forward kernel B4
@@ -11,14 +12,18 @@ Counterpart of ``repro/models/attention.py`` for self-attention.
   branches the reference splits between ``dense_attention`` (S <= 2048)
   and ``chunked_attention``; the latter's mesh constraints and remat have
   no counterpart.  GQA is an index in the kernel's grid: K and V are
-  never repeated.
+  never repeated.  The encoder's self-attention is the same call,
+  non-causal.
+* Cross-attention (``kv_source``: whisper's encoder output,
+  llama-vision's patch embeddings): K and V projected from the source
+  at every call, decode steps included, no RoPE, non-causal, through the
+  same B4 call at S != T, where the reference calls ``dense_attention``
+  (the same function).  It keeps no cache.
 * Decode (one token, a cache): an int8 cache without soft-cap decodes
   straight off the codes through ``ops.int8_cache_attention`` (kernel B3
   on the card); an fp cache, or a soft-capped config, runs
   ``dense_attention`` in plain torch, as the reference computes it
   outside any Pallas kernel.
-* Cross-attention comes with the encoder / vision configs (ROADMAP
-  queue A, item 13).
 
 Decode caches for sliding-window layers are rings of ``window`` slots.
 Where the reference's arrays are immutable, ``cache_update`` writes the
@@ -172,39 +177,46 @@ def cache_kv(cache: KVCache) -> Tuple[torch.Tensor, torch.Tensor]:
 # ---------------------------------------------------------------------------
 
 def attention_layer(ctx, params, x: torch.Tensor, *, n_heads: int,
-                    n_kv: int, head_dim: int, window: Optional[int] = None,
+                    n_kv: int, head_dim: int, causal: bool = True,
+                    window: Optional[int] = None,
                     softcap: Optional[float] = None,
-                    rope_theta: float = 10000.0,
+                    rope_theta: Optional[float] = 10000.0,
                     cache: Optional[KVCache] = None, pos=None,
+                    kv_source: Optional[torch.Tensor] = None,
                     name: str = "attn"
                     ) -> Tuple[torch.Tensor, Optional[KVCache]]:
-    """Causal GQA self-attention over ``x (B, S, D)``, with RoPE.
+    """GQA attention over ``x (B, S, D)``, in the reference's branches.
 
     Prefill / forward: ``cache`` is None, every S through
-    ``ops.FlashAttentionDenseGrad`` (B4, differentiable).  Decode: S ==
-    1, ``cache`` given, ``pos`` the absolute position (an int or a 0-d
-    tensor).
+    ``ops.FlashAttentionDenseGrad`` (B4, differentiable), causal or not.
+    Decode: S == 1, ``cache`` given, ``pos`` the absolute position (an
+    int or a 0-d tensor).  Cross-attention: ``kv_source (B, T, D)``
+    gives K and V, non-causal, no RoPE.  RoPE (``rope_theta`` not None)
+    rotates self-attention's q and k.
     """
     b, s, _ = x.shape
     g = n_heads // n_kv
+    kv_in = x if kv_source is None else kv_source
+    t = kv_in.shape[1]
     q = common.dense(ctx, f"{name}/q", params["q"], x, quant_act=False)
-    k = common.dense(ctx, f"{name}/k", params["k"], x, quant_act=False)
-    v = common.dense(ctx, f"{name}/v", params["v"], x, quant_act=False)
+    k = common.dense(ctx, f"{name}/k", params["k"], kv_in, quant_act=False)
+    v = common.dense(ctx, f"{name}/v", params["v"], kv_in, quant_act=False)
     q = ctx.activation(f"{name}/q_out", q)
     k = ctx.activation(f"{name}/k_out", k)
     v = ctx.activation(f"{name}/v_out", v)
 
     q = q.reshape(b, s, n_heads, head_dim)
-    k = k.reshape(b, s, n_kv, head_dim)
-    v = v.reshape(b, s, n_kv, head_dim)
-    if pos is None:
-        positions = torch.arange(s, device=x.device)[None, :]
-    else:
-        pos = torch.as_tensor(pos, device=x.device)
-        positions = pos + torch.zeros((b, s), dtype=torch.int32,
-                                      device=x.device)
-    q = common.apply_rope(q, positions, rope_theta)
-    k = common.apply_rope(k, positions, rope_theta)
+    k = k.reshape(b, t, n_kv, head_dim)
+    v = v.reshape(b, t, n_kv, head_dim)
+    if rope_theta is not None and kv_source is None:
+        if pos is None:
+            positions = torch.arange(s, device=x.device)[None, :]
+        else:
+            pos = torch.as_tensor(pos, device=x.device)
+            positions = pos + torch.zeros((b, s), dtype=torch.int32,
+                                          device=x.device)
+        q = common.apply_rope(q, positions, rope_theta)
+        k = common.apply_rope(k, positions, rope_theta)
 
     new_cache = None
     if cache is not None:
@@ -223,18 +235,18 @@ def attention_layer(ctx, params, x: torch.Tensor, *, n_heads: int,
                 new_cache.k_scale.transpose(1, 2),
                 new_cache.v.transpose(1, 2),
                 new_cache.v_scale.transpose(1, 2), pos, window=win)
-            out = out.reshape(b, 1, n_heads * head_dim)
         else:
             k_all, v_all = cache_kv(new_cache)
             out = dense_attention(
                 q.reshape(b, 1, n_kv, g, head_dim), k_all, v_all,
                 window=window, softcap=softcap, q_offset=pos,
                 kv_positions=new_cache.positions)
-            out = out.reshape(b, 1, n_heads * head_dim)
-    else:
-        out = ops.FlashAttentionDenseGrad.apply(q, k, v, True, window,
+    elif kv_source is not None:
+        out = ops.FlashAttentionDenseGrad.apply(q, k, v, False, None,
                                                 softcap, head_dim ** -0.5)
-        out = out.reshape(b, s, n_heads * head_dim)
-
+    else:
+        out = ops.FlashAttentionDenseGrad.apply(q, k, v, causal, window,
+                                                softcap, head_dim ** -0.5)
+    out = out.reshape(b, s, n_heads * head_dim)
     out = common.dense(ctx, f"{name}/o", params["o"], out)
     return out, new_cache

@@ -27,7 +27,7 @@ class P(NamedTuple):
 
 
 def init_params(specs: Any, generator: torch.Generator,
-                device=None) -> Any:
+                device=None, dtype: torch.dtype = torch.float32) -> Any:
     """Tensors from a spec tree.
 
     ``normal``: normal draws times the leaf's scale (the reference's
@@ -35,7 +35,9 @@ def init_params(specs: Any, generator: torch.Generator,
     0.02; ``zeros`` and ``ones`` draw nothing.  Leaves are drawn in
     sorted-key order from ``generator``, on its device (a CPU generator
     gives the same params on every device; a CUDA one draws a large tree
-    on the card), then moved to ``device`` (``None`` is ``cuda``).
+    on the card), in float32, then cast to ``dtype`` (round to nearest
+    even, as the reference's ``astype``) and moved to ``device``
+    (``None`` is ``cuda``).
     """
     device = resolve_device(device)
 
@@ -43,9 +45,9 @@ def init_params(specs: Any, generator: torch.Generator,
         if isinstance(spec, dict):
             return {k: make(spec[k]) for k in sorted(spec)}
         if spec.init == "zeros":
-            return torch.zeros(spec.shape, device=device)
+            return torch.zeros(spec.shape, dtype=dtype, device=device)
         if spec.init == "ones":
-            return torch.ones(spec.shape, device=device)
+            return torch.ones(spec.shape, dtype=dtype, device=device)
         if spec.init == "embed":
             scale = 0.02
         elif spec.init == "normal":
@@ -56,7 +58,8 @@ def init_params(specs: Any, generator: torch.Generator,
         else:
             raise ValueError(f"unknown init {spec.init!r}")
         return torch.randn(spec.shape, generator=generator,
-                           device=generator.device).mul_(scale).to(device)
+                           device=generator.device).mul_(scale).to(
+                               device=device, dtype=dtype)
 
     return make(specs)
 
@@ -76,10 +79,10 @@ def dense(ctx, name: str, params: Dict[str, torch.Tensor], x: torch.Tensor,
           *, quant_act: bool = True) -> torch.Tensor:
     """``x @ W (+ b)`` with the QAT context's weight / activation hooks
     (the attention and MLP projections have no bias; the xLSTM gates
-    do)."""
-    y = torch.matmul(x, ctx.weight(f"{name}/w", params["w"]))
+    do), the weight and bias cast to ``x``'s dtype as the reference's."""
+    y = torch.matmul(x, ctx.weight(f"{name}/w", params["w"]).to(x.dtype))
     if "b" in params:
-        y = y + params["b"]
+        y = y + params["b"].to(x.dtype)
     if quant_act:
         y = ctx.activation(f"{name}/out", y)
     return y

@@ -27,9 +27,18 @@ new state is copied back into its slice of the stacked tensors.
 Attention goes through kernel B4 on the card, one launch per attention
 layer (and one more per layer in a remat backward); decode through an
 int8 cache through kernel B3.  The MoE blocks' load-balance loss is
-summed over the layers.  The encoder (whisper) and cross-attention
-frontends come with other configs: ``param_specs`` raises
-``NotImplementedError`` naming ROADMAP queue A, item 13.
+summed over the layers.
+
+The encoder (whisper) and vision (llama-3.2-vision) frontends are stubs,
+as in the reference: ``encoder_out`` arrives as precomputed frame or
+patch embeddings ``(B, T, d_model)``.  Whisper runs its transformer
+encoder over them (``_run_encoder``: ``encoder_layers`` non-causal
+blocks with RoPE, B4 once a layer, outside remat), and every ``cross``
+block attends to the result; ``decode_step`` re-runs the encoder at
+every step, as the reference does.  QAT of a config with an encoder
+raises ``NotImplementedError`` (ROADMAP queue C): the reference's
+encoder observers escape its ``lax.scan``, so the JAX package cannot
+run it, and the port does not invent what it would compute.
 """
 from __future__ import annotations
 
@@ -54,19 +63,11 @@ def _unit_spec(cfg: cfgs.ArchConfig) -> Dict[str, Any]:
             for i, kind in enumerate(cfg.pattern)}
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP queue "
-                               f"A, item 13)")
-
-
 def param_specs(cfg: cfgs.ArchConfig) -> Dict[str, Any]:
     """The model's parameter spec tree (the reference's key layout)."""
-    if cfg.encoder_layers or cfg.cross_attn:
-        raise _not_ported("the encoder / cross-attention frontend")
     spec: Dict[str, Any] = {
         "embed": {"w": P((cfg.vocab, cfg.d_model), init="embed")},
-        "final_norm": (common.rms_norm_spec(cfg.d_model) if cfg.norm == "rms"
-                       else common.layer_norm_spec(cfg.d_model)),
+        "final_norm": blocks.norm_spec(cfg),
         "layers": common.stack_specs(_unit_spec(cfg), cfg.pattern_repeats),
     }
     if cfg.pattern_remainder:
@@ -75,14 +76,20 @@ def param_specs(cfg: cfgs.ArchConfig) -> Dict[str, Any]:
             for i, kind in enumerate(cfg.pattern_remainder)}
     if not cfg.tie_embeddings:
         spec["lm_head"] = {"w": P((cfg.d_model, cfg.vocab))}
+    if cfg.encoder_layers:
+        spec["encoder"] = common.stack_specs(
+            {"b0_attn": blocks.block_spec(cfgs.ATTN, cfg)},
+            cfg.encoder_layers)
+        spec["encoder_norm"] = blocks.norm_spec(cfg)
     return spec
 
 
 def init_params(cfg: cfgs.ArchConfig, generator: torch.Generator,
-                device=None) -> Params:
-    """Seeded float32 params (``common.init_params``: drawn on the CPU in
-    sorted-key order, then moved to ``device``, ``None`` being ``cuda``)."""
-    return common.init_params(param_specs(cfg), generator, device)
+                device=None, dtype: torch.dtype = torch.float32) -> Params:
+    """Seeded params (``common.init_params``: drawn in float32 in
+    sorted-key order on the generator's device, cast to ``dtype``, then
+    moved to ``device``, ``None`` being ``cuda``)."""
+    return common.init_params(param_specs(cfg), generator, device, dtype)
 
 
 def params_from_jax(tree: Any, device=None) -> Params:
@@ -90,13 +97,19 @@ def params_from_jax(tree: Any, device=None) -> Params:
 
     ``tree`` is the reference's nested dicts of arrays (numpy, or anything
     ``np.asarray`` takes), with the stacked leading ``layers`` axis; the
-    result keeps the keys and shapes, in float32 on ``device`` (``None``
-    is ``cuda``).
+    result keeps the keys and shapes on ``device`` (``None`` is
+    ``cuda``): a bfloat16 leaf bit for bit in bfloat16 (numpy holds it as
+    ``ml_dtypes.bfloat16``, which torch does not take, so it crosses as
+    its ``uint16`` bits), every other leaf in float32.
     """
     device = resolve_device(device)
     if isinstance(tree, dict):
         return {k: params_from_jax(v, device) for k, v in tree.items()}
-    return torch.from_numpy(np.array(tree, dtype=np.float32)).to(device)
+    a = np.asarray(tree)
+    if a.dtype.name == "bfloat16":
+        bits = torch.from_numpy(np.array(a).view(np.uint16))
+        return bits.view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(a, dtype=np.float32)).to(device)
 
 
 def _layer(tree: Any, li: int) -> Any:
@@ -153,10 +166,37 @@ def _head(cfg: cfgs.ArchConfig, ctx, params: Params,
     return logits
 
 
-def _final_norm(cfg: cfgs.ArchConfig, params: Params,
-                x: torch.Tensor) -> torch.Tensor:
-    norm = common.rms_norm if cfg.norm == "rms" else common.layer_norm
-    return norm(params["final_norm"], x)
+def _run_encoder(cfg: cfgs.ArchConfig, params: Params, ctx,
+                 encoder_out: torch.Tensor) -> torch.Tensor:
+    """Whisper: the transformer encoder over the stub frame embeddings
+    (``encoder_layers`` pre-norm blocks of non-causal self-attention with
+    RoPE, B4 once a layer, and the MLP; then ``encoder_norm``).  A config
+    without an encoder returns ``encoder_out`` as it is.
+
+    Raises ``NotImplementedError`` under a QAT context: the reference
+    calls these sites inside its ``lax.scan`` with the outer context, so
+    their observers escape the scan as leaked tracers
+    (``repro/models/transformer.py:203-220``) and its QAT forward cannot
+    run (ROADMAP queue C)."""
+    if not cfg.encoder_layers:
+        return encoder_out
+    if isinstance(ctx, fake_quant.QATContext):
+        raise NotImplementedError(
+            f"QAT of {cfg.name}, a config with a transformer encoder, is "
+            f"not run: the reference's encoder observers escape its "
+            f"lax.scan as leaked tracers (repro/models/transformer.py:"
+            f"203-220), so the JAX package cannot run it (ROADMAP queue C)")
+    x = encoder_out
+    for li in range(cfg.encoder_layers):
+        p = _layer(params["encoder"], li)["b0_attn"]
+        h, _ = attention.attention_layer(
+            ctx, p["attn"], blocks.norm(cfg, p["norm1"], x),
+            n_heads=cfg.n_heads, n_kv=cfg.n_kv_heads, head_dim=cfg.hd,
+            causal=False, rope_theta=cfg.rope_theta, name="enc/attn")
+        x = x + h
+        x = x + blocks.mlp(ctx, p["mlp"], blocks.norm(cfg, p["norm2"], x),
+                           cfg.activation, name="enc/mlp")
+    return blocks.norm(cfg, params["encoder_norm"], x)
 
 
 def _make_ctx(cfg: cfgs.ArchConfig, collection, step):
@@ -193,8 +233,10 @@ def qat_site_names(cfg: cfgs.ArchConfig) -> Tuple[Set[str], Set[str]]:
     with FakeTensorMode(), torch.no_grad():
         tokens = torch.zeros((1, max(len(cfg.pattern), 2)),
                              dtype=torch.long)
+        enc = torch.zeros((1, 4, cfg.d_model)) \
+            if cfg.cross_attn or cfg.encoder_layers else None
         forward(cfg, _zeros(param_specs(cfg)), tokens, ctx_in=rec_in,
-                ctx_out=rec_out)
+                ctx_out=rec_out, encoder_out=enc)
     return rec_in.names, rec_out.names
 
 
@@ -214,6 +256,7 @@ def init_qat_collection(cfg: cfgs.ArchConfig, device=None
 
 def forward(cfg: cfgs.ArchConfig, params: Params, tokens: torch.Tensor, *,
             qat_collection: Optional[Dict] = None, step=0,
+            encoder_out: Optional[torch.Tensor] = None,
             return_hidden: bool = False, ctx_in=None, ctx_out=None
             ) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
     """Full-sequence forward, as the reference's: ``(out, aux,
@@ -227,8 +270,11 @@ def forward(cfg: cfgs.ArchConfig, params: Params, tokens: torch.Tensor, *,
     step (an int or a 0-d tensor; the quantization delay reads it on the
     device); the new collection comes back with this forward's updates.
     ``ctx_in`` / ``ctx_out`` replace the QAT contexts inside and outside
-    the stacked layers (site discovery).  Every attention layer is one
-    ``ops.FlashAttentionDenseGrad`` call (kernel B4 on the card).
+    the stacked layers (site discovery).  ``encoder_out (B, T,
+    d_model)``: the frontend's embeddings, run through the encoder
+    (whisper) and cross-attended by the ``cross`` blocks.  Every attention
+    layer is one ``ops.FlashAttentionDenseGrad`` call (kernel B4 on the
+    card).
     """
     collection = qat_collection or {}
     inside = {k: v for k, v in collection.items() if k.startswith("unit/")}
@@ -237,13 +283,15 @@ def forward(cfg: cfgs.ArchConfig, params: Params, tokens: torch.Tensor, *,
     step = torch.as_tensor(step, device=tokens.device)
     ctx_out = ctx_out or _make_ctx(cfg, outside, step)
     x = _embed(cfg, ctx_out, params, tokens)
+    if encoder_out is not None:
+        encoder_out = _run_encoder(cfg, params, ctx_out, encoder_out)
 
-    def unit_fn(x, obs, aux, unit):
+    def unit_fn(x, obs, aux, enc, unit):
         ctx = ctx_in or _make_ctx(cfg, obs, step)
         for i, kind in enumerate(cfg.pattern):
             x, _, a = blocks.apply_block(kind, cfg, ctx,
                                          unit[f"b{i}_{kind}"], x,
-                                         name=f"unit/b{i}")
+                                         encoder_out=enc, name=f"unit/b{i}")
             aux = aux + a
         return x, (obs if ctx_in is not None else ctx.merged_collection()), \
             aux
@@ -251,18 +299,19 @@ def forward(cfg: cfgs.ArchConfig, params: Params, tokens: torch.Tensor, *,
     remat = cfg.remat and torch.is_grad_enabled()
     aux = torch.zeros((), device=x.device)
     for li in range(cfg.pattern_repeats):
-        args = (x, inside, aux, _layer(params["layers"], li))
+        args = (x, inside, aux, encoder_out, _layer(params["layers"], li))
         x, inside, aux = _checkpointed(unit_fn, *args) if remat \
             else unit_fn(*args)
     for i, kind in enumerate(cfg.pattern_remainder):
         ctx_r = ctx_in or _make_ctx(cfg, inside, step)
         x, _, a = blocks.apply_block(kind, cfg, ctx_r,
                                      params["remainder"][f"r{i}_{kind}"], x,
+                                     encoder_out=encoder_out,
                                      name=f"unit/b{i}")
         if ctx_in is None:
             inside = ctx_r.merged_collection()
         aux = aux + a
-    x = _final_norm(cfg, params, x)
+    x = blocks.norm(cfg, params["final_norm"], x)
     out = x if return_hidden else _head(cfg, ctx_out, params, x)
     return out, aux, {**ctx_out.merged_collection(), **inside}
 
@@ -273,7 +322,8 @@ def loss_fn(cfg: cfgs.ArchConfig, params: Params,
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Causal-LM loss ``ce + aux_weight * aux`` and its metrics
     (``ce_loss``, ``aux_loss``, ``qat_collection``: the forward's new
-    observers).  ``batch``: ``tokens`` and ``labels``, ``(B, S)`` int.
+    observers).  ``batch``: ``tokens`` and ``labels``, ``(B, S)`` int,
+    and for the encoder and cross-attention configs ``encoder_out``.
 
     The head and the log-softmax run in ``ce_chunk`` sequence chunks
     (one chunk when S is not a multiple), each under activation
@@ -283,7 +333,7 @@ def loss_fn(cfg: cfgs.ArchConfig, params: Params,
     tokens, labels = batch["tokens"], batch["labels"]
     hidden, aux, new_coll = forward(
         cfg, params, tokens, qat_collection=qat_collection, step=step,
-        return_hidden=True)
+        encoder_out=batch.get("encoder_out"), return_hidden=True)
     ctx = _make_ctx(cfg, {k: v for k, v in (qat_collection or {}).items()
                           if not k.startswith("unit/")},
                     torch.as_tensor(step, device=tokens.device))
@@ -308,10 +358,11 @@ def loss_fn(cfg: cfgs.ArchConfig, params: Params,
     return loss + aux_weight * aux, metrics
 
 
-def prefill(cfg: cfgs.ArchConfig, params: Params,
-            tokens: torch.Tensor) -> torch.Tensor:
+def prefill(cfg: cfgs.ArchConfig, params: Params, tokens: torch.Tensor, *,
+            encoder_out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Prompt pass returning the last token's logits ``(B, 1, vocab)``."""
-    hidden, _, _ = forward(cfg, params, tokens, return_hidden=True)
+    hidden, _, _ = forward(cfg, params, tokens, encoder_out=encoder_out,
+                           return_hidden=True)
     ctx = _make_ctx(cfg, {}, torch.zeros((), dtype=torch.long,
                                          device=tokens.device))
     return _head(cfg, ctx, params, hidden[:, -1:])
@@ -343,10 +394,14 @@ def init_caches(cfg: cfgs.ArchConfig, batch: int, seq_len: int, *,
 
 
 def decode_step(cfg: cfgs.ArchConfig, params: Params, tokens: torch.Tensor,
-                caches: Dict[str, Any], pos
+                caches: Dict[str, Any], pos, *,
+                encoder_out: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One decode token: ``tokens (B, 1)`` at absolute position ``pos``
     (an int or a 0-d tensor) -> ``(logits (B, 1, vocab), caches)``.
+    ``encoder_out`` goes through the encoder at every step, and the
+    ``cross`` blocks project their K and V from it at every step, as in
+    the reference: nothing of it is cached.
 
     The caches are updated in place and returned: KV caches by
     ``attention.cache_update``, recurrent states by a copy of each
@@ -358,6 +413,8 @@ def decode_step(cfg: cfgs.ArchConfig, params: Params, tokens: torch.Tensor,
                                          device=tokens.device))
     x = _embed(cfg, ctx, params, tokens)
     pos = torch.as_tensor(pos, device=x.device)
+    if encoder_out is not None:
+        encoder_out = _run_encoder(cfg, params, ctx, encoder_out)
     for li in range(cfg.pattern_repeats):
         unit = _layer(params["layers"], li)
         unit_cache = _layer(caches["stacked"], li)
@@ -365,13 +422,15 @@ def decode_step(cfg: cfgs.ArchConfig, params: Params, tokens: torch.Tensor,
             key = f"b{i}_{kind}"
             x, new, _ = blocks.apply_block(kind, cfg, ctx, unit[key], x,
                                            cache=unit_cache[key], pos=pos,
+                                           encoder_out=encoder_out,
                                            name=f"unit/b{i}")
             _write_state(unit_cache[key], new)
     for i, kind in enumerate(cfg.pattern_remainder):
         cache = caches["remainder"][i]
         x, new, _ = blocks.apply_block(
             kind, cfg, ctx, params["remainder"][f"r{i}_{kind}"], x,
-            cache=cache, pos=pos, name=f"unit/b{i}")
+            cache=cache, pos=pos, encoder_out=encoder_out,
+            name=f"unit/b{i}")
         _write_state(cache, new)
-    x = _final_norm(cfg, params, x)
+    x = blocks.norm(cfg, params["final_norm"], x)
     return _head(cfg, ctx, params, x), caches

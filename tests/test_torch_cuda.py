@@ -10,7 +10,12 @@ and PTQ through B5; the conv cases (``-k conv``) hold B1 at the conv
 actor's im2col shapes and the Catch conv actor, its QAT training and
 its anchors on the card; the family cases (``-k famil``) hold B3 and B4
 at the MoE and recurrent configs' shapes, their reduced prefill and
-decode against the CPU, and their serve runs counting B3 and B5.
+decode against the CPU, and their serve runs counting B3 and B5; the
+frontend cases (``-k frontend``) hold B4 non-causal at S < T and S > T,
+B3 at whisper's, llama-vision's and grok's decode shapes, the encoder
+and cross-attention configs' and grok's reduced prefill, decode and
+serve runs, and grok's bfloat16-parameter training step against the
+CPU's.
 
 The kernels have no CPU mode, so every test here takes the ``cuda``
 fixture, which skips on a machine without a card.  The file imports no
@@ -18,6 +23,10 @@ JAX, so it runs on the GPU machine as it is:
 
     PYTHONPATH=src python -m pytest -q tests/test_torch_cuda.py
 """
+import contextlib
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -33,6 +42,13 @@ from repro_torch.rl import actorq, dqn, loops, networks
 from repro_torch.rl import env as env_mod
 from repro_torch.rl.env import batched_env
 from repro_torch.rl.envs import make
+
+# chip_smoke's replay of the int8 caches' K / V codes (``Codes``) and its
+# plain-B3 switch (``plain_b3``)
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
 
 
 @pytest.fixture
@@ -253,8 +269,9 @@ def test_int8_cache_attention_windows_across_splits_on_card(cuda, window,
                               lm=False, seed=window), window)
 
 
-@pytest.mark.parametrize("t,pos", [(64, "ragged"), (4096, 4095),
-                                   (4096, "ragged"), (300, 299)])
+@pytest.mark.parametrize("t,pos", [(64, "ragged"), (48, "ragged"),
+                                   (4096, 4095), (4096, "ragged"),
+                                   (300, 299)])
 def test_int8_cache_attention_lm_views_on_card(cuda, t, pos):
     """Danube's decode layout, 4 x 8 KV heads of G 4 and Dh 80 read in
     place from a (B, T, KV, Dh) cache, directly and through the op."""
@@ -272,6 +289,7 @@ def test_int8_cache_attention_lm_views_on_card(cuda, t, pos):
 @pytest.mark.parametrize("label,nb,nh,g,t,dh,path", [
     ("recurrentgemma ring", 4, 1, 10, 2048, 256, "split"),
     ("recurrentgemma short", 4, 1, 10, 20, 256, "small"),
+    ("recurrentgemma serve", 4, 1, 10, 48, 256, "split"),
     ("mixtral ring", 4, 8, 4, 4096, 128, "split"),
     ("mixtral parity", 1, 8, 4, 64, 128, "split"),
     ("stablelm", 4, 8, 4, 1000, 160, "split"),
@@ -653,12 +671,17 @@ def _cpu_greedy(cuda, cfg, batch, prompt, new, *, int8, quant="none",
         cfg, torch.Generator(device=cuda).manual_seed(seed), cuda)
     params = ptq.tree_to(ptq.ptq_simulate(params, QuantConfig.parse(quant)),
                          "cpu")
-    tokens = torch.randint(0, cfg.vocab, (batch, prompt),
-                           generator=torch.Generator().manual_seed(seed))
+    gen = torch.Generator().manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab, (batch, prompt), generator=gen)
+    enc = None               # the frontend's stub embeddings, as drawn there
+    if cfg.cross_attn or cfg.encoder_layers:
+        enc = torch.randn((batch, max(cfg.encoder_seq, 4), cfg.d_model),
+                          generator=gen) * 0.02
     caches = transformer.init_caches(cfg, batch, prompt + new, device="cpu")
     tok, out = tokens[:, :1], []
     for pos in range(prompt + new - 1):
-        logits, caches = transformer.decode_step(cfg, params, tok, caches, pos)
+        logits, caches = transformer.decode_step(cfg, params, tok, caches, pos,
+                                                 encoder_out=enc)
         nxt = torch.argmax(logits[:, -1], -1)
         tok = tokens[:, pos + 1:pos + 2] if pos + 1 < prompt else nxt[:, None]
         if pos + 1 >= prompt:
@@ -753,6 +776,180 @@ def test_lm_family_serve_on_card(cuda, capsys, name):
     assert fake_quant.launches.value - b5 == per_tensor
     assert card.splitlines()[-1].split(":")[1].strip() == str(
         _cpu_greedy(cuda, cfg, 2, 6, 4, int8=True, quant="ptq_int8"))
+
+
+# --- the encoder and cross-attention frontends, and grok-1 -----------------
+
+@pytest.mark.parametrize("shape", [
+    # (B, H, KV, S, T, D): whisper's cross-attention (S < T) in a prefill
+    # and a decode step, llama-vision's prompt over fewer patches (S > T),
+    # grok's GQA at D 128, at reduced lengths
+    (2, 6, 6, 100, 300, 64), (1, 6, 6, 1, 300, 64), (4, 6, 6, 1, 1500, 64),
+    (1, 8, 2, 300, 100, 128), (1, 8, 1, 257, 200, 128),
+    (1, 6, 2, 130, 97, 128)])
+def test_flash_attention_frontend_non_causal_on_card(cuda, shape):
+    """B4 non-causal where S != T: every query sees every key, whatever
+    the end alignment; one launch, within 1e-5 of the plain version."""
+    b, h, kv, s, t, d = shape
+    rng = np.random.default_rng(s * t + d)
+    q, k, v = (torch.from_numpy(rng.normal(size=sh).astype(np.float32)
+                                ).to(cuda)
+               for sh in ((b, s, h, d), (b, t, kv, d), (b, t, kv, d)))
+    before = flash_attention.launches.value
+    got = flash_attention.flash_attention_cuda(q, k, v, causal=False)
+    want = flash_attention.flash_attention_plain(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert flash_attention.launches.value == before + 1
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("nb,nh,g,t,dh", [
+    (4, 6, 1, 48, 64), (1, 6, 1, 500, 64), (1, 8, 6, 64, 128),
+    (2, 8, 6, 1000, 128), (1, 8, 8, 64, 128)])
+@pytest.mark.parametrize("pos", ["last", "ragged"])
+def test_int8_cache_attention_frontend_shapes_on_card(cuda, nb, nh, g, t,
+                                                      dh, pos):
+    """B3 at whisper's G 1 / Dh 64, grok's G 6 and llama-vision's G 8 at
+    Dh 128, read in place from (B, T, KV, Dh) caches."""
+    p = np.random.default_rng(t).integers(0, t, size=(nb, nh)) \
+        if pos == "ragged" else t - 1
+    args = _b3_inputs(cuda, nb, nh, g, t, dh, p, lm=True, seed=t + g + dh)
+    got = _b3_one_launch(args, None)
+    before = int8_cache_attention.launches.value
+    assert torch.equal(ops.int8_cache_attention(*args), got)
+    assert int8_cache_attention.launches.value == before + 1
+
+
+def _frontend_flash(cfg):
+    """B4 launches of a decode step with ``encoder_out``: the encoder's
+    layers and the cross-attention layers."""
+    kinds = list(cfg.pattern) * cfg.pattern_repeats \
+        + list(cfg.pattern_remainder)
+    return cfg.encoder_layers + sum(k == cfgs.CROSS for k in kinds)
+
+
+@pytest.mark.parametrize("name", ["whisper-tiny", "llama-3.2-vision-90b",
+                                  "grok-1-314b"])
+def test_lm_frontend_prefill_and_decode_on_card(cuda, name):
+    """A 64-token prefill over the stub embeddings on the card (B4 once a
+    self-attention, encoder and cross-attention layer) within 1e-4 of the
+    CPU path; 12 decode steps, the encoder re-run at every step (B4 as
+    many times again): float32 caches within 1e-4 of the CPU's steps,
+    int8 caches (B3 once a self-attention layer a step) within 1e-4 of
+    the same steps through B3's plain version writing the kernel's K / V
+    codes (B3's rounding can move a code of the next layer's K or V, and
+    one moved code moves a reduced llama-vision's logits by 2.2e-3)."""
+    cfg = cfgs.get_reduced(name)
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                     "cpu")
+    card_params = ptq.tree_to(params, cuda)
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (2, 64), generator=gen)
+    enc = None
+    if _frontend_flash(cfg):
+        enc = torch.randn((2, max(cfg.encoder_seq, 4), cfg.d_model),
+                          generator=gen) * 0.02
+    n_attn, n_front = _attention_layers(cfg), _frontend_flash(cfg)
+    n_attn += sum(k == cfgs.CROSS for k in cfg.pattern) * cfg.pattern_repeats
+    want = transformer.prefill(cfg, params, tokens, encoder_out=enc)
+    card_enc = None if enc is None else enc.to(cuda)
+    before = flash_attention.launches.value
+    got = transformer.prefill(cfg, card_params, tokens.to(cuda),
+                              encoder_out=card_enc)
+    torch.cuda.synchronize()
+    assert flash_attention.launches.value - before == n_attn + n_front
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+    runs = {"cpu": (params, "cpu", False, enc),
+            "card": (card_params, cuda, False, card_enc),
+            "int8": (card_params, cuda, True, card_enc),
+            "int8 plain": (card_params, cuda, True, card_enc)}
+    caches = {k: transformer.init_caches(cfg, 2, 12, int8=i8, device=dev)
+              for k, (_, dev, i8, _) in runs.items()}
+    b3, b4 = int8_cache_attention.launches.value, \
+        flash_attention.launches.value
+    for pos in range(12):
+        out, coded = {}, chip_smoke.Codes()
+        for k, (p, dev, _, e) in runs.items():
+            with contextlib.ExitStack() as stack:
+                if k == "int8":
+                    stack.enter_context(coded)
+                if k == "int8 plain":
+                    stack.enter_context(chip_smoke.plain_b3())
+                    stack.enter_context(chip_smoke.Codes(replay=coded))
+                out[k] = transformer.decode_step(
+                    cfg, p, tokens[:, pos:pos + 1].to(dev), caches[k], pos,
+                    encoder_out=e)[0]
+        torch.testing.assert_close(out["card"].cpu(), out["cpu"],
+                                   rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(out["int8"], out["int8 plain"],
+                                   rtol=1e-4, atol=1e-4)
+    assert int8_cache_attention.launches.value - b3 == 12 * n_attn
+    assert flash_attention.launches.value - b4 == 3 * 12 * n_front
+
+
+@pytest.mark.parametrize("name", ["whisper-tiny", "llama-3.2-vision-90b"])
+def test_lm_frontend_serve_on_card(cuda, capsys, name):
+    """``launch.serve`` on the card with an int8 cache and PTQ int8: B3
+    once a self-attention layer a step, B4 once an encoder and
+    cross-attention layer a step, B5 once a weight leaf of two or three
+    dims, and the tokens of the same decode on the CPU."""
+    argv = ["--arch", name, "--reduced", "--batch", "2", "--prompt-len",
+            "6", "--new-tokens", "4", "--int8-cache", "--quant", "ptq_int8"]
+    cfg = cfgs.get_reduced(name)
+    per_tensor = sum(1 for _, x in ptq.tree_tensors(transformer.init_params(
+        cfg, torch.Generator().manual_seed(0), "cpu")) if x.dim() in (2, 3))
+    n_self = _attention_layers(cfg) + sum(
+        k == cfgs.CROSS for k in cfg.pattern) * cfg.pattern_repeats
+    b3, b4, b5 = (int8_cache_attention.launches.value,
+                  flash_attention.launches.value, fake_quant.launches.value)
+    assert serve.main(argv) == 0
+    card = capsys.readouterr().out
+    assert int8_cache_attention.launches.value - b3 == 9 * n_self
+    assert flash_attention.launches.value - b4 == 9 * _frontend_flash(cfg)
+    assert fake_quant.launches.value - b5 == per_tensor
+    assert card.splitlines()[-1].split(":")[1].strip() == str(
+        _cpu_greedy(cuda, cfg, 2, 6, 4, int8=True, quant="ptq_int8"))
+
+
+def test_lm_frontend_grok_bf16_train_step_on_card(cuda):
+    """grok-1's step as its full config trains (bfloat16 params and
+    compute, 8-bit Adam, grad_accum 4) at the reduced widths: B4 twice an
+    attention layer a micro-batch, params bfloat16 after it, the loss
+    within 2e-3 of the CPU's and every param within two Adam steps and
+    one ulp."""
+    import dataclasses
+
+    from repro_torch.launch import steps
+    from repro_torch.optim import adam
+    full = cfgs.get("grok-1-314b")
+    cfg = dataclasses.replace(cfgs.get_reduced("grok-1-314b"), mp=full.mp,
+                              grad_accum=full.grad_accum)
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
+                                     "cpu", dtype=torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab, (4, 33),
+                         generator=torch.Generator().manual_seed(2))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    out = {}
+    for dev in ("cpu", cuda):
+        step, acfg = steps.make_train_step(cfg)
+        p = ptq.tree_to(params, dev)
+        before = flash_attention.launches.value
+        new, _, _, m = step(p, adam.adam_init(p, acfg),
+                            {k: v.to(dev) for k, v in batch.items()}, {})
+        out[str(dev)] = (float(m["loss"]), ptq.tree_to(new, "cpu"),
+                         flash_attention.launches.value - before)
+    (l_cpu, p_cpu, n_cpu), (l_card, p_card, n_card) = out["cpu"], \
+        out[str(cuda)]
+    assert (n_cpu, n_card) == (0, 2 * cfg.n_layers * cfg.grad_accum)
+    assert abs(l_card - l_cpu) <= 2e-3 * l_cpu
+    for (k, x), (_, y) in zip(ptq.tree_tensors(p_card),
+                              ptq.tree_tensors(p_cpu)):
+        assert x.dtype == y.dtype == torch.bfloat16, k
+        x32, y32 = x.float(), y.float()
+        ulp = 2.0 ** (torch.frexp(torch.maximum(x32.abs(), y32.abs()))[1]
+                      - 8).float()
+        assert bool(((x32 - y32).abs() <= 2 * acfg.lr + ulp).all()), k
 
 
 # --- the actor-learner and async topologies --------------------------------

@@ -73,6 +73,16 @@ def test_plan_at_the_chip_smoke_rows(row):
         assert p["splits"] == 1 and p["scratch"] == 0
 
 
+def test_serve_rows_at_the_serve_runs_cache():
+    """The B3 rows that stand for chip_smoke's serve runs read the cache
+    those runs build: prompt plus new tokens of ``LM_SERVE_ARGS``."""
+    args = chip_smoke.LM_SERVE_ARGS
+    slots = sum(int(args[args.index(f) + 1])
+                for f in ("--prompt-len", "--new-tokens"))
+    serve = [r for r in chip_smoke.CACHE_ROWS if r[0].endswith(" serve")]
+    assert len(serve) == 3 and all(r[4] == slots for r in serve)
+
+
 def test_plan_splits_follow_the_problems():
     """Few problems split wide, many not at all; a window bounds the
     slots a problem reads; very long caches split by the chunk limit."""

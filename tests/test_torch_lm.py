@@ -55,6 +55,9 @@ ARCHS = ["h2o-danube-1.8b", "gemma2-9b"]
 # the MoE, recurrent and other dense configs (tests/test_torch_lm_families.py)
 FAMILIES = ["recurrentgemma-2b", "xlstm-125m", "mixtral-8x7b",
             "codeqwen1.5-7b", "stablelm-12b"]
+# the encoder and cross-attention configs and grok-1
+# (tests/test_torch_lm_frontends.py)
+FRONTENDS = ["whisper-tiny", "llama-3.2-vision-90b", "grok-1-314b"]
 TOL = 1e-5
 FLIP_ATOL = 5e-3
 TIGHT_SHARE = 0.75
@@ -93,23 +96,27 @@ def test_configs_are_the_references(name):
         assert t.n_params() == j.n_params()
         assert t.n_active_params() == j.n_active_params()
     assert cfgs.INPUT_SHAPES.keys() == jcfgs.INPUT_SHAPES.keys()
-    assert cfgs.names() == sorted(ARCHS + FAMILIES)
+    assert cfgs.names() == sorted(ARCHS + FAMILIES + FRONTENDS)
 
 
 def test_unported_configs_and_kinds_raise():
-    assert set(cfgs._NOT_PORTED) | set(cfgs.names()) == set(jcfgs.names()) \
-        - {"quarl-atari"}
-    with pytest.raises(NotImplementedError, match="item 13"):
-        cfgs.get("whisper-tiny")
+    """Every LM config of the reference is ported: nothing is left
+    unported, an unknown name still raises, and the encoder and
+    cross-attention kinds build on any config."""
+    assert set(cfgs.names()) == set(jcfgs.names()) - {"quarl-atari"}
+    for name in FRONTENDS:
+        assert cfgs.get(name).name == name
+        assert cfgs.get_reduced(name).name == f"{name}-reduced"
     with pytest.raises(KeyError):
         cfgs.get("no-such-arch")
     cfg = cfgs.get_reduced("h2o-danube-1.8b")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        blocks.block_spec(cfgs.CROSS, cfg)
+    assert {"cross", "norm_cross"} <= set(blocks.block_spec(cfgs.CROSS,
+                                                            cfg))
     params = transformer.init_params(cfg, torch.Generator().manual_seed(0),
                                      "cpu")
-    with pytest.raises(NotImplementedError, match="item 13"):
-        transformer.param_specs(dataclasses.replace(cfg, encoder_layers=1))
+    spec = transformer.param_specs(dataclasses.replace(cfg, encoder_layers=1))
+    assert spec["encoder"]["b0_attn"]["attn"]["q"]["w"].shape == \
+        (1, cfg.d_model, cfg.n_heads * cfg.hd)
     # LM training is ported: a QAT forward returns the observers
     qat = dataclasses.replace(cfg, quant=QuantConfig.qat(8))
     coll = transformer.init_qat_collection(qat, "cpu")

@@ -303,6 +303,8 @@ def test_launch_train_lm_on_cpu(tmp_path, capsys):
     assert launch_train.main(argv[:-4] + ["--ckpt-dir", str(tmp_path),
                                           "--resume"]) == 0
     assert "resumed params from step 3" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 13"):
-        launch_train.main(["--mode", "lm", "--arch", "whisper-tiny",
-                           "--reduced", "--device", "cpu"])
+    # the encoder configs are ported: whisper trains too
+    assert launch_train.main(["--mode", "lm", "--arch", "whisper-tiny",
+                              "--reduced", "--steps", "2", "--batch", "2",
+                              "--seq", "16", "--device", "cpu"]) == 0
+    assert "[train/lm] whisper-tiny-reduced" in capsys.readouterr().out

@@ -63,6 +63,21 @@ def test_flash_plan_splits_short_query_blocks_only():
     assert fa.plan(1, 16, 8, 2, 1, 32)["key_tiles"] == 1
 
 
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_plan_fills_the_card_or_takes_the_largest_cluster(d, causal):
+    """Over batches, heads and lengths around the card's 132 SMs, a plan
+    whose blocks leave SMs idle has the largest cluster the keys allow."""
+    for b in (1, 2, 4, 8):
+        for kv, g in ((1, 1), (6, 1), (8, 6), (8, 8)):
+            for s, t in ((1, 1500), (1, 64), (448, 1500), (2048, 1601),
+                         (16, 100)):
+                p = fa.plan(b, s, t, kv * g, kv, d, causal=causal)
+                largest = max(c for c in (1, 2, 4, 8)
+                              if c == 1 or p["key_tiles"] >= 2 * c)
+                assert p["blocks"] >= SMS or p["cluster"] == largest
+
+
 @pytest.mark.parametrize("d,want", [(1, 16), (16, 16), (17, 32), (40, 48),
                                     (64, 64), (80, 80), (81, 256),
                                     (200, 256), (256, 256)])

@@ -453,10 +453,11 @@ def test_launch_train_rl_on_cpu(capsys):
     assert launch_train.main(argv) == 0
     out = capsys.readouterr().out
     assert "quant=qat8" in out and "device=cpu" in out
-    # --mode lm is ported; the encoder configs still raise (item 13)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        launch_train.main(argv + ["--mode", "lm", "--arch", "whisper-tiny",
-                                  "--reduced"])
+    # --mode lm is ported, the encoder configs too
+    assert launch_train.main(argv + ["--mode", "lm", "--arch",
+                                     "whisper-tiny", "--reduced", "--steps",
+                                     "2", "--batch", "2", "--seq", "16"]) == 0
+    assert "[train/lm] whisper-tiny-reduced" in capsys.readouterr().out
     # the supervisor is ported (item 11): both flags run and report
     for extra, fired in ((["--fault-plan", "1:straggler@1:delay_s=0.001"],
                           True), (["--supervised"], False)):

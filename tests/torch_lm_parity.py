@@ -88,7 +88,10 @@ def batch(vocab, seed=1, b=BATCH, s=SEQ):
 
 
 def torch_batch(np_batch):
-    return {k: torch.from_numpy(v).long() for k, v in np_batch.items()}
+    """Token arrays as int64 tensors, float ones (``encoder_out``) as
+    they are."""
+    return {k: torch.from_numpy(v).long() if v.dtype.kind in "iu"
+            else torch.from_numpy(v) for k, v in np_batch.items()}
 
 
 FAST_COMPILE = {"xla_backend_optimization_level": 0,
