@@ -80,6 +80,16 @@ cache in place) and times both, then drives the port's four paths:
   actor-learner int8 run guarded against bare in turns; a
   ``PolicyServer`` shedding a burst with ``QueueFullError`` and
   restarting a crashed worker; ``launch.train --fault-plan``;
+* the actor mesh -- ``loops.train(mesh=...)`` and
+  ``distributed.make_distributed_a2c`` across ``torch.distributed``
+  ranks: on a world-1 NCCL mesh DQN CartPole actor-learner int8 (4 actors
+  of 8 envs, B1), async int4 calibrated (B2), DDPG Pendulum actor-learner
+  int8, the catch_seq sequence actor (B1, B3) and A2C int8, each bitwise
+  its no-mesh run of the same seed with equal launch counts, timed in
+  turns with the collectives an update and their host ms; then two gloo
+  rank processes sharing the card run DQN actor-learner int4 calibrated
+  (8 actors, B2 after the observations' gather) and A2C int8, every
+  replicated leaf bitwise equal across the ranks after every iteration;
 * RL serving -- ``repro_torch.launch.serve --rl-env`` trains and serves
   three configurations (CartPole async int4 calibrated through B2,
   AirNav int8 at 512 sessions and Pendulum's DDPG int8 through B1), each
@@ -155,8 +165,9 @@ that a JSON object listing every ported kernel with its launches on the
 path it serves (serving for B1 and B2, the sequence-actor rollouts for
 B3, the QAT training run for B5, the LM prefill for B4; then B3 and B4
 again at the families' shapes, with the families' launches, B4 and B5
-at LM training's, and B3 and B4 at the frontends' shapes, each with its
-launches), its largest
+at LM training's, B3 and B4 at the frontends' shapes, and B1, B2 and B3
+with the mesh phase's world-1 launches, each with its launches), its
+largest
 difference from the plain
 version and its times.  All rows are also written to
 ``chiprun_out/chip_smoke.json``.  Without CUDA, or outside the repository,
@@ -606,6 +617,7 @@ WORKER_JOBS = (
      ("algo", "ddpg_al_int8")),
     (("algo", "a2c_fp32"), ("algo", "ppo_int4_calib"), ("algo", "ddpg_int8"),
      ("algo", "ddpg_per"), ("algo", "ppo_qat8"), ("algo", "ddpg_async_int8")),
+    (("phase", "mesh"),),
 )
 WORKER_TIMEOUT_S = 600.0
 # the resume phase: tests/test_resume.py:31-99 at its small config (Catch
@@ -674,6 +686,42 @@ SERVE_RL_RUNS = (
     ("pendulum ddpg int8", ["--rl-env", "pendulum", "--actor-backend",
                             "int8"]))
 STALL_MS = 50.0
+# the mesh phase (rl.distributed): the actor-learner topologies and A2C
+# across torch.distributed ranks.  World 1 over NCCL in a worker, each
+# run held bitwise to its no-mesh run of the same seed (runs in turns:
+# no mesh, mesh, mesh, no mesh): the topology phase's DQN CartPole net
+# with 4 actors of 8 envs (actor-learner int8 pushed every 2 iterations,
+# async int4 calibrated pushed every 16 updates), DDPG on Pendulum
+# actor-learner int8, the sequence actor on catch_seq (SEQ_NET, SEQ_ALGO,
+# 2 actors: B1 and B3) and distributed A2C int8 at its defaults (16 envs);
+# then world 2 over gloo, two rank processes sharing the card: DQN
+# actor-learner int4 calibrated with 8 actors (4 a rank, the topology
+# runs' 32 rows; B2 after the gather) and distributed A2C int8, every
+# replicated leaf bitwise equal across the ranks after every iteration
+MESH_ITERS = 8
+MESH_RUNS = (
+    ("dqn_al_int8", dict(algo="dqn", env_name="cartpole",
+                         topology="actor-learner", num_actors=4,
+                         sync_every=2, actor_backend="int8")),
+    ("dqn_async_int4_calib", dict(algo="dqn", env_name="cartpole",
+                                  topology="async", num_actors=4,
+                                  sync_every=16, actor_backend="int4",
+                                  calib_batch=32, steps_per_call=ASYNC_SPC)),
+    ("ddpg_al_int8", dict(algo="ddpg", env_name="pendulum",
+                          topology="actor-learner", num_actors=4,
+                          sync_every=2, actor_backend="int8")),
+    ("seq_al_int8", dict(algo="dqn", env_name="catch_seq",
+                         topology="actor-learner", num_actors=2,
+                         sync_every=2, actor_backend="int8",
+                         net_kwargs={"transformer": dict(SEQ_NET)},
+                         algo_overrides=dict(SEQ_ALGO))))
+MESH_A2C = dict(actor_backend="int8")
+MESH_A2C_ITERS = 20
+MESH_W2 = 2
+MESH_W2_DQN = dict(num_actors=8, sync_every=2, actor_backend="int4",
+                   calib_batch=32)
+MESH_W2_ITERS = 8
+MESH_RANK_TIMEOUT_S = 300.0
 
 
 def quarl_atari():
@@ -958,7 +1006,14 @@ def b1_row(torch, dev, gen, label, m, k, n, bits, reps=15) -> dict:
     lib_ms = None
     if bits == 8 and m > 16 and k % 8 == 0 and n % 8 == 0:
         wq = pw.codes
-        lib_ms = device_ms(torch, lambda: torch._int_mm(xq, wq), reps=reps)
+        try:
+            lib_ms = device_ms(torch, lambda: torch._int_mm(xq, wq),
+                               reps=reps)
+        except RuntimeError as e:
+            # cuBLASLt refuses some of these shapes (48 x 32 x 32): then
+            # there is no library call to time
+            if "CUBLAS_STATUS_NOT_SUPPORTED" not in str(e):
+                raise
     nbytes = m * k + pw.codes.numel() + 8 * n + 8 + 4 * m * n
     b_ms, b_by = bound(nbytes, 2.0 * m * k * n)
     return dict(
@@ -971,9 +1026,10 @@ def b1_row(torch, dev, gen, label, m, k, n, bits, reps=15) -> dict:
         bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
 
 
-def b1_path_shapes(torch, dev, fn) -> list:
+def b1_path_shapes(torch, dev, fn, counts=None) -> list:
     """The ``(M, K, N, bits)`` of every B1 launch ``fn()`` makes (each
-    launched and counted as usual), in order of first launch."""
+    launched and counted as usual), in order of first launch; ``counts``
+    (a dict), if given, gains the launches at each."""
     from repro_torch.kernels import int8_matmul
     seen, orig = [], int8_matmul.int8_matmul_cuda
 
@@ -982,11 +1038,14 @@ def b1_path_shapes(torch, dev, fn) -> list:
                4 if w_bits <= 4 else 8)
         if key not in seen:
             seen.append(key)
+        if counts is not None:
+            counts[key] = counts.get(key, 0) + 1
         return orig(x_q, w_q, *args, w_bits=w_bits)
     int8_matmul.int8_matmul_cuda = record
     try:
         fn()
-        torch.cuda.synchronize()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
     finally:
         int8_matmul.int8_matmul_cuda = orig
     return seen
@@ -1434,6 +1493,362 @@ def topology_phase(torch, dev, smi, counters) -> dict:
         print("topology profile " + json.dumps(prof))
     return dict(rows=rows, launches=next(
         r["launches"] for r in rows if r.get("run") == "async_int8"))
+
+
+def host_digest(torch, tree) -> str:
+    """sha256 of every tensor of ``tree`` (path, dtype, shape, bytes), read
+    back to the host."""
+    import hashlib
+
+    from repro_torch.core import ptq
+    h = hashlib.sha256()
+    for path, t in ptq.tree_tensors(tree):
+        a = t.detach().cpu().numpy()
+        h.update(f"{path}|{a.dtype}|{a.shape}|".encode())
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def replicated_leaves(learner):
+    """A learner ``TrainState`` but its replay, the one per-rank leaf."""
+    return (learner.params, learner.opt, learner.observers, learner.step,
+            learner.extras._replace(replay=()))
+
+
+def tree_diff(torch, a, b) -> list:
+    """The paths where two trees of tensors differ, bit for bit."""
+    from repro_torch.core import ptq
+    x, y = list(ptq.tree_tensors(a)), list(ptq.tree_tensors(b))
+    bad = [] if [p for p, _ in x] == [p for p, _ in y] else ["<structure>"]
+    return bad + [p for (p, u), (_, v) in zip(x, y)
+                  if u.dtype != v.dtype or not torch.equal(u, v)]
+
+
+def run_diff(torch, a, b) -> list:
+    """What differs, bit for bit, between two ``TrainResult``s: the final
+    state's leaves (replay included), rewards, divergences, actor lags."""
+    return tree_diff(torch, a.state, b.state) + [
+        f for f in ("rewards", "divergences", "actor_lags")
+        if getattr(a, f) != getattr(b, f)]
+
+
+def a2c_mesh_programs(torch, dev, mesh):
+    """A2C at ``MESH_A2C`` on CartPole: ``a2c.make_iteration`` without a
+    mesh, else ``distributed.make_distributed_a2c`` on ``mesh``, with a
+    fresh state, env state, observations and the rank's generator:
+    ``(iteration, state, env_state, obs, generator)``."""
+    from repro_torch.rl import a2c, distributed
+    from repro_torch.rl.envs import make
+    from repro_torch.rl.networks import make_network
+    env = make("cartpole")
+    cfg = a2c.A2CConfig(**MESH_A2C)
+    net = make_network(env.spec.obs_shape, env.spec.n_actions + 1,
+                       device=dev)
+    state = a2c.init(torch.Generator().manual_seed(SEED), env, net, cfg)
+    index = 0
+    if mesh is None:
+        iteration, _, benv = a2c.make_iteration(env, net, cfg, dev)
+    else:
+        iteration, _, benv = distributed.make_distributed_a2c(
+            env, net, cfg, mesh, device=dev)
+        index = mesh.get_local_rank("data")
+
+    def gen(offset):
+        return distributed.rank_generator(torch.Generator(
+            device=dev).manual_seed(SEED + offset), index)
+    env_state, obs = benv.reset(gen(1), dev)
+    return iteration, state, env_state, obs, gen(2)
+
+
+def mesh_world1(torch, dev, smi, counters) -> dict:
+    """World 1 over NCCL (gloo off the card) in this process: each
+    ``MESH_RUNS`` run and A2C, each driven with the kernel counts and
+    ``distributed.stats`` set to 0 just before it and read just after.
+    First an untimed run on the mesh that records B1's shapes and its
+    launches at each (and warms the run up), held bit for bit and to
+    equal launches against the first no-mesh run; then the timed runs
+    in turns (no mesh, mesh, mesh, no mesh), every mesh run held to the
+    recorded run's launches."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.rl import distributed, loops
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    store_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh1_")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev.index or 0)
+    dist.init_process_group(
+        "nccl" if dev.type == "cuda" else "gloo",
+        store=dist.FileStore(os.path.join(store_dir, "store"), 1), rank=0,
+        world_size=1)
+    rows, launches, b1 = [], dict.fromkeys(counters, 0), {}
+    try:
+        meshes = {name: DeviceMesh(dev.type, torch.arange(1),
+                                   mesh_dim_names=(name,))
+                  for name in ("actor", "data")}
+
+        def timed(fn, counts=None):
+            """``(result, seconds, launches, collectives, collective host
+            seconds, packing host seconds)``; with ``counts`` (then untimed: seconds None) B1's
+            launches at each shape are recorded into it."""
+            for c in counters.values():
+                c.reset()
+            distributed.stats.reset()
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            box = []
+            if counts is None:
+                box.append(fn())
+            else:
+                b1_path_shapes(torch, dev, lambda: box.append(fn()), counts)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            return (box[0], None if counts is not None
+                    else time.perf_counter() - t,
+                    {k: c.value for k, c in counters.items()},
+                    distributed.stats.calls, distributed.stats.host_s,
+                    distributed.stats.pack_s)
+
+        def a2c_run(mesh):
+            it, state, env_state, obs, gen = a2c_mesh_programs(torch, dev,
+                                                               mesh)
+            for _ in range(MESH_A2C_ITERS):
+                state, env_state, obs, m = it(state, env_state, obs, gen)
+            return state, env_state, obs, m["loss"]
+
+        runs = [(name, dict(kw, iterations=MESH_ITERS,
+                            record_every=MESH_ITERS, seed=SEED))
+                for name, kw in MESH_RUNS] + [("a2c_int8", None)]
+        for name, kw in runs:
+            if kw is None:
+                def go(mesh):
+                    return a2c_run(mesh and mesh["data"])
+            else:
+                def go(mesh, kw=kw):
+                    return loops.train(mesh=mesh and mesh["actor"], **kw)
+            counts = {}
+            rec = timed(lambda: go(meshes), counts)
+            plain = timed(lambda: go(None))
+            meshed = timed(lambda: go(meshes))
+            meshed2 = timed(lambda: go(meshes))
+            plain2 = timed(lambda: go(None))
+            if kw is None:
+                diff = tree_diff(torch, plain[0], rec[0])
+                iters = updates = MESH_A2C_ITERS   # one Adam step each
+                rewards = None
+            else:
+                diff = run_diff(torch, plain[0], rec[0])
+                iters = MESH_ITERS
+                updates = iters * plain[0].algo_cfg.updates_per_iter
+                rewards = rec[0].rewards
+            check(diff == [], f"mesh {name}: the world-1 mesh run differs "
+                              f"from the no-mesh run in {diff[:8]}")
+            check(plain[2] == rec[2] == meshed[2] == meshed2[2],
+                  f"mesh {name}: launches {rec[2]}, {meshed[2]} and "
+                  f"{meshed2[2]} on the mesh, {plain[2]} without")
+            check(sum(counts.values()) == rec[2]["int8_matmul"],
+                  f"mesh {name}: B1 launches by shape {counts} against "
+                  f"{rec[2]['int8_matmul']}")
+            want = {"dqn_async_int4_calib": ("fused_qmlp",),
+                    "seq_al_int8": ("int8_matmul", "int8_cache_attention")
+                    }.get(name, ("int8_matmul",))
+            check(all(rec[2][k] > 0 for k in want),
+                  f"mesh {name}: launches {rec[2]} miss {want}")
+            for k, v in rec[2].items():
+                launches[k] += v
+            for key, v in counts.items():
+                b1[key] = b1.get(key, 0) + v
+            row = dict(
+                run=name, world=1, backend=dist.get_backend(),
+                bitwise=True, iterations=iters, updates=updates,
+                rewards=rewards, launches=rec[2],
+                b1_launches_by_shape=[[*k, v] for k, v in counts.items()],
+                collectives_per_update=meshed[3] / updates,
+                collective_host_ms_per_update=1e3 * meshed[4] / updates,
+                pack_host_ms_per_update=1e3 * meshed[5] / updates,
+                # the mesh run's wall over the no-mesh run's, an update,
+                # beside the host ms the mesh adds an update
+                mesh_minus_no_mesh_ms_per_update=1e3 * (
+                    meshed[1] + meshed2[1] - plain[1] - plain2[1])
+                / (2 * updates),
+                iters_per_s=dict(
+                    no_mesh=[iters / plain[1], iters / plain2[1]],
+                    mesh=[iters / meshed[1], iters / meshed2[1]]),
+                card=smi)
+            rows.append(row)
+            print("mesh " + json.dumps(row), flush=True)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store_dir, ignore_errors=True)
+    return dict(rows=rows, launches=launches, b1=b1)
+
+
+class MeshRank:
+    """A rank process on the card (``python3 chip_smoke.py --mesh-rank``),
+    started at once; ``collect`` waits for it and returns its result.
+    Killed at exit with the ``Worker``s if it still runs."""
+
+    def __init__(self, world: int, rank: int, store: str, smi: str):
+        self.dir = tempfile.mkdtemp(prefix=f"chip_smoke_rank{rank}_")
+        self.out = os.path.join(self.dir, "out.json")
+        self.log = os.path.join(self.dir, "stdout.log")
+        with open(self.log, "w") as log:
+            self.proc = subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--mesh-rank", json.dumps(dict(
+                     world=world, rank=rank, store=store, smi=smi)),
+                 self.out], cwd=str(ROOT), stdout=log)
+        Worker.started.append(self)
+
+    def collect(self) -> dict:
+        rc = self.proc.wait(timeout=MESH_RANK_TIMEOUT_S)
+        sys.stdout.write(Path(self.log).read_text())
+        check(rc == 0, f"mesh rank: exit code {rc} (its traceback is on "
+                       f"stderr)")
+        got = json.loads(Path(self.out).read_text())
+        shutil.rmtree(self.dir, ignore_errors=True)
+        return got
+
+
+def mesh_rank_main(spec: str, out: str) -> int:
+    """``--mesh-rank SPEC OUT``: one rank of the world-2 gloo runs on the
+    card: DQN actor-learner int4 calibrated (``MESH_W2_DQN``) and
+    distributed A2C int8, each driven with the kernel counts set to 0
+    just before it and read just after, the digest of every replicated
+    leaf after every iteration written to OUT.  The first iteration
+    records B1's shapes and is not timed; nor are the digests."""
+    t0 = time.perf_counter()
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import build, fused_qmlp, int8_matmul
+    from repro_torch.rl import actor_learner, distributed, dqn, networks
+    from repro_torch.rl.envs import make
+    spec = json.loads(spec)
+    networks.full_fp32()
+    dev = torch.device("cuda") if torch.cuda.is_available() \
+        else torch.device("cpu")
+    if dev.type == "cuda":
+        build.build()             # the main process has built them all
+        torch.cuda.set_device(0)
+    world, rank = spec["world"], spec["rank"]
+    dist.init_process_group("gloo", store=dist.FileStore(spec["store"],
+                                                        world),
+                            rank=rank, world_size=world)
+    counters = {c.name: c for c in (int8_matmul.launches,
+                                    fused_qmlp.launches)}
+    done = dict(startup_s=time.perf_counter() - t0)
+    try:
+        def run(name, step, iters, digest_of):
+            for c in counters.values():
+                c.reset()
+            distributed.stats.reset()
+            seen = b1_path_shapes(torch, dev, step)
+            digests, wall = [host_digest(torch, digest_of())], 0.0
+            for _ in range(iters - 1):
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                t = time.perf_counter()
+                step()
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                wall += time.perf_counter() - t
+                digests.append(host_digest(torch, digest_of()))
+            done[name] = dict(
+                digests=digests, launches={k: c.value for k, c in
+                                           counters.items()},
+                collectives=distributed.stats.calls,
+                collective_host_s=distributed.stats.host_s,
+                pack_host_s=distributed.stats.pack_s, wall_s=wall,
+                iters_per_s=(iters - 1) / wall, b1=seen)
+
+        env = make("cartpole")
+        net = networks.make_network(env.spec.obs_shape, env.spec.n_actions,
+                                    device=dev)
+        cfg = dqn.DQNConfig(actor_backend=MESH_W2_DQN["actor_backend"],
+                            calib_batch=MESH_W2_DQN["calib_batch"])
+        al = actor_learner.ActorLearnerConfig(
+            num_actors=MESH_W2_DQN["num_actors"],
+            sync_every=MESH_W2_DQN["sync_every"])
+        mesh = DeviceMesh(dev.type, torch.arange(world),
+                          mesh_dim_names=("actor",))
+        index = mesh.get_local_rank("actor")
+        carry = [actor_learner.init(torch.Generator().manual_seed(SEED), env,
+                                    net, "dqn", cfg, al, mesh=mesh)]
+        iteration, _, benv = actor_learner.make_actor_learner(
+            "dqn", env, net, cfg, al, mesh=mesh, device=dev)
+
+        def gen(offset):
+            return distributed.rank_generator(torch.Generator(
+                device=dev).manual_seed(SEED + offset), index)
+        carry += list(benv.reset(gen(1), dev)) + [gen(2)]
+
+        def dqn_step():
+            carry[0], carry[1], carry[2], _ = iteration(*carry)
+        run("dqn_al_int4_calib", dqn_step, MESH_W2_ITERS,
+            lambda: (replicated_leaves(carry[0].learner),
+                     carry[0].actor_params, carry[0].actor_cache,
+                     carry[0].divergence))
+        done["dqn_al_int4_calib"]["shards"] = int(
+            carry[0].learner.extras.replay.size.shape[0])
+        a2c_mesh = DeviceMesh(dev.type, torch.arange(world),
+                              mesh_dim_names=("data",))
+        a2c = list(a2c_mesh_programs(torch, dev, a2c_mesh))
+
+        def a2c_step():
+            a2c[1], a2c[2], a2c[3], _ = a2c[0](*a2c[1:])
+        run("a2c_int8", a2c_step, MESH_W2_ITERS, lambda: a2c[1])
+    finally:
+        dist.destroy_process_group()
+    Path(out).write_text(json.dumps(done))
+    return 0
+
+
+def mesh_phase(torch, dev, smi, counters) -> dict:
+    """The actor mesh: ``mesh_world1`` here, then (so that nothing else
+    of this phase shares the card or the host with its timed runs) the
+    world-2 gloo ranks, two processes sharing the card, their replicated
+    leaves held bitwise equal after every iteration, their launch counts
+    equal and non-zero (B1 in both runs, B2 in the calibrated one).
+    ``b1``: ``[M, K, N, bits, launches]`` for each B1 shape of the phase,
+    ``launches`` those of the world-1 runs (0 at a shape only the world-2
+    runs give)."""
+    got = mesh_world1(torch, dev, smi, counters)
+    store_dir = tempfile.mkdtemp(prefix="chip_smoke_mesh2_")
+    ranks = [MeshRank(MESH_W2, r, os.path.join(store_dir, "store"), smi)
+             for r in range(MESH_W2)]
+    per = [r.collect() for r in ranks]
+    shutil.rmtree(store_dir, ignore_errors=True)
+    for name, want in (("dqn_al_int4_calib", ("int8_matmul", "fused_qmlp")),
+                       ("a2c_int8", ("int8_matmul",))):
+        runs = [p[name] for p in per]
+        for i in range(len(runs[0]["digests"])):
+            check(len({r["digests"][i] for r in runs}) == 1,
+                  f"mesh world 2 {name}: replicated leaves differ across "
+                  f"the ranks after iteration {i + 1}")
+        check(all(r["launches"] == runs[0]["launches"] for r in runs)
+              and all(runs[0]["launches"][k] > 0 for k in want),
+              f"mesh world 2 {name}: launches "
+              f"{[r['launches'] for r in runs]}")
+        row = dict(run=name, world=MESH_W2, backend="gloo",
+                   replicated_bitwise=True,
+                   iterations=len(runs[0]["digests"]),
+                   launches=[r["launches"] for r in runs],
+                   collectives=[r["collectives"] for r in runs],
+                   collective_host_s=[r["collective_host_s"] for r in runs],
+                   pack_host_s=[r["pack_host_s"] for r in runs],
+                   iters_per_s=[r["iters_per_s"] for r in runs],
+                   startup_s=[p["startup_s"] for p in per], card=smi)
+        if name == "dqn_al_int4_calib":
+            row["shards_per_rank"] = [r["shards"] for r in runs]
+        got["rows"].append(row)
+        print("mesh " + json.dumps(row), flush=True)
+        got["b1"].update({tuple(x): got["b1"].get(tuple(x), 0)
+                          for r in runs for x in r["b1"]})
+    got["b1"] = [[*k, v] for k, v in sorted(got["b1"].items())]
+    return got
 
 
 def mlp_site_launches(dims, batch: int) -> int:
@@ -4594,7 +5009,7 @@ def worker_main(spec: str, out: str) -> int:
     seq = {name: (kw, bar) for name, kw, bar in seq_runs()}
     algo = {run[0]: run for run in ALGO_RUNS}
     phases = dict(train=train_phase, topology=topology_phase,
-                  resilience=resilience_phase)
+                  resilience=resilience_phase, mesh=mesh_phase)
     done = dict(startup_s=time.perf_counter() - t0, jobs=[])
     for job in spec["jobs"]:
         t = time.perf_counter()
@@ -5178,6 +5593,7 @@ def main() -> int:
     topo = done[("phase", "topology")]["out"]
     resume = done[("phase", "resume")]["out"]
     rz = done[("phase", "resilience")]["out"]
+    mesh = done[("phase", "mesh")]["out"]
     algo["rows"] += [done[("algo", run[0])]["out"] for run in ALGO_RUNS
                      if ("algo", run[0]) in done]
     seq["rows"] += [done[("seq", name)]["out"] for name, _, _ in seq_runs()
@@ -5196,6 +5612,17 @@ def main() -> int:
                     done[("seq", "bar_fused")]["b1"])
     rows += seq["shape_rows"]
     phase_done("seq_train timed", t_seq)
+    # B1 at the mesh runs' shapes no earlier row has
+    t_mesh = time.perf_counter()
+    have = {(tuple(r["shape"]), r["bits"]) for r in rows
+            if r["name"] == "int8_matmul"}
+    mgen = torch.Generator(device=dev).manual_seed(SEED + 93)
+    for m, k, n, bits, _ in mesh["b1"]:
+        if ((m, k, n), bits) not in have:
+            rows.append(b1_row(torch, dev, mgen, "mesh", m, k, n, bits,
+                               reps=10))
+            print("mesh kernel " + json.dumps(rows[-1]))
+    phase_done("mesh timed", t_mesh)
 
     # ---- serve_rl phase (launch.serve --rl-env) ---------------------------
     t_srl = time.perf_counter()
@@ -5286,7 +5713,7 @@ def main() -> int:
     fw, fv, fg = (front[a] for a in (FRONT_WHISPER, FRONT_VISION,
                                       FRONT_GROK))
     fw_int8 = next(r for r in fw["serve"] if r["run"] == "int8 cache")
-    for name, n, pick in (
+    for name, n, pick, *label in (
             ("int8_cache_attention",
              rg_int8["launches"]["int8_cache_attention"],
              head("int8_cache_attention", label="recurrentgemma serve")),
@@ -5335,10 +5762,26 @@ def main() -> int:
                   label="llama-vision parity decode")),
             ("int8_cache_attention",
              fg["parity"]["decode_launches"]["int8_cache_attention"],
-             head("int8_cache_attention", label="grok parity decode"))):
+             head("int8_cache_attention", label="grok parity decode")),
+            # the mesh phase's world-1 NCCL runs: B2 in the async int4
+            # calibrated run and B3 in the sequence actor's, at the
+            # topology and seq_train rows' shapes they share; B1 (in every
+            # run) a row at each shape it launched at, below
+            ("fused_qmlp", mesh["launches"]["fused_qmlp"],
+             head("fused_qmlp", bits=4, policy="topology", shape=[32]),
+             "mesh (topology int4 M 32)"),
+            ("int8_cache_attention",
+             mesh["launches"]["int8_cache_attention"],
+             head("int8_cache_attention",
+                  label="catch_seq train 2 actors"),
+             "mesh (catch_seq train 2 actors)")) + tuple(
+            ("int8_matmul", v, head("int8_matmul", bits=bits,
+                                    shape=[m, k, n]),
+             f"mesh {m}x{k}x{n} int{bits}")
+            for m, k, n, bits, v in mesh["b1"] if v):
         base = next(r for r in report if r["name"] == name)
         report.append(dict(
-            base, label=pick["label"], launches=n,
+            base, label=label[0] if label else pick["label"], launches=n,
             max_abs_err=pick["max_abs_err"], ms=pick["ms"],
             plain_ms=pick["plain_ms"], bound_ms=pick["bound_ms"],
             bound_by=pick["bound_by"], library_ms=pick["library_ms"]))
@@ -5358,6 +5801,7 @@ def main() -> int:
                                  seconds=seq["seconds"]),
              resume_rows=resume["rows"],
              resilience_rows=rz["rows"], serve_rl_rows=serve_rl["rows"],
+             mesh_rows=mesh["rows"],
              lm_rows=lm, families_rows=fam, lm_train_rows=lmt,
              frontends_rows=front,
              path_launches=dict(serve=launches, rollout=roll_launches,
@@ -5378,7 +5822,8 @@ def main() -> int:
                                 frontends_whisper_prefill=fw["prefill"][
                                     "launches"],
                                 frontends_whisper_train_flash=fw["train"][
-                                    "flash_launches"]),
+                                    "flash_launches"],
+                                mesh_world1=mesh["launches"]),
              kernels=report, seconds=time.perf_counter() - t0), indent=1))
     print(f"total {time.perf_counter() - t0:.1f}s")
     print(json.dumps({"kernels": report}))
@@ -5395,6 +5840,8 @@ if __name__ == "__main__":
     try:
         if len(sys.argv) == 4 and sys.argv[1] == "--worker":
             sys.exit(worker_main(sys.argv[2], sys.argv[3]))
+        if len(sys.argv) == 4 and sys.argv[1] == "--mesh-rank":
+            sys.exit(mesh_rank_main(sys.argv[2], sys.argv[3]))
         sys.exit(main())
     finally:
         Worker.stop_all()

@@ -1,1 +1,2 @@
-"""Launchers of the port (the ``--mode rl`` trainer so far)."""
+"""Launchers of the port: the trainer and the server, the host mesh
+and the analytic step model."""

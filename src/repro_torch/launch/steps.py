@@ -12,8 +12,7 @@ the collection and metrics of the last one are kept, the loss and
 gradients are averaged, the sum in float32 as the reference's
 ``zero_g``), then applies ``optim.adam.adam_update``, which returns each
 param in its own dtype.  The reference's shardings and
-``lower_step`` have no counterpart on one card (ROADMAP queue A, item
-14).
+``lower_step`` have no counterpart yet (ROADMAP queue A, item 14b).
 """
 from __future__ import annotations
 

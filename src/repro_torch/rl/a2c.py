@@ -14,7 +14,8 @@ calibrates the cache), packed once per iteration; the learner stays fp32
   reversed loop over time, in the reference's order), the policy-gradient,
   value and entropy losses over the whole trajectory, one Adam step.
 * ``make_iteration`` -- the rollout, then the learner; and the greedy
-  ``act_fn``.
+  ``act_fn``.  With a mesh axis it is one rank's data-parallel slice
+  (``rl.distributed.make_distributed_a2c``).
 """
 from __future__ import annotations
 
@@ -77,16 +78,20 @@ def discounted_returns(rewards: torch.Tensor, dones: torch.Tensor,
 
 
 def make_learner(env: Env, net: Network, cfg: A2CConfig):
-    """``learn(state, traj, last_obs) -> (state, metrics)``: one fp32
-    learner step on a rollout ``traj`` (a ``StepOut`` over ``(T, B)``)
-    and the observation after it.  The observers advance by the
+    """``learn(state, traj, last_obs, reduce=None) -> (state, metrics)``:
+    one fp32 learner step on a rollout ``traj`` (a ``StepOut`` over ``(T,
+    B)``) and the observation after it.  The observers advance by the
     trajectory's forward (the last observation's is dropped).
-    ``metrics``: loss, entropy and the variance of the learner's action
-    distribution, on the device."""
+    ``reduce`` (a mesh axis's ``mean``, ``rl.distributed``) takes the
+    gradients, the loss and the new observers together before the Adam
+    step; ``None`` is the identity.  ``metrics``: loss, entropy and the
+    variance of the learner's action distribution, on the device (the
+    last two the rank's own)."""
     adam_cfg = AdamConfig(lr=cfg.lr)
     heads = common.make_heads(net, cfg.quant, env.spec.n_actions)
 
-    def learn(state: common.TrainState, traj: StepOut, last_obs):
+    def learn(state: common.TrainState, traj: StepOut, last_obs,
+              reduce=None):
         with torch.enable_grad():
             leaves = common.grad_leaves(state.params)
             logits, values, new_coll = heads(leaves, traj.obs,
@@ -103,11 +108,14 @@ def make_learner(env: Env, net: Network, cfg: A2CConfig):
             loss = pg_loss + cfg.value_coef * v_loss \
                 - cfg.entropy_coef * ent
             grads = common.tree_grad(loss, leaves)
+        loss = loss.detach()
+        if reduce is not None:
+            grads, loss, new_coll = reduce((grads, loss, new_coll))
         params, opt, _ = adam_update(grads, state.opt, state.params,
                                      adam_cfg)
         state = common.TrainState(params, opt, new_coll, state.step + 1, ())
         return state, {
-            "loss": loss.detach(), "entropy": ent.detach(),
+            "loss": loss, "entropy": ent.detach(),
             "action_dist_variance":
                 metrics_lib.action_distribution_variance(logits.detach())}
     return learn
@@ -127,19 +135,32 @@ def make_act_fn(net: Network, cfg, n_actions: int):
     return act_fn
 
 
-def make_iteration(env: Env, net: Network, cfg: A2CConfig, device=None):
+def make_iteration(env: Env, net: Network, cfg: A2CConfig, device=None,
+                   ax=None):
     """``(iteration, act_fn, benv)`` of the fused driver.
 
     ``iteration(state, env_state, obs, generator) -> (state, env_state,
     obs, metrics)``: a rollout of ``n_steps`` over ``n_envs`` envs that
     samples from the packed actor's head (one cache an iteration,
-    calibrated with ``calib_batch``) or the fp32 head under the QAT
-    context, then ``make_learner``'s step; ``metrics`` add the reward per
-    finished episode.  ``device=None`` is ``cuda``.
+    calibrated with ``calib_batch`` on the rollout's own observations) or
+    the fp32 head under the QAT context, then ``make_learner``'s step;
+    ``metrics`` add the reward per finished episode.  ``device=None`` is
+    ``cuda``.
+
+    ``ax`` (an ``rl.distributed.Axis``: its ``size`` and ``mean``) makes
+    it one rank's slice: ``n_envs / size`` envs, the gradients, loss and
+    observers averaged through ``mean`` before the Adam step (so every
+    rank applies the same step), and the reward averaged too; the
+    entropy and variance stay the rank's own.  ``None`` is the whole run
+    in one process.
     """
     common.check_config(cfg)
     resolve_device(device)
-    benv = batched_env(env, cfg.n_envs)
+    size, reduce = (1, None) if ax is None else (ax.size, ax.mean)
+    if cfg.n_envs % size:
+        raise ValueError(f"n_envs {cfg.n_envs} must divide by the mesh "
+                         f"{ax.name!r} axis size {size}")
+    benv = batched_env(env, cfg.n_envs // size)
     heads = common.make_heads(net, cfg.quant, env.spec.n_actions)
     learn = make_learner(env, net, cfg)
     quantized = actorq.is_quantized(cfg.actor_backend)
@@ -163,9 +184,10 @@ def make_iteration(env: Env, net: Network, cfg: A2CConfig, device=None):
         env_state, last_obs, traj = rollout(benv, policy, state.params,
                                             env_state, obs, generator,
                                             cfg.n_steps)
-        state, metrics = learn(state, traj, last_obs)
-        metrics["reward"] = torch.sum(traj.reward) / torch.clamp(
-            torch.sum(traj.done), min=1.0)
+        state, metrics = learn(state, traj, last_obs, reduce=reduce)
+        reward = torch.sum(traj.reward) / torch.clamp(torch.sum(traj.done),
+                                                      min=1.0)
+        metrics["reward"] = reward if reduce is None else reduce(reward)
         return state, env_state, last_obs, metrics
 
     return iteration, make_act_fn(net, cfg, env.spec.n_actions), benv

@@ -3,12 +3,28 @@ buffer, an fp32 learner trains on it and pushes its params back.
 
 Counterpart of ``repro/rl/actor_learner.py`` for its two replay
 algorithms, ``"dqn"`` and ``"ddpg"`` (the paper's D4PG-style split: the
-actors run DDPG's mu head, the critic stays with the learner), on one
-device, the reference's no-mesh mode: the ``num_actors`` actors are one
-batched env of ``num_actors * n_envs`` rows (actor-major), stepped by one
-behaviour policy, so an int8/int4 actor runs one B1 launch a layer (or one
-B2 launch, calibrated) over all actors' rows, with one dynamic activation
-scale, as the reference's folded batch does.
+actors run DDPG's mu head, the critic stays with the learner).  Without a
+mesh the ``num_actors`` actors are one batched env of ``num_actors *
+n_envs`` rows (actor-major), stepped by one behaviour policy, so an
+int8/int4 actor runs one B1 launch a layer (or one B2 launch, calibrated)
+over all actors' rows, with one dynamic activation scale, as the
+reference's folded batch does.
+
+**A mesh** (``mesh``, a ``DeviceMesh`` with an ``axis`` dim, default
+``"actor"``; ``rl.distributed``) splits the actors over the ranks, each
+rank a process running the same program: rank ``i`` of ``size`` runs
+actors ``i * num_actors / size`` on, as one batch of its rows (so its
+activation scale is taken over its rows, as on a reference device), and
+holds their replay shards; the learner's params, Adam state, observers,
+the actors' params and the packed cache are replicated, bitwise equal on
+every rank.  The learner's gradients, loss and observers are averaged
+over the ranks (one ``all_reduce`` an update), the warmup gate reads the
+replay size summed over the ranks, a calibrated pack gathers every rank's
+observations in rank order first, and the divergence, computed for the
+rank's actors, is gathered into ``(num_actors,)``.  Priorities stay per
+shard.  Each rank draws from its own generator
+(``distributed.rank_generator``); a world-1 mesh is bitwise the no-mesh
+run.
 
 * ``topology="actor-learner"`` (``make_actor_learner``) -- bulk
   synchronous: an iteration is the rollout, the write into the sharded
@@ -45,10 +61,13 @@ whatever order the streams run in.
 
 **Streams** (``Streams``; no-ops on the CPU).  The actors' work runs on
 one stream and the learner's on another; nothing between two sync points
-waits on the host.  At a sync point the learner waits for the actors'
-last write (the slot it now reads, the observations the snapshot and the
-divergence read), and the actors wait for the snapshot's mint, which runs
-on the learner's stream after every learner update so far.  A tensor made
+waits on the host (under a gloo mesh each collective does).  A mesh's
+collectives run on the stream of the chunk that issues them, the actors'
+on a process group of their own, so the learner's never queue behind
+them.  At a sync point the learner waits for the actors' last write (the
+slot it now reads, the observations the snapshot and the divergence
+read), and the actors wait for the snapshot's mint, which runs on the
+learner's stream after every learner update so far.  A tensor made
 on one stream and read on the other is marked with ``record_stream``
 (``Streams.share``), so the caching allocator does not hand its memory
 out while the other stream may still read it.
@@ -63,7 +82,7 @@ import torch
 
 from repro_torch.core.ptq import tree_map, tree_tensors
 from repro_torch.device import resolve_device
-from repro_torch.rl import actorq, common, ddpg, dqn
+from repro_torch.rl import actorq, common, ddpg, distributed, dqn
 from repro_torch.rl import buffer as rb
 from repro_torch.rl.env import Env, batched_env, rollout
 
@@ -93,9 +112,10 @@ class ActorLearnerConfig:
 
 class ActorLearnerState(NamedTuple):
     """The synchronous topology's carry: the fp32 learner (its replay
-    sharded), the actors' possibly stale params, their packed cache
-    (``()`` for fp32 actors), the iterations done ``t`` (a host int) and
-    the last push's divergence ``(num_actors,)``."""
+    sharded; under a mesh, the rank's shards), the actors' possibly stale
+    params, their packed cache (``()`` for fp32 actors), the iterations
+    done ``t`` (a host int) and the last push's divergence
+    ``(num_actors,)``, every actor's."""
 
     learner: common.TrainState
     actor_params: Any
@@ -193,7 +213,8 @@ class AsyncPrograms(NamedTuple):
     paths, each on its own stream; ``make_snapshot(learner, obs)`` (the
     push) and ``divergence(learner, snap, obs) -> (num_actors,)`` run at
     sync points on the learner's stream.  ``act_fn`` is the greedy fp32
-    policy; ``benv_global`` the ``num_actors * n_envs`` envs.
+    policy; ``benv_global`` the ``num_actors * n_envs`` envs (under a
+    mesh, the rank's actors' envs).
     """
 
     actor_chunk: Callable
@@ -261,22 +282,28 @@ def _algo_parts(algo: str, env: Env, net, cfg) -> _AlgoParts:
                       fp32_head, cache_head, act_fn)
 
 
-def _validate(algo: str, cfg, al: ActorLearnerConfig, mesh) -> int:
+def _validate(algo: str, cfg, al: ActorLearnerConfig,
+              ax: distributed.Axis) -> int:
     _check_algo(algo)
-    if mesh is not None:
-        raise NotImplementedError(
-            "a device mesh over the actor axis is not ported yet (ROADMAP "
-            "queue A, item 14); one device runs the actors as a batch")
     actorq.validate_actor_backend(cfg.actor_backend)
     if al.sync_every < 1:
         raise ValueError(f"sync_every must be >= 1, got {al.sync_every}")
     n = al.num_actors
     if n < 1:
         raise ValueError(f"num_actors must be >= 1, got {n}")
+    _local_actors(n, ax)
     if cfg.batch_size % n:
         raise ValueError(f"batch_size {cfg.batch_size} must divide by "
                          f"num_actors {n}")
     return n
+
+
+def _local_actors(n: int, ax: distributed.Axis) -> int:
+    """The actors of this rank: ``num_actors / size``."""
+    if n % ax.size:
+        raise ValueError(f"num_actors {n} must divide by the mesh "
+                         f"{ax.name!r} axis size {ax.size}")
+    return n // ax.size
 
 
 def _make_to_shards(n_actors: int, envs_per_actor: int):
@@ -296,10 +323,11 @@ def _shard_batch(traj, to_shards) -> rb.Transition:
 
 
 def _make_learner_phase(parts: _AlgoParts, cfg, use_per: bool,
-                        per_actor_batch: int):
+                        per_actor_batch: int, reduce):
     """``learner_phase(learner, generator, total_size, n_updates) ->
-    (learner, losses)``: per-shard sample, fp32 update (and, prioritized,
-    the per-shard priority push), ``n_updates`` times; shared by the
+    (learner, losses)``: per-shard sample, fp32 update (its gradients
+    through ``reduce``, a mesh's mean or ``None``) and, prioritized, the
+    per-shard priority push, ``n_updates`` times; shared by the
     synchronous iteration and the async learner chunk."""
     learn = parts.learn
 
@@ -316,7 +344,8 @@ def _make_learner_phase(parts: _AlgoParts, cfg, use_per: bool,
                 shards, idx, w = rb.per_sample_sharded(
                     replay, generator, per_actor_batch, beta)
                 learner, (loss, td_abs) = learn(
-                    learner, flat(shards), total_size, weights=w.reshape(-1))
+                    learner, flat(shards), total_size, weights=w.reshape(-1),
+                    reduce=reduce)
                 per = rb.per_update_priorities_sharded(
                     learner.extras.replay, idx, td_abs.reshape(idx.shape),
                     cfg.priority_exponent)
@@ -326,7 +355,7 @@ def _make_learner_phase(parts: _AlgoParts, cfg, use_per: bool,
                 shards = rb.replay_sample_sharded(replay, generator,
                                                   per_actor_batch)
                 learner, (loss, _) = learn(learner, flat(shards),
-                                           total_size)
+                                           total_size, reduce=reduce)
             losses.append(loss)
         return learner, torch.stack(losses)
     return learner_phase
@@ -379,23 +408,28 @@ def _make_cache(params, cfg, obs):
 
 
 def init(generator: torch.Generator, env: Env, net, algo: str, cfg,
-         al: ActorLearnerConfig) -> ActorLearnerState:
+         al: ActorLearnerConfig, mesh=None, axis: str = "actor"
+         ) -> ActorLearnerState:
     """Learner state, the actors' copy (and its packed cache) and the
-    sharded replay (``buffer_size / num_actors`` a shard).
+    sharded replay (``buffer_size / num_actors`` a shard; under a mesh the
+    rank's ``num_actors / size`` shards).
 
     ``generator`` is the CPU generator of the algorithm's ``init``
-    (``dqn.init`` or ``ddpg.init``) params; with
+    (``dqn.init`` or ``ddpg.init``) params, the same on every rank; with
     ``calib_batch > 0`` the first cache calibrates on a fresh reset of
-    ``calib_batch`` envs drawn from it next (no rollout exists yet).
+    ``calib_batch`` envs drawn from it next (no rollout exists yet), so
+    every rank packs the same cache.
     """
     _check_algo(algo)
     n = al.num_actors
     if n < 1 or cfg.buffer_size % n:
         raise ValueError(f"buffer_size {cfg.buffer_size} must divide by "
                          f"num_actors {n}")
+    local = _local_actors(n, distributed.Axis(mesh, axis))
     state = _MODULES[algo].init(generator, env, net, cfg)
     dev = state.step.device
-    sharded = _sharded_init(algo, env, cfg)(n, cfg.buffer_size // n, dev)
+    sharded = _sharded_init(algo, env, cfg)(local, cfg.buffer_size // n,
+                                            dev)
     state = state._replace(extras=state.extras._replace(replay=sharded))
     actor_params = tree_map(torch.clone, state.params)
     cache = ()
@@ -410,12 +444,13 @@ def init(generator: torch.Generator, env: Env, net, algo: str, cfg,
 
 
 def init_async(generator: torch.Generator, env: Env, net, algo: str, cfg,
-               al: ActorLearnerConfig, *, double: bool = True):
+               al: ActorLearnerConfig, *, double: bool = True, mesh=None,
+               axis: str = "actor"):
     """``(learner_state, write_slot)`` of the async topology: the learner
     carries the read slot in ``extras.replay``, each slot ``buffer_size /
-    (2 * num_actors)`` a shard.  ``double=False`` (the ``async_barrier``
-    mode) keeps one slot of the synchronous topology's capacity, and
-    ``write_slot`` is ``None``."""
+    (2 * num_actors)`` a shard (under a mesh, the rank's shards).
+    ``double=False`` (the ``async_barrier`` mode) keeps one slot of the
+    synchronous topology's capacity, and ``write_slot`` is ``None``."""
     _check_algo(algo)
     n = al.num_actors
     slots = 2 if double else 1
@@ -423,15 +458,16 @@ def init_async(generator: torch.Generator, env: Env, net, algo: str, cfg,
         raise ValueError(
             f"buffer_size {cfg.buffer_size} must divide by num_actors x "
             f"slots = {n} x {slots} (double-buffered async replay)")
+    local = _local_actors(n, distributed.Axis(mesh, axis))
     state = _MODULES[algo].init(generator, env, net, cfg)
     dev = state.step.device
     make_slot = _sharded_init(algo, env, cfg)
     cap = cfg.buffer_size // (n * slots)
     if double:
-        db = rb.double_buffer_init(make_slot, n, cap, dev)
+        db = rb.double_buffer_init(make_slot, local, cap, dev)
         read, write = db.read, db.write
     else:
-        read, write = make_slot(n, cap, dev), None
+        read, write = make_slot(local, cap, dev), None
     return state._replace(extras=state.extras._replace(replay=read)), write
 
 
@@ -465,47 +501,65 @@ def remint_cache(state: ActorLearnerState, actor_backend: str):
 
 class _Setup(NamedTuple):
     n: int
-    benv: Env                      # num_actors * n_envs envs
+    ax: distributed.Axis
+    benv: Env                      # the rank's actors' envs
     quantized: bool
     parts: _AlgoParts
     learner_phase: Callable
     to_shards: Callable
     add: Callable                  # the discipline's sharded write
-    divergence: Callable
+    divergence: Callable           # the rank's actors, gathered
 
 
 def _setup(algo: str, env: Env, net, cfg, al: ActorLearnerConfig, mesh,
-           device) -> _Setup:
+           axis: str, device) -> _Setup:
     """What both topologies build from the config."""
-    n = _validate(algo, cfg, al, mesh)
+    ax = distributed.Axis(mesh, axis)
+    n = _validate(algo, cfg, al, ax)
+    local = n // ax.size
     use_per = rb.use_prioritized(cfg.replay, cfg.priority_exponent)
-    envs = n * cfg.n_envs
+    envs = local * cfg.n_envs
     benv = actorq.maybe_attach_seq_state(batched_env(env, envs), net,
                                          cfg.actor_backend, envs, device)
     quantized = actorq.is_quantized(cfg.actor_backend)
     parts = _algo_parts(algo, env, net, cfg)
+    local_div = _make_divergence(parts, quantized, local, cfg.n_envs,
+                                 env.spec.obs_shape)
+
+    def divergence(learner, actor_params, cache, obs):
+        return ax.gather(local_div(learner, actor_params, cache, obs))
     return _Setup(
-        n, benv, quantized, parts,
-        _make_learner_phase(parts, cfg, use_per, cfg.batch_size // n),
-        _make_to_shards(n, cfg.n_envs),
+        n, ax, benv, quantized, parts,
+        _make_learner_phase(parts, cfg, use_per, cfg.batch_size // n,
+                            ax.mean if mesh is not None else None),
+        _make_to_shards(local, cfg.n_envs),
         rb.per_add_sharded if use_per else rb.replay_add_sharded,
-        _make_divergence(parts, quantized, n, cfg.n_envs,
-                         env.spec.obs_shape))
+        divergence)
+
+
+def _calib_obs(cfg, ax: distributed.Axis, obs):
+    """What a pack calibrates on: every rank's observations in rank order
+    when ``calib_batch > 0`` (the cache is replicated), else ``obs`` (not
+    read)."""
+    return ax.gather(obs) if cfg.calib_batch else obs
 
 
 def make_actor_learner(algo: str, env: Env, net, cfg,
-                       al: ActorLearnerConfig, mesh=None, device=None):
-    """``(iteration, act_fn, benv_global)`` of the synchronous topology.
+                       al: ActorLearnerConfig, mesh=None,
+                       axis: str = "actor", device=None):
+    """``(iteration, act_fn, benv)`` of the synchronous topology.
 
     ``iteration(state, env_state, obs, generator) -> (state, env_state,
     obs, metrics)``, the fused iteration's contract, so the fused driver
     and its chunks drive it as they are; ``metrics`` (loss, reward per
     finished episode, the last push's divergence) stay on the device.
-    ``benv_global`` batches ``num_actors * n_envs`` envs.  ``device=None``
-    is ``cuda``; ``mesh`` raises (ROADMAP queue A, item 14).
+    ``benv`` batches ``num_actors * n_envs`` envs, or, under ``mesh``, the
+    rank's ``num_actors / size * n_envs``; ``generator`` is then the
+    rank's own, and loss and reward are averaged over the ranks.
+    ``device=None`` is ``cuda``.
     """
-    su = _setup(algo, env, net, cfg, al, mesh, resolve_device(device))
-    parts, quantized = su.parts, su.quantized
+    su = _setup(algo, env, net, cfg, al, mesh, axis, resolve_device(device))
+    parts, quantized, ax = su.parts, su.quantized, su.ax
 
     def iteration(state: ActorLearnerState, env_state, obs,
                   generator: torch.Generator):
@@ -522,9 +576,9 @@ def make_actor_learner(algo: str, env: Env, net, cfg,
                         _shard_batch(traj, su.to_shards))
         learner = learner._replace(
             extras=learner.extras._replace(replay=replay))
-        learner, losses = su.learner_phase(learner, generator,
-                                           rb.replay_total_size(replay),
-                                           cfg.updates_per_iter)
+        learner, losses = su.learner_phase(
+            learner, generator, ax.sum(rb.replay_total_size(replay)),
+            cfg.updates_per_iter)
         # the first push is at t == sync_every: at t = 0 the actors hold a
         # fresh copy by construction, which is no push
         t = state.t + 1
@@ -532,12 +586,14 @@ def make_actor_learner(algo: str, env: Env, net, cfg,
         if t % al.sync_every == 0:
             actor_params = learner.params
             if quantized:
-                cache = _make_cache(actor_params, cfg, obs)
+                cache = _make_cache(actor_params, cfg,
+                                    _calib_obs(cfg, ax, obs))
             div = su.divergence(learner, actor_params, cache, obs)
-        metrics = {"loss": torch.mean(losses),
-                   "reward": torch.sum(traj.reward) / torch.clamp(
-                       torch.sum(traj.done), min=1.0),
-                   "divergence": div}
+        loss, reward = ax.mean((
+            torch.mean(losses),
+            torch.sum(traj.reward) / torch.clamp(torch.sum(traj.done),
+                                                 min=1.0)))
+        metrics = {"loss": loss, "reward": reward, "divergence": div}
         return (ActorLearnerState(learner, actor_params, cache, t, div),
                 env_state, obs, metrics)
 
@@ -546,6 +602,7 @@ def make_actor_learner(algo: str, env: Env, net, cfg,
 
 def make_async_actor_learner(algo: str, env: Env, net, cfg,
                              al: ActorLearnerConfig, mesh=None,
+                             axis: str = "actor",
                              device=None) -> AsyncPrograms:
     """The async topology's program set (see ``AsyncPrograms``).
 
@@ -554,12 +611,18 @@ def make_async_actor_learner(algo: str, env: Env, net, cfg,
     slot; the learner chunk runs ``n_updates`` learner updates on the
     read slot.  Neither waits on the host or on the other: the driver
     joins them at sync points (``make_snapshot``) and, in its barrier
-    mode, around every chunk.  ``mesh`` raises (ROADMAP queue A, item
-    14); ``device=None`` is ``cuda``.
+    mode, around every chunk.  Under ``mesh`` each rank runs its actors'
+    envs and slot shards, with its own generator; the actor chunk's
+    reward is averaged over the ranks on a process group of its own, the
+    learner chunk's gradients, loss and replay size on the mesh's, and
+    ``make_snapshot`` and ``divergence`` read every rank's observations
+    (the reference runs both on the global batch).  ``device=None`` is
+    ``cuda``.
     """
     device = resolve_device(device)
-    su = _setup(algo, env, net, cfg, al, mesh, device)
-    parts, quantized = su.parts, su.quantized
+    su = _setup(algo, env, net, cfg, al, mesh, axis, device)
+    parts, quantized, ax = su.parts, su.quantized, su.ax
+    actor_ax = ax.split()
     streams = Streams(device)
 
     def make_snapshot(learner: common.TrainState, obs) -> ActorSnapshot:
@@ -573,7 +636,8 @@ def make_async_actor_learner(algo: str, env: Env, net, cfg,
             params = tree_map(torch.clone, learner.params)
             snap = ActorSnapshot(
                 params=params,
-                cache=_make_cache(params, cfg, obs) if quantized else (),
+                cache=_make_cache(params, cfg, _calib_obs(cfg, ax, obs))
+                if quantized else (),
                 step=learner.step.clone(),
                 updates=learner.extras.updates.clone())
         streams.share(snap)
@@ -596,7 +660,7 @@ def make_async_actor_learner(algo: str, env: Env, net, cfg,
                 wbuf = su.add(wbuf, _shard_batch(traj, su.to_shards))
                 rewards.append(torch.sum(traj.reward) / torch.clamp(
                     torch.sum(traj.done), min=1.0))
-            reward = torch.mean(torch.stack(rewards))
+            reward = actor_ax.mean(torch.mean(torch.stack(rewards)))
         return env_state, obs, wbuf, {"reward": reward}
 
     def learner_chunk(learner: common.TrainState,
@@ -606,8 +670,9 @@ def make_async_actor_learner(algo: str, env: Env, net, cfg,
         with streams.on_learner():
             learner, losses = su.learner_phase(
                 learner, generator,
-                rb.replay_total_size(learner.extras.replay), n_updates)
-            loss = torch.mean(losses)
+                ax.sum(rb.replay_total_size(learner.extras.replay)),
+                n_updates)
+            loss = ax.mean(torch.mean(losses))
         return learner, {"loss": loss}
 
     def divergence(learner: common.TrainState, snap: ActorSnapshot, obs):

@@ -181,8 +181,8 @@ def make_behaviour_policy(env: Env, nets: DDPGNets, cfg: DDPGConfig):
 
 
 def make_update(env: Env, nets: DDPGNets, cfg: DDPGConfig):
-    """``update(state, batch, replay_size, weights=None) -> (state,
-    (loss, td_abs))``.
+    """``update(state, batch, replay_size, weights=None, reduce=None) ->
+    (state, (loss, td_abs))``.
 
     One critic step, then one actor step, on an already-sampled batch.
     The critic regresses ``Q(obs, action)`` on ``reward + gamma * (1 -
@@ -195,8 +195,12 @@ def make_update(env: Env, nets: DDPGNets, cfg: DDPGConfig):
     advance; the params and the update count only once ``replay_size >=
     warmup``; both targets then move ``tau`` toward the (gated) params.
     ``loss`` is the sum of both losses, ``td_abs`` the critic's
-    per-transition ``|td|``; both stay on the device.  The reference's
-    ``reduce`` (a mesh's mean) is the identity without a mesh.
+    per-transition ``|td|`` (the rank's own: priorities stay per shard);
+    both stay on the device.  ``reduce`` (a mesh axis's ``mean``,
+    ``rl.distributed.Axis``; ``None`` is the identity) averages over the
+    ranks, before each Adam step, the critic's gradients, loss and
+    observers in one call and the actor's in another, as the reference's
+    two ``reduce`` steps; ``replay_size`` is then summed over the ranks.
     """
     a_cfg = AdamConfig(lr=cfg.actor_lr)
     c_cfg = AdamConfig(lr=cfg.critic_lr)
@@ -212,7 +216,7 @@ def make_update(env: Env, nets: DDPGNets, cfg: DDPGConfig):
         return q[..., 0], base.merged_collection()
 
     def update(state: common.TrainState, batch: rb.Transition,
-               replay_size: torch.Tensor, weights=None):
+               replay_size: torch.Tensor, weights=None, reduce=None):
         ex = state.extras
         with torch.no_grad():
             next_a, _ = _actor_out(nets, cfg, ex.target_actor,
@@ -231,6 +235,9 @@ def make_update(env: Env, nets: DDPGNets, cfg: DDPGConfig):
             else:
                 closs = torch.mean(weights * torch.square(td))
             cgrads = common.tree_grad(closs, leaves)
+        closs = closs.detach()
+        if reduce is not None:
+            cgrads, closs, new_coll = reduce((cgrads, closs, new_coll))
         critic_params, critic_opt, _ = adam_update(
             cgrads, ex.critic_opt, ex.critic_params, c_cfg)
 
@@ -242,6 +249,9 @@ def make_update(env: Env, nets: DDPGNets, cfg: DDPGConfig):
                                 new_coll, state.step)
             aloss = -torch.mean(q_a)
             agrads = common.tree_grad(aloss, leaves)
+        aloss = aloss.detach()
+        if reduce is not None:
+            agrads, aloss, new_coll2 = reduce((agrads, aloss, new_coll2))
         actor_params, actor_opt, _ = adam_update(agrads, state.opt,
                                                  state.params, a_cfg)
 
@@ -261,7 +271,7 @@ def make_update(env: Env, nets: DDPGNets, cfg: DDPGConfig):
                                                  critic_params, cfg.tau),
                 critic_opt=critic_opt, replay=ex.replay,
                 updates=torch.where(warm, ex.updates + 1, ex.updates)))
-        return state, ((closs + aloss).detach(), td.detach().abs())
+        return state, (closs + aloss, td.detach().abs())
 
     return update
 

@@ -175,15 +175,18 @@ def make_behaviour_policy(env: Env, net: Network, cfg: DQNConfig):
 
 
 def make_td_update(env: Env, net: Network, cfg: DQNConfig):
-    """``td_update(state, batch, replay_size, weights=None) -> (state,
-    (loss, td_abs))``.
+    """``td_update(state, batch, replay_size, weights=None, reduce=None)
+    -> (state, (loss, td_abs))``.
 
     One fp32 learner step on an already-sampled batch, as the reference's.
     ``weights`` (prioritized replay's IS weights) scale each transition's
-    Huber loss; ``None`` keeps the plain mean.  The reference's
-    ``reduce`` averages over a mesh's actor axis; with no mesh it is the
-    identity, and the port takes no mesh (ROADMAP queue A, item 14).
-    ``td_abs`` is the per-transition ``|td|``.  The
+    Huber loss; ``None`` keeps the plain mean.  ``reduce`` (a mesh axis's
+    ``mean``, ``rl.distributed.Axis``) averages the gradients, the loss
+    and the new observers over the ranks, in one call, before the Adam
+    step; ``None`` is the identity.  ``replay_size`` is then the replay's
+    size summed over the ranks, so every rank passes the warmup gate
+    together.  ``td_abs`` is the per-transition ``|td|``, the rank's own
+    (priorities stay per shard).  The
     online forward runs under autograd and leaves the observers' new
     state; the target forward reads the same observers and drops its
     updates.  Adam's state, the observers and ``step`` always advance;
@@ -195,7 +198,7 @@ def make_td_update(env: Env, net: Network, cfg: DQNConfig):
     adam_cfg = AdamConfig(lr=cfg.lr)
 
     def td_update(state: common.TrainState, batch: rb.Transition,
-                  replay_size: torch.Tensor, weights=None
+                  replay_size: torch.Tensor, weights=None, reduce=None
                   ) -> Tuple[common.TrainState, Tuple[torch.Tensor,
                                                       torch.Tensor]]:
         with torch.enable_grad():
@@ -216,6 +219,9 @@ def make_td_update(env: Env, net: Network, cfg: DQNConfig):
             else:
                 loss = torch.mean(weights * common.huber(td))
             grads = common.tree_grad(loss, leaves)
+        loss = loss.detach()
+        if reduce is not None:
+            grads, loss, new_coll = reduce((grads, loss, new_coll))
         new_params, new_opt, _ = adam_update(grads, state.opt, state.params,
                                              adam_cfg)
         updates = state.extras.updates + 1
@@ -231,7 +237,7 @@ def make_td_update(env: Env, net: Network, cfg: DQNConfig):
             extras=DQNExtras(target_p, state.extras.replay,
                              torch.where(warm, updates,
                                          state.extras.updates)))
-        return state, (loss.detach(), td.detach().abs())
+        return state, (loss, td.detach().abs())
 
     return td_update
 

@@ -50,8 +50,16 @@ and ``checkpoint_committed`` after each save.  They run between chunks,
 so a guarded run that no fault hits is the bare run bit for bit, and
 ``resilience=None`` adds no operation and no host sync.
 
-Not ported yet, and raising ``NotImplementedError`` naming the ROADMAP
-queue A item: a device mesh (item 14).
+**A mesh** (``mesh``, a ``DeviceMesh`` with an ``"actor"`` dim, in the
+actor-learner and async topologies; ``rl.distributed``): every rank calls
+``train`` with the same arguments; each runs ``num_actors / size`` actors
+on its own generators (``distributed.rank_generator`` of the env and loop
+streams; the params' and the evaluator's are the same on every rank), the
+learner's updates averaged over the ranks, and every rank returns the
+same rewards, divergences and learner params (a calibrated evaluation
+packs on every rank's observations, gathered).  Not ported yet, and
+raising ``NotImplementedError`` naming ROADMAP queue A item 14b: a mesh
+with checkpoints or with the resilience hooks (the supervisor).
 """
 from __future__ import annotations
 
@@ -66,8 +74,8 @@ from repro_torch.core import fake_quant
 from repro_torch.core import metrics as metrics_lib
 from repro_torch.core.qconfig import QuantConfig, QuantMode
 from repro_torch.device import resolve_device
-from repro_torch.rl import a2c, actor_learner, actorq, common, ddpg, dqn, \
-    ppo
+from repro_torch.rl import a2c, actor_learner, actorq, common, ddpg, \
+    distributed, dqn, ppo
 from repro_torch.rl import buffer as rb
 from repro_torch.rl.env import Env, evaluate
 from repro_torch.rl.envs import make as make_env
@@ -77,7 +85,7 @@ ALGOS = ("dqn", "a2c", "ppo", "ddpg")
 MODULES = {"dqn": dqn, "a2c": a2c, "ppo": ppo, "ddpg": ddpg}
 
 
-def _not_ported(what: str, item: int) -> NotImplementedError:
+def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP queue "
                                f"A, item {item})")
 
@@ -146,7 +154,8 @@ def make_scan_iteration(iteration: Callable, steps_per_call: int):
 
 
 def _check_supported(algo, topology, num_actors, sync_every, mesh,
-                     async_barrier, quant, replay, priority_exponent):
+                     async_barrier, quant, replay, priority_exponent,
+                     checkpoint_dir, resume, resilience):
     if algo not in ALGOS:
         raise ValueError(f"algo must be one of {ALGOS}, got {algo!r}")
     actor_learner.validate_topology(topology)
@@ -165,8 +174,12 @@ def _check_supported(algo, topology, num_actors, sync_every, mesh,
     if topology != "fused" and quant.is_qat:
         raise ValueError(f"the {topology} topology does not support QAT "
                          f"(the learner trains fp32; use PTQ eval)")
-    if mesh is not None:
-        raise _not_ported("a device mesh over the actor axis", 14)
+    if mesh is not None and (checkpoint_dir or resume):
+        raise _not_ported("a checkpoint of a mesh run (sharded replay)",
+                          "14b")
+    if mesh is not None and resilience is not None:
+        raise _not_ported("the resilience hooks and the supervisor under a "
+                          "mesh", "14b")
 
 
 def _build(algo: str, env: Env, quant: QuantConfig, net_kwargs: Dict,
@@ -221,11 +234,13 @@ def _save_due(i: int, last_saved: int, every: int, iterations: int) -> bool:
 
 
 def _evaluator(env: Env, cfg, act_fn, g_eval: torch.Generator,
-               eval_episodes: int, device, eval_steps: List[int]):
+               eval_episodes: int, device, eval_steps: List[int],
+               ax: distributed.Axis):
     """``evaluate_at(params, observers, step, obs, guard=None) -> float``:
     the eval reward of the learner's params -- through the packed actor
     when the backend is quantized (calibrated on the live ``obs`` with
-    ``calib_batch``), else the greedy fp32 policy under the QAT context.
+    ``calib_batch``: every rank's, gathered on ``ax``), else the greedy
+    fp32 policy under the QAT context.
     ``guard(cache, remint)`` returns the cache to evaluate (the
     resilience hook ``on_eval_cache``; ``remint()`` packs it again).  Each
     batched eval step adds one to ``eval_steps[0]``."""
@@ -242,6 +257,8 @@ def _evaluator(env: Env, cfg, act_fn, g_eval: torch.Generator,
     def evaluate_at(params, observers, step, obs, guard=None) -> float:
         if q_act is not None:
             obs_g = obs.reshape((-1,) + tuple(env.spec.obs_shape))
+            if cfg.calib_batch:
+                obs_g = ax.gather(obs_g)
 
             def mint():
                 return actorq.make_actor_cache(
@@ -306,10 +323,13 @@ def train(algo: str, env_name: str, *, iterations: int = 200,
     stopped, or starts afresh when there is none.  ``resilience`` (a
     ``repro_torch.resilience.ResilienceContext``; the supervisor passes
     one) runs its hooks around every chunk or round (module docstring).
+    ``mesh`` (actor-learner and async; module docstring) runs this rank's
+    share of the actors; every rank calls ``train`` alike.
     ``device=None`` is ``cuda``.
     """
     _check_supported(algo, topology, num_actors, sync_every, mesh,
-                     async_barrier, quant, replay, priority_exponent)
+                     async_barrier, quant, replay, priority_exponent,
+                     checkpoint_dir, resume, resilience)
     actorq.validate_actor_backend(actor_backend)
     device = resolve_device(device)
     env = make_env(env_name)
@@ -326,15 +346,20 @@ def train(algo: str, env_name: str, *, iterations: int = 200,
     net, cfg = _build(algo, env, quant, net_kwargs or {}, overrides, device)
     mod = MODULES[algo]
 
+    ax = distributed.Axis(mesh, "actor")
+
     def gen(offset):
         return torch.Generator(device=device).manual_seed(seed + offset)
+
+    def rank_gen(offset):
+        return distributed.rank_generator(gen(offset), ax.index)
     g_params = torch.Generator().manual_seed(seed)
     ckpt = dict(checkpoint_dir=checkpoint_dir,
                 checkpoint_every=checkpoint_every, resume=resume,
                 checkpoint_keep=checkpoint_keep)
     if topology == "async":
-        return _train_async(algo, env, net, cfg, g_params, gen,
-                            iterations=iterations,
+        return _train_async(algo, env, net, cfg, g_params, gen, rank_gen,
+                            ax, iterations=iterations,
                             record_every=record_every,
                             eval_episodes=eval_episodes,
                             steps_per_call=steps_per_call,
@@ -344,20 +369,21 @@ def train(algo: str, env_name: str, *, iterations: int = 200,
     if topology == "actor-learner":
         al = actor_learner.ActorLearnerConfig(num_actors=num_actors,
                                               sync_every=sync_every)
-        state = actor_learner.init(g_params, env, net, algo, cfg, al)
+        state = actor_learner.init(g_params, env, net, algo, cfg, al,
+                                   mesh=mesh)
         iteration, act_fn, benv = actor_learner.make_actor_learner(
-            algo, env, net, cfg, al, device=device)
+            algo, env, net, cfg, al, mesh=mesh, device=device)
     else:
         state = mod.init(g_params, env, net, cfg)
         if quant.is_qat:
             state = state._replace(observers=_bootstrap_observers(
                 algo, env, net, state, quant))
         iteration, act_fn, benv = mod.make_iteration(env, net, cfg, device)
-    env_state, obs = benv.reset(gen(1), device)
-    g_run, g_eval = gen(2), gen(3)
+    env_state, obs = benv.reset(rank_gen(1), device)
+    g_run, g_eval = rank_gen(2), gen(3)
     eval_steps = [0]
     evaluate_at = _evaluator(env, cfg, act_fn, g_eval, eval_episodes,
-                             device, eval_steps)
+                             device, eval_steps, ax)
     chunks: Dict[int, Callable] = {}
     rewards, variances, divergences = [], [], []
     i = 0
@@ -474,7 +500,7 @@ def _guard_round(resilience, state, step: int, cfg):
 
 
 def _train_async(algo: str, env: Env, net, cfg, g_params: torch.Generator,
-                 gen, *,
+                 gen, rank_gen, ax: distributed.Axis, *,
                  iterations: int, record_every: int, eval_episodes: int,
                  steps_per_call: int, num_actors: int, sync_every: int,
                  barrier: bool, device, checkpoint_dir=None,
@@ -508,14 +534,16 @@ def _train_async(algo: str, env: Env, net, cfg, g_params: torch.Generator,
     al = actor_learner.ActorLearnerConfig(num_actors=num_actors,
                                           sync_every=sync_every)
     progs = actor_learner.make_async_actor_learner(algo, env, net, cfg, al,
+                                                   mesh=ax.mesh,
                                                    device=device)
     learner, wbuf = actor_learner.init_async(g_params, env, net, algo, cfg,
-                                             al, double=not barrier)
-    env_state, obs = progs.benv_global.reset(gen(1), device)
-    g_run, g_eval = gen(2), gen(3)
+                                             al, double=not barrier,
+                                             mesh=ax.mesh)
+    env_state, obs = progs.benv_global.reset(rank_gen(1), device)
+    g_run, g_eval = rank_gen(2), gen(3)
     eval_steps = [0]
     evaluate_at = _evaluator(env, cfg, progs.act_fn, g_eval, eval_episodes,
-                             device, eval_steps)
+                             device, eval_steps, ax)
     streams = progs.streams
     streams.start()
     streams.share((learner, wbuf, env_state, obs))

@@ -426,19 +426,21 @@ def test_async_rejects_invalid_configs():
                     algo_overrides=dict(SMALL_DQN, buffer_size=510), **kw)
 
 
-def test_unported_topology_options_raise():
-    """A mesh (item 14; for DDPG too, whose topologies are ported) still
-    raises in the topologies; the resilience hooks (item 11) are ported,
-    so a real context runs there as the reference's does; checkpointing
-    is ported, and its knobs are validated as the reference's."""
+def test_unported_topology_options_raise(tmp_path):
+    """A mesh with checkpoints or with the resilience hooks (the
+    supervisor's) still raises in the topologies (item 14b; for DDPG
+    too); the resilience hooks (item 11) are ported, so a real context
+    runs there as the reference's does; checkpointing is ported, and its
+    knobs are validated as the reference's."""
     kw = dict(iterations=2, device="cpu", num_actors=2)
     for topo in ("actor-learner", "async"):
-        with pytest.raises(NotImplementedError, match="item 14"):
+        with pytest.raises(NotImplementedError, match="item 14b"):
             loops.train("ddpg", "pendulum", topology=topo, mesh=object(),
+                        checkpoint_dir=str(tmp_path), checkpoint_every=1,
                         **kw)
-        with pytest.raises(NotImplementedError, match="item 14"):
+        with pytest.raises(NotImplementedError, match="item 14b"):
             loops.train("dqn", "cartpole", topology=topo, mesh=object(),
-                        **kw)
+                        resilience=ResilienceContext(), **kw)
         ctx = ResilienceContext()
         assert loops.train("dqn", "cartpole", topology=topo,
                            algo_overrides=dict(SMALL_DQN), resilience=ctx,
@@ -447,10 +449,9 @@ def test_unported_topology_options_raise():
         for extra in (dict(resume=True), dict(checkpoint_every=3)):
             with pytest.raises(ValueError, match="needs checkpoint_dir"):
                 loops.train("dqn", "cartpole", topology=topo, **kw, **extra)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        actor_learner.make_async_actor_learner(
-            "dqn", *_cartpole(), _small_cfg(),
-            actor_learner.ActorLearnerConfig(), mesh=object(), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 14b"):
+        loops.train("dqn", "cartpole", topology="async", mesh=object(),
+                    checkpoint_dir=str(tmp_path), resume=True, **kw)
 
 
 # ---------------------------------------------------------------------------

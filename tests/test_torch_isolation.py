@@ -41,7 +41,8 @@ def test_scan_sees_the_port():
             "moe.py", "recurrent.py", "recurrentgemma_2b.py",
             "xlstm_125m.py", "mixtral_8x7b.py", "codeqwen1_5_7b.py",
             "stablelm_12b.py", "mixed_precision.py", "synthetic.py",
-            "sgd.py", "schedule.py", "steps.py"} <= names
+            "sgd.py", "schedule.py", "steps.py", "mesh.py", "distributed.py",
+            "pipeline.py", "analytic.py"} <= names
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
@@ -70,7 +71,9 @@ def test_importing_the_port_loads_no_jax():
             "repro_torch.models.recurrent, repro_torch.core.mixed_precision, "
             "repro_torch.data, repro_torch.data.synthetic, "
             "repro_torch.optim.sgd, repro_torch.optim.schedule, "
-            "repro_torch.optim.adam, repro_torch.launch.steps\n"
+            "repro_torch.optim.adam, repro_torch.launch.steps, "
+            "repro_torch.rl.distributed, repro_torch.launch.mesh, "
+            "repro_torch.launch.analytic, repro_torch.data.pipeline\n"
             "from repro_torch.configs import base\n"
             "[base.get(n) for n in base.names()]\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
@@ -142,11 +145,13 @@ def _entry_points():
 
     from repro_torch.configs import base as cfgs
     from repro_torch.core.qconfig import QuantConfig
+    from repro_torch.data import ShardedBatcher
     from repro_torch.launch import serve as launch_serve
     from repro_torch.launch import train as launch_train
     from repro_torch.models import transformer
     from repro_torch.resilience import supervise
-    from repro_torch.rl import actorq, buffer, ddpg, dqn, loops, networks, ppo
+    from repro_torch.rl import a2c, actorq, buffer, ddpg, distributed, dqn, \
+        loops, networks, ppo
     from repro_torch.rl.env import batched_env
     from repro_torch.rl.envs import make
     from repro_torch.serving import PolicyServer
@@ -229,7 +234,34 @@ def _entry_points():
         "launch_train_lm": lambda: launch_train.main(
             ["--mode", "lm", "--arch", "h2o-danube-1.8b", "--reduced",
              "--steps", "1", "--batch", "2", "--seq", "8"]),
+        "make_distributed_a2c": lambda: distributed.make_distributed_a2c(
+            make("cartpole"), networks.make_network((4,), 3, device="cpu"),
+            a2c.A2CConfig(n_envs=2), None)[2].reset(gen)[1],
+        "sharded_batcher": lambda: ShardedBatcher().put(
+            {"x": np.zeros((2, 3), np.float32)})["x"],
+        "make_host_mesh": _host_mesh_device,
     }
+
+
+def _host_mesh_device():
+    """``launch.mesh.make_host_mesh()``'s device type, on a world-1 gloo
+    group of its own where there is a card (the mesh needs a group; it
+    raises before looking for one without a card)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh
+    if not torch.cuda.is_available():
+        return mesh.make_host_mesh()
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("gloo", store=dist.FileStore(
+            os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+        try:
+            return torch.device(mesh.make_host_mesh().device_type)
+        finally:
+            dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("name", ["init_mlp", "params_from_jax",
@@ -251,7 +283,8 @@ def _entry_points():
                                   "launch_serve_recurrent",
                                   "launch_serve_moe",
                                   "supervise", "init_qat_collection",
-                                  "launch_train_lm"])
+                                  "launch_train_lm", "make_distributed_a2c",
+                                  "sharded_batcher", "make_host_mesh"])
 def test_entry_points_default_to_the_card(name):
     """``device=None`` means ``cuda``: it lands there with a card and
     raises without one, never falling back to the CPU."""

@@ -405,14 +405,15 @@ def test_quarl_pipelines_return_their_rows():
         again[0].quant_reward)
 
 
-def test_unported_options_raise():
+def test_unported_options_raise(tmp_path):
     kw = dict(iterations=1, device="cpu")
-    # the topologies and prioritized replay are ported (item 7); a mesh
-    # over the actor axis is not (item 14), and fused-only knobs given to
-    # the fused driver are refused as in the reference
-    with pytest.raises(NotImplementedError, match="item 14"):
+    # the topologies and prioritized replay are ported (item 7), and the
+    # actor mesh (item 14a); a mesh with checkpoints or the resilience
+    # hooks is not (item 14b), and fused-only knobs given to the fused
+    # driver are refused as in the reference
+    with pytest.raises(NotImplementedError, match="item 14b"):
         loops.train("dqn", "cartpole", topology="async", mesh=object(),
-                    **kw)
+                    checkpoint_dir=str(tmp_path), **kw)
     # the resilience hooks are ported (item 11): a real context runs, as
     # the reference's, and its guards see nothing to report
     ctx = ResilienceContext()
@@ -424,9 +425,9 @@ def test_unported_options_raise():
             loops.train("dqn", "cartpole", **kw, **extra)
     with pytest.raises(ValueError, match="actor-learner knobs"):
         loops.train("dqn", "cartpole", num_actors=2, **kw)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="item 14b"):
         loops.train("ddpg", "pendulum", topology="actor-learner",
-                    mesh=object(), **kw)
+                    mesh=object(), resilience=ResilienceContext(), **kw)
     with pytest.raises(ValueError, match="algo"):
         loops.train("sac", "cartpole", **kw)
     net = networks.make_network((6, 27), 3, transformer={"d_model": 8,
