@@ -140,7 +140,17 @@ cache in place) and times both, then drives the port's four paths:
   against the CPU's) and 8-bit Adam (moment bytes beside float32's);
   xlstm-125m at full size; and B4's backward (the gradient of dense
   attention in torch ops) timed at the training shape beside SDPA's
-  forward and backward;
+  forward and backward; the step updates params and moments in place, so
+  its peak is printed beside the 69.74 GB it reached before;
+* the pod dry-run -- in a worker lane: a world-1 NCCL mesh step of
+  danube (full width, depth 2, QAT int8, DTensor params, the kernels
+  through ``local_map``) held bitwise to its no-mesh step with equal B4
+  and B5 launches; then, in a process of its own with a fake process
+  group of 256 or 512 ranks, ``launch.dryrun`` traces five arch x shape
+  pairs on CUDA fakes (nothing allocated, every kernel shape-only) and
+  prints each one's FLOPs, bytes, collective bytes by kind, memory and
+  trace seconds, and the world-1 trace of danube's full-size step
+  predicts the peak the LM training phase then measures;
 * the encoder and cross-attention frontends and grok-1 -- whisper-tiny
   at full size (a non-causal transformer encoder over 1,500 stub frame
   embeddings, cross-attending decoder), llama-3.2-vision-90b at full
@@ -451,6 +461,26 @@ LM_TRAIN_8BIT_STEPS = 4
 # a recurrent config at full size: xlstm-125m, batch 2 x 256, 2 steps
 # (cut from 4: each is a host-bound 8.7-10.4 s)
 LM_TRAIN_XLSTM = ("xlstm-125m", (2, 256), 2)
+# the peak of danube's full-size step with the functional Adam update,
+# params and moments held twice (PERF.md section 5, NVIDIA H100 80GB
+# HBM3, 700.00 W)
+LM_TRAIN_PEAK_BEFORE_GB = 69.74
+# the dryrun phase (launch.dryrun on a fake 256- or 512-rank group, CUDA
+# fakes, in a process of its own): the reference's test pair
+# (tests/test_infra.py:294-302) and one pair of each step kind, grok at
+# two pods; each config's counts carried from DRYRUN_DEPTHS repeats of its
+# layer pattern (launch.steps.lower_step)
+DRYRUN_PAIRS = (("xlstm-125m", "decode_32k", False),
+                ("h2o-danube-1.8b", "train_4k", False),
+                ("mixtral-8x7b", "prefill_32k", False),
+                ("gemma2-9b", "decode_32k", False),
+                ("grok-1-314b", "train_4k", True))
+DRYRUN_DEPTHS = (1, 2, 3)
+DRYRUN_DEVICE = "cuda"          # where the fake shards lie
+# the anchor: a world-1 NCCL mesh step of danube at full width, depth
+# LM_TRAIN_DEPTH, LM_TRAIN_SHORT, QAT int8 from its first step, held bit
+# for bit to the no-mesh step with equal B4 and B5 launches
+DRYRUN_ANCHOR_QAT_DELAY = 1
 # the frontends phase: whisper-tiny at full size
 # (src/repro/configs/whisper_tiny.py), llama-3.2-vision-90b at full width
 # and depth 5, one repeat of its (attn x 4, cross) pattern (its 100
@@ -618,6 +648,7 @@ WORKER_JOBS = (
     (("algo", "a2c_fp32"), ("algo", "ppo_int4_calib"), ("algo", "ddpg_int8"),
      ("algo", "ddpg_per"), ("algo", "ppo_qat8"), ("algo", "ddpg_async_int8")),
     (("phase", "mesh"),),
+    (("phase", "dryrun"),),
 )
 WORKER_TIMEOUT_S = 600.0
 # the resume phase: tests/test_resume.py:31-99 at its small config (Catch
@@ -1849,6 +1880,186 @@ def mesh_phase(torch, dev, smi, counters) -> dict:
                           for r in runs for x in r["b1"]})
     got["b1"] = [[*k, v] for k, v in sorted(got["b1"].items())]
     return got
+
+
+def dryrun_anchor(torch, dev, smi, counters) -> dict:
+    """A world-1 NCCL mesh step against the no-mesh step: danube at full
+    width, depth ``LM_TRAIN_DEPTH``, ``LM_TRAIN_SHORT``, float32 with QAT
+    int8 from step ``DRYRUN_ANCHOR_QAT_DELAY``, both from the same params,
+    the mesh step's params DTensors with the reference's placements (on
+    one rank, every shard whole) and its kernels run through
+    ``local_map``.  Bit for bit: the loss, every updated param and moment,
+    the QAT collection; launches equal, B4 and B5 above 0."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import DeviceMesh
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.configs import base as cfgs
+    from repro_torch.core import ptq
+    from repro_torch.core.qconfig import MixedPrecisionConfig, QuantConfig
+    from repro_torch.data import SyntheticLMDataset
+    from repro_torch.launch import steps as steps_lib
+    from repro_torch.models import common, transformer
+    from repro_torch.optim import adam
+    cfg = dataclasses.replace(
+        cfgs.get(LM_TRAIN_ARCH), n_layers=LM_TRAIN_DEPTH,
+        mp=MixedPrecisionConfig.fp32(),
+        quant=QuantConfig.qat(8, quant_delay=DRYRUN_ANCHOR_QAT_DELAY))
+    os.environ.setdefault("NCCL_SOCKET_IFNAME", "lo")
+    store_dir = tempfile.mkdtemp(prefix="chip_smoke_anchor_")
+    torch.cuda.set_device(dev.index or 0)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(os.path.join(store_dir, "store"), 1),
+        rank=0, world_size=1)
+    try:
+        mesh = DeviceMesh("cuda", torch.zeros((1, 1), dtype=torch.long),
+                          mesh_dim_names=("data", "model"))
+        specs = steps_lib.param_shardings(cfg, False)
+        b, s = LM_TRAIN_SHORT
+        batch = lm_batch(torch, next(SyntheticLMDataset(
+            vocab=cfg.vocab, seq_len=s, batch=b, seed=SEED).batches()), dev)
+        base = transformer.init_params(
+            cfg, torch.Generator(device=dev).manual_seed(SEED + 5), dev)
+        out = {}
+        for sharded in (False, True):
+            p = ptq.tree_map(torch.clone, base)
+            bt = batch
+            if sharded:
+                p = ptq.tree_map(lambda t, sp: DTensor.from_local(
+                    t, mesh, common.placements(sp, mesh), run_check=False),
+                    p, specs)
+                bt = {k: DTensor.from_local(v, mesh, common.placements(
+                    ("data", None), mesh), run_check=False)
+                    for k, v in batch.items()}
+            step, acfg = steps_lib.make_train_step(cfg)
+            opt = adam.adam_init(p, acfg)
+            coll = transformer.init_qat_collection(cfg, dev)
+            torch.cuda.synchronize()
+            for c in counters.values():
+                c.reset()
+            t = time.perf_counter()
+            with implicit_replication():
+                for _ in range(2):
+                    p, opt, coll, m = step(p, opt, bt, coll)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t) * 1e3
+
+            def loc(x):
+                return x.to_local() if isinstance(x, DTensor) else x
+            out[sharded] = dict(
+                launches={k: c.value for k, c in counters.items()},
+                loss=loc(m["loss"]).cpu(), ms=ms,
+                leaves=[loc(x).cpu() for _, x in ptq.tree_tensors(
+                    (p, opt, coll))])
+        plain, mesh_run = out[False], out[True]
+        same = len(plain["leaves"]) == len(mesh_run["leaves"]) and all(
+            torch.equal(x, y) for x, y in zip(plain["leaves"],
+                                              mesh_run["leaves"]))
+        check(same and torch.equal(plain["loss"], mesh_run["loss"]),
+              "dryrun anchor: the world-1 mesh step is bitwise the "
+              "no-mesh step")
+        check(plain["launches"] == mesh_run["launches"]
+              and plain["launches"]["flash_attention"] > 0
+              and plain["launches"]["fake_quant"] > 0,
+              f"dryrun anchor launches: no mesh {plain['launches']}, mesh "
+              f"{mesh_run['launches']}")
+        row = dict(arch=cfg.name, depth=cfg.n_layers, batch=b, seq=s,
+                   steps=2, bitwise=True, launches=mesh_run["launches"],
+                   loss=float(plain["loss"]), plain_ms=plain["ms"],
+                   mesh_ms=mesh_run["ms"], card=smi)
+        print("dryrun anchor " + json.dumps(row), flush=True)
+        return row
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store_dir, ignore_errors=True)
+
+
+def dryrun_phase(torch, dev, smi, counters) -> dict:
+    """The pod dry-run: the anchor (``dryrun_anchor``), then the traces in
+    a process of their own (``dryrun_main``: its fake process group never
+    meets this one's NCCL group), each pair's record printed."""
+    from repro_torch.kernels import flash_attention
+    t = time.perf_counter()
+    anchor = dryrun_anchor(torch, dev, smi, {
+        "fake_quant": counters["fake_quant"],
+        "flash_attention": flash_attention.launches})
+    anchor_s = time.perf_counter() - t
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    out = os.path.join(out_dir, "out.json")
+    t = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                           "--dryrun", out], cwd=str(ROOT),
+                          capture_output=True, text=True,
+                          timeout=WORKER_TIMEOUT_S)
+    sys.stdout.write(proc.stdout)
+    check(proc.returncode == 0, f"dryrun traces: exit code "
+                                f"{proc.returncode}: {proc.stderr[-3000:]}")
+    got = json.loads(Path(out).read_text())
+    shutil.rmtree(out_dir, ignore_errors=True)
+    got.update(anchor=anchor, anchor_s=anchor_s,
+               traces_s=time.perf_counter() - t, card=smi)
+    return got
+
+
+def dryrun_main(out: str) -> int:
+    """``--dryrun OUT``: ``DRYRUN_PAIRS`` through ``launch.dryrun.run_one``
+    on fake groups of 256 and 512 ranks with CUDA fakes, then the
+    world-1 fake trace of danube's full-size training step
+    (``LM_TRAIN_SHAPE``, as ``lm_train_phase`` runs it, every layer
+    traced) whose argument, temp and non-alias output bytes predict its
+    peak.  No kernel is
+    built or launched: every kernel takes its shape-only branch."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from torch.distributed.device_mesh import DeviceMesh
+
+    from repro_torch.configs import base as cfgs
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps as steps_lib
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dry_")
+    records = []
+    try:
+        for mp in (False, True):
+            mesh_lib.init_fake_group(mesh_lib.n_chips(mp))
+            try:
+                for arch, shape, pod2 in DRYRUN_PAIRS:
+                    if pod2 != mp:
+                        continue
+                    rec = dryrun.run_one(arch, shape, multi_pod=mp,
+                                         out_dir=tmp, device=DRYRUN_DEVICE,
+                                         depths=DRYRUN_DEPTHS)
+                    records.append(rec)
+            finally:
+                dist.destroy_process_group()
+        mesh_lib.init_fake_group(1)
+        try:
+            cfg = cfgs.get(LM_TRAIN_ARCH)
+            b, s = LM_TRAIN_SHAPE
+            mesh = DeviceMesh(DRYRUN_DEVICE,
+                              torch.zeros((1, 1), dtype=torch.long),
+                              mesh_dim_names=("data", "model"))
+            rec, _ = steps_lib.lower_step(
+                cfg, cfgs.InputShape("lm_train", s, b, "train"), mesh,
+                device=DRYRUN_DEVICE)            # whole: its peak
+        finally:
+            dist.destroy_process_group()
+        mem = rec["memory"]
+        peak = (mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+                + mem["output_size_in_bytes"] - mem["alias_size_in_bytes"])
+        print("dryrun danube world-1 prediction " + json.dumps(dict(
+            memory=mem, trace_s=rec["trace_s"], predicted_peak_gb=peak / 1e9,
+            depths=rec["depths"])), flush=True)
+        Path(out).write_text(json.dumps(dict(
+            records=records, predicted_peak_gb=peak / 1e9,
+            prediction_memory=mem, prediction_trace_s=rec["trace_s"])))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return 0
 
 
 def mlp_site_launches(dims, batch: int) -> int:
@@ -4517,6 +4728,10 @@ def lm_train_phase(torch, dev, smi, counters) -> dict:
         peak_gb=max(r["peak_gb"] for r in run["rows"]),
         flash_launches=sum(r["launches"]["flash_attention"]
                            for r in run["rows"]), card=smi)
+    rows["full"]["peak_before_gb"] = LM_TRAIN_PEAK_BEFORE_GB
+    print(f"lm_train full peak {rows['full']['peak_gb']:.2f} GB with the "
+          f"in-place Adam update (with the functional update: "
+          f"{LM_TRAIN_PEAK_BEFORE_GB} GB); {smi}", flush=True)
     del run
     torch.cuda.empty_cache()
 
@@ -4542,7 +4757,10 @@ def lm_train_phase(torch, dev, smi, counters) -> dict:
         8, quant_delay=delay))
     coll = transformer.init_qat_collection(qcfg, dev)
     per_step = lm_qat_launches(qcfg, b, s)
-    qrun = lm_train_run(torch, dev, counters, qcfg, params, LM_TRAIN_SHORT,
+    # a copy: the step updates its params in place, and the CPU replay
+    # below starts from the params the run started from
+    qrun = lm_train_run(torch, dev, counters, qcfg,
+                        ptq.tree_map(torch.clone, params), LM_TRAIN_SHORT,
                         n_q, adam.AdamConfig(lr=LM_TRAIN_LR),
                         dict(zero, fake_quant=per_step,
                              flash_attention=2 * qcfg.n_layers), "qat8",
@@ -5009,7 +5227,8 @@ def worker_main(spec: str, out: str) -> int:
     seq = {name: (kw, bar) for name, kw, bar in seq_runs()}
     algo = {run[0]: run for run in ALGO_RUNS}
     phases = dict(train=train_phase, topology=topology_phase,
-                  resilience=resilience_phase, mesh=mesh_phase)
+                  resilience=resilience_phase, mesh=mesh_phase,
+                  dryrun=dryrun_phase)
     done = dict(startup_s=time.perf_counter() - t0, jobs=[])
     for job in spec["jobs"]:
         t = time.perf_counter()
@@ -5669,6 +5888,15 @@ def main() -> int:
                             fake_quant.launches, flash_attention.launches)})
     phase_done("frontends", t_front)
 
+    dry = done[("phase", "dryrun")]["out"]
+    pred = dry["predicted_peak_gb"]
+    dry["measured_peak_gb"] = lmt["full"]["peak_gb"]
+    dry["measured_over_predicted"] = lmt["full"]["peak_gb"] / pred
+    print("dryrun danube full-size step: predicted peak "
+          f"{pred:.2f} GB (world-1 fake trace), measured "
+          f"{lmt['full']['peak_gb']:.2f} GB (max_memory_allocated), ratio "
+          f"{dry['measured_over_predicted']:.3f}; {smi}", flush=True)
+
     # ---- report -----------------------------------------------------------
     def head(name, **want):
         """The kernel-phase row that stands for ``name`` in the report."""
@@ -5803,7 +6031,7 @@ def main() -> int:
              resilience_rows=rz["rows"], serve_rl_rows=serve_rl["rows"],
              mesh_rows=mesh["rows"],
              lm_rows=lm, families_rows=fam, lm_train_rows=lmt,
-             frontends_rows=front,
+             frontends_rows=front, dryrun_rows=dry,
              path_launches=dict(serve=launches, rollout=roll_launches,
                                 train_qat=train["qat_launches"],
                                 topology_async_int8=topo["launches"],
@@ -5842,6 +6070,8 @@ if __name__ == "__main__":
             sys.exit(worker_main(sys.argv[2], sys.argv[3]))
         if len(sys.argv) == 4 and sys.argv[1] == "--mesh-rank":
             sys.exit(mesh_rank_main(sys.argv[2], sys.argv[3]))
+        if len(sys.argv) == 3 and sys.argv[1] == "--dryrun":
+            sys.exit(dryrun_main(sys.argv[2]))
         sys.exit(main())
     finally:
         Worker.stop_all()

@@ -20,20 +20,23 @@ class ShardedBatcher:
     """``put(batch)``: a dict of host arrays to tensors on ``device``
     (``None`` is ``cuda``), each the whole batch without a mesh, or this
     rank's slice of its leading (batch) dim over the mesh's ``"data"``
-    dim, which must divide it.  Called on an iterator of batches, it
-    yields them put.
+    dim, which must divide it; with ``multi_pod`` over ``("pod",
+    "data")`` jointly, as the reference's one spec entry splits it (the
+    pod major).  Called on an iterator of batches, it yields them put."""
 
-    The reference's ``multi_pod`` split over ``("pod", "data")`` waits
-    for a mesh with a ``"pod"`` dim (ROADMAP A14b)."""
-
-    def __init__(self, mesh=None, device=None):
+    def __init__(self, mesh=None, device=None, multi_pod: bool = False):
         self.mesh = mesh
         self.device = resolve_device(device)
+        self.axes = ("pod", "data") if multi_pod else ("data",)
 
     def _slice(self) -> tuple:
-        """(this rank's index over the data dim, its size)."""
-        dim = self.mesh.mesh_dim_names.index("data")
-        return self.mesh.get_local_rank("data"), self.mesh.size(dim)
+        """(this rank's index over the data dims, their joint size)."""
+        index, size = 0, 1
+        for name in self.axes:
+            n = self.mesh.size(self.mesh.mesh_dim_names.index(name))
+            index, size = index * n + self.mesh.get_local_rank(name), \
+                size * n
+        return index, size
 
     def put(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         out = {}

@@ -381,6 +381,7 @@ struct Args {
   int S, T, H, KV, D, causal, window;
   float softcap, scale;
   int cs, n_tiles, vec;
+  int off;         // query row i sits at key position i + off
 };
 
 // What one producer thread holds of a stage between its loads and its
@@ -499,7 +500,7 @@ flash_attention_kernel(const Args a) {
   const int G = H / a.KV;
   const int RV = S * G;          // rows of this KV head: (query, head)
   const int v0 = tile * BQ;
-  const int off = T - S;
+  const int off = a.off;
   const int causal = a.causal, window = a.window;
 
   // the key tiles some row of this block can see, and this block's share
@@ -891,15 +892,16 @@ extern "C" void repro_flash_attention_shape(int D, int* out) {
 
 // q (B, S, H, D), k and v (B, T, KV, D), out (B, S, H, D): contiguous
 // float32 on the device.  H must be a multiple of KV; window <= 0 means
-// none, softcap <= 0 means none; cs (1, 2, 4 or 8) is the cluster's key
-// split from the host's plan.  Launches on `stream` and returns the
+// none, softcap <= 0 means none; query row i sits at key position i + off
+// (T - S aligns the queries to the end of the keys); cs (1, 2, 4 or 8) is
+// the cluster's key split from the host's plan.  Launches on `stream` and returns the
 // launch's cudaError_t (0 on success); a shape it does not take returns
 // cudaErrorInvalidValue without launching.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* out, int B, int S,
                                      int T, int H, int KV, int D, int causal,
                                      int window, float softcap, float scale,
-                                     int cs, void* stream) {
+                                     int off, int cs, void* stream) {
   if (B < 1 || S < 1 || T < 1 || KV < 1 || H < KV || H % KV != 0 || D < 1 ||
       D > MAX_D || KV > 65535 || B > 65535 ||
       !(cs == 1 || cs == 2 || cs == 4 || cs == 8))
@@ -910,7 +912,7 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   Args a{static_cast<const float*>(q), static_cast<const float*>(k),
          static_cast<const float*>(v), static_cast<float*>(out), S, T, H, KV,
          D, causal, window, softcap, scale, cs,
-         static_cast<int>((rows + bq - 1) / bq), 0};
+         static_cast<int>((rows + bq - 1) / bq), 0, off};
   a.vec = (D % 4 == 0) && (reinterpret_cast<uintptr_t>(k) % 16 == 0) &&
           (reinterpret_cast<uintptr_t>(v) % 16 == 0);
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -50,7 +50,8 @@ def _padded_d(d: int) -> int:
 
 
 def plan(b: int, s: int, t: int, h: int, kv: int, d: int, *,
-         causal: bool = True, window: Optional[int] = None) -> dict:
+         causal: bool = True, window: Optional[int] = None,
+         q_offset: Optional[int] = None) -> dict:
     """The kernel's launch shape for ``q (b, s, h, d)``, ``k/v (b, t, kv,
     d)``, mirroring ``csrc/flash_attention.cu: Shape``.
 
@@ -70,7 +71,8 @@ def plan(b: int, s: int, t: int, h: int, kv: int, d: int, *,
     tiles = -(-(s * g) // bq)
     items = b * kv * tiles
     # the key tiles of the last query tile, the longest under a causal mask
-    p_lo, p_hi = ((tiles - 1) * bq) // g + t - s, s - 1 + t - s
+    off = t - s if q_offset is None else q_offset
+    p_lo, p_hi = ((tiles - 1) * bq) // g + off, s - 1 + off
     k_hi = min(t - 1, p_hi) if causal else t - 1
     k_lo = max(0, p_lo - window + 1) if window else 0
     key_tiles = k_hi // bk - k_lo // bk + 1 if k_hi >= k_lo else 0
@@ -93,7 +95,7 @@ def plan(b: int, s: int, t: int, h: int, kv: int, d: int, *,
 def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention")
     fn = lib.repro_flash_attention
-    fn.argtypes = [_VP] * 4 + [_I] * 8 + [_F, _F, _I, _VP]
+    fn.argtypes = [_VP] * 4 + [_I] * 8 + [_F, _F, _I, _I, _VP]
     fn.restype = _I
     lib.repro_flash_attention_shape.argtypes = [_I, _VP]
     lib.repro_flash_attention_shape.restype = None
@@ -116,12 +118,14 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = True,
                           window: Optional[int] = None,
                           softcap: Optional[float] = None,
-                          scale: Optional[float] = None) -> torch.Tensor:
+                          scale: Optional[float] = None,
+                          q_offset: Optional[int] = None) -> torch.Tensor:
     """Plain PyTorch version of the kernel, on any device.
 
     ``ref.mha_ref`` over the heads, a few at a time so the dense logits
     stay under ``PLAIN_LOGITS`` floats; each head reads its KV head by
-    index.  Returns ``(B, S, H, D)`` float32.
+    index.  Query row i sits at key position ``i + q_offset`` (None: ``T
+    - S``, the end alignment).  Returns ``(B, S, H, D)`` float32.
     """
     b, s, h, d = q.shape
     t, kv = k.shape[1], k.shape[2]
@@ -136,7 +140,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out[:, h0:h0 + step] = ref.mha_ref(
             qh[:, heads], kh[:, heads // g], vh[:, heads // g],
             causal=causal, window=window, softcap=softcap,
-            scale=scale).to(torch.float32)
+            scale=scale, q_offset=q_offset).to(torch.float32)
     return out.permute(0, 2, 1, 3)
 
 
@@ -154,9 +158,11 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = True,
                          window: Optional[int] = None,
                          softcap: Optional[float] = None,
-                         scale: Optional[float] = None) -> torch.Tensor:
+                         scale: Optional[float] = None,
+                         q_offset: Optional[int] = None) -> torch.Tensor:
     """Launch the CUDA kernel: ``(B, S, H, D)`` queries -> ``(B, S, H, D)``
-    float32.
+    float32, query row i at key position ``i + q_offset`` (None: ``T -
+    S``).
 
     Raises ``ValueError`` on what the kernel does not take (``D > 256``,
     ``H`` not a multiple of ``KV``, a window below 1, a soft-cap not above
@@ -181,15 +187,16 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(k, "k", (b, t, kv, d), dev)
     _check(v, "v", (b, t, kv, d), dev)
     lib = _lib()
-    cluster = plan(b, s, t, h, kv, d, causal=causal,
-                   window=window)["cluster"]
+    off = t - s if q_offset is None else int(q_offset)
+    cluster = plan(b, s, t, h, kv, d, causal=causal, window=window,
+                   q_offset=off)["cluster"]
     out = torch.empty((b, s, h, d), dtype=torch.float32, device=dev)
     with build.on_device(dev) as stream:
         err = lib.repro_flash_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, s,
             t, h, kv, d, int(causal), 0 if window is None else window,
-            0.0 if softcap is None else softcap, _scale(d, scale), cluster,
-            stream)
+            0.0 if softcap is None else softcap, _scale(d, scale), off,
+            cluster, stream)
     if err:
         raise RuntimeError(f"flash_attention launch failed: cudaError {err}")
     launches.add()
@@ -200,7 +207,8 @@ def dense_attention_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          out: torch.Tensor, g: torch.Tensor, *,
                          causal: bool = True, window: Optional[int] = None,
                          softcap: Optional[float] = None,
-                         scale: Optional[float] = None):
+                         scale: Optional[float] = None,
+                         q_offset: Optional[int] = None):
     """The gradient of dense softmax attention, ``(dq, dk, dv)`` float32.
 
     What the reference's training path differentiates
@@ -223,7 +231,7 @@ def dense_attention_grad(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     k32, v32 = k.to(f32), v.to(f32)
     g5 = g.to(f32).reshape(b, s, kv, g_, d)
     mask = ref.attention_mask(s, t, causal=causal, window=window,
-                              device=q.device)
+                              device=q.device, q_offset=q_offset)
     sc = torch.einsum("bqkgd,bskd->bkgqs", q5, k32) * scale
     tanh = None
     if softcap is not None:

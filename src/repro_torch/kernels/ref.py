@@ -119,11 +119,13 @@ def int8_cache_decode_ref(q: torch.Tensor, k_codes: torch.Tensor,
 def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             causal: bool = True, window: Optional[int] = None,
             softcap: Optional[float] = None,
-            scale: Optional[float] = None) -> torch.Tensor:
+            scale: Optional[float] = None,
+            q_offset: Optional[int] = None) -> torch.Tensor:
     """Dense reference attention, one head: ``q (S, D)``, ``k/v (T, D)``.
 
     Leading dims broadcast (a batch of heads).  Query positions are
-    aligned to the end of the kv axis (``q_pos = i + T - S``); ``window``
+    aligned to the end of the kv axis (``q_pos = i + T - S``), or start at
+    ``q_offset`` where it is given; ``window``
     keeps keys in ``(q_pos - window, q_pos]``; ``softcap`` is gemma2's
     ``softcap * tanh(s / softcap)``.  Masked logits are ``-inf``, and a
     fully masked row gives 0, as the reference's ``mha_ref`` does.  The
@@ -137,7 +139,7 @@ def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if softcap is not None:
         logits = softcap * torch.tanh(logits / softcap)
     mask = attention_mask(s, t, causal=causal, window=window,
-                          device=q.device)
+                          device=q.device, q_offset=q_offset)
     logits = logits.masked_fill(~mask, float("-inf"))
     probs = torch.softmax(logits, dim=-1)
     probs = torch.where(torch.isnan(probs), 0.0, probs)  # fully masked rows
@@ -145,10 +147,13 @@ def mha_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def attention_mask(s: int, t: int, *, causal: bool, window: Optional[int],
-                   device=None) -> torch.Tensor:
-    """``(S, T)`` boolean: which keys each query sees, with the query
-    positions aligned to the end of the kv axis."""
-    q_pos = torch.arange(s, device=device)[:, None] + (t - s)
+                   device=None, q_offset: Optional[int] = None
+                   ) -> torch.Tensor:
+    """``(S, T)`` boolean: which keys each query sees, query i at key
+    position ``i + q_offset`` (None: aligned to the end of the kv
+    axis, ``T - S``)."""
+    off = t - s if q_offset is None else q_offset
+    q_pos = torch.arange(s, device=device)[:, None] + off
     k_pos = torch.arange(t, device=device)[None, :]
     mask = (k_pos <= q_pos) if causal else torch.ones(
         (s, t), dtype=torch.bool, device=device)

@@ -3,7 +3,8 @@ shape).
 
 Counterpart of ``repro/launch/analytic.py``, the same arithmetic over
 ``repro_torch.configs.base``: the reference's roofline terms for its pod
-dry-run (which the port does not have yet, ROADMAP queue A, item 14b).
+dry-run (the port's is ``launch/dryrun.py``, which counts a traced
+step's work instead).
 
 Conventions:
 * FLOPs are global (whole step, all devices).

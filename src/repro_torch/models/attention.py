@@ -47,10 +47,10 @@ NEG_INF = -1e30
 def attention_spec(d_model: int, n_heads: int, n_kv: int,
                    head_dim: int) -> Dict[str, Dict[str, P]]:
     """Spec of one GQA attention layer's q/k/v/o projections."""
-    return {"q": dense_spec(d_model, n_heads * head_dim),
-            "k": dense_spec(d_model, n_kv * head_dim),
-            "v": dense_spec(d_model, n_kv * head_dim),
-            "o": dense_spec(n_heads * head_dim, d_model)}
+    return {"q": dense_spec(d_model, n_heads * head_dim, "embed", "heads"),
+            "k": dense_spec(d_model, n_kv * head_dim, "embed", "kv"),
+            "v": dense_spec(d_model, n_kv * head_dim, "embed", "kv"),
+            "o": dense_spec(n_heads * head_dim, d_model, "heads", "embed")}
 
 
 # ---------------------------------------------------------------------------
@@ -87,6 +87,11 @@ def dense_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``q (B, Sq, KV, G, Dh)``, ``k/v (B, Skv, KV, Dh)`` -> ``(B, Sq, KV, G,
     Dh)``, slot t at absolute position ``kv_positions[t]``.  Masked logits
     are ``-1e30``, as in the reference."""
+    # on DTensors the query's KV heads are gathered (one token: a few
+    # bytes), so the score einsums fold batch and heads with only the
+    # batch split, which DTensor's views take in every version; the
+    # cache keeps its context split and the scores follow it
+    q = common.unsplit(q, 2)
     s = _logits(q, k, q.shape[-1] ** -0.5, softcap)
     mask = _mask(q.shape[1], q_offset, kv_positions, window)
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
@@ -121,10 +126,12 @@ class KVCache(NamedTuple):
 
 
 def init_cache(batch: int, size: int, n_kv: int, head_dim: int, *,
-               int8: bool, device=None) -> KVCache:
+               int8: bool, device=None,
+               dtype: torch.dtype = torch.float32) -> KVCache:
     """An all-zero cache of ``size`` slots (int8 codes + scales, or
-    float32: the reference's serve launcher asks for float32, and the
-    port's LM path runs in it)."""
+    ``dtype``: float32 by default, as the reference's serve launcher asks
+    and the port's LM path runs; the dry-run's shapes take the
+    reference's default bfloat16)."""
     shape = (batch, size, n_kv, head_dim)
     if int8:
         k = torch.zeros(shape, dtype=torch.int8, device=device)
@@ -132,8 +139,8 @@ def init_cache(batch: int, size: int, n_kv: int, head_dim: int, *,
         ks = torch.zeros(shape[:-1] + (1,), device=device)
         vs = torch.zeros(shape[:-1] + (1,), device=device)
     else:
-        k = torch.zeros(shape, device=device)
-        v = torch.zeros(shape, device=device)
+        k = torch.zeros(shape, dtype=dtype, device=device)
+        v = torch.zeros(shape, dtype=dtype, device=device)
         ks = vs = None
     return KVCache(k, v, ks, vs, torch.full((size,), -1, dtype=torch.int32,
                                             device=device))
@@ -153,15 +160,47 @@ def cache_update(cache: KVCache, k_new: torch.Tensor, v_new: torch.Tensor,
     if cache.k_scale is not None:
         k_codes, k_scale = affine.quantize_symmetric(k_new)
         v_codes, v_scale = affine.quantize_symmetric(v_new)
-        cache.k.index_copy_(1, slot, k_codes)
-        cache.v.index_copy_(1, slot, v_codes)
-        cache.k_scale.index_copy_(1, slot, k_scale)
-        cache.v_scale.index_copy_(1, slot, v_scale)
+        _write_slot(cache.k, 1, slot, k_codes)
+        _write_slot(cache.v, 1, slot, v_codes)
+        _write_slot(cache.k_scale, 1, slot, k_scale)
+        _write_slot(cache.v_scale, 1, slot, v_scale)
     else:
-        cache.k.index_copy_(1, slot, k_new)
-        cache.v.index_copy_(1, slot, v_new)
-    cache.positions.index_copy_(0, slot, pos.to(torch.int32))
+        _write_slot(cache.k, 1, slot, k_new)
+        _write_slot(cache.v, 1, slot, v_new)
+    _write_slot(cache.positions, 0, slot, pos.to(torch.int32))
     return cache
+
+
+def _write_slot(t: torch.Tensor, dim: int, slot: torch.Tensor,
+                new: torch.Tensor) -> None:
+    """``t.index_copy_(dim, slot, new)``.  On a DTensor (whose slots may
+    be split) each rank writes into its own shard, where the slot lies in
+    it (no host sync: a rank it misses rewrites a slot of its own with
+    what it holds), ``new`` first taken to ``t``'s layout with its one
+    slot whole."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(t, DTensor):
+        t.index_copy_(dim, slot, new)
+        return
+    mesh = t.device_mesh
+    rep = [Replicate()] * mesh.ndim
+    if not isinstance(new, DTensor):
+        new = DTensor.from_local(new, mesh, rep, run_check=False)
+    pl = [Replicate() if p == Shard(dim) else p for p in t.placements]
+    new = new.redistribute(mesh, pl).to_local().to(t.dtype)
+    local = t.to_local()
+    if isinstance(slot, DTensor):
+        slot = slot.to_local()
+    start, size = 0, t.shape[dim]
+    for i, p in enumerate(t.placements):       # mesh dims in order
+        if p == Shard(dim):
+            size = -(-size // mesh.size(i))
+            start += mesh.get_local_rank(i) * size
+    at = slot - start
+    mine = (at >= 0) & (at < local.shape[dim])
+    at = at.clamp(0, local.shape[dim] - 1)
+    local.index_copy_(dim, at, torch.where(mine, new,
+                                           local.index_select(dim, at)))
 
 
 def cache_kv(cache: KVCache) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -205,9 +244,9 @@ def attention_layer(ctx, params, x: torch.Tensor, *, n_heads: int,
     k = ctx.activation(f"{name}/k_out", k)
     v = ctx.activation(f"{name}/v_out", v)
 
-    q = q.reshape(b, s, n_heads, head_dim)
-    k = k.reshape(b, t, n_kv, head_dim)
-    v = v.reshape(b, t, n_kv, head_dim)
+    q = common.reshape(q, b, s, n_heads, head_dim)
+    k = common.reshape(k, b, t, n_kv, head_dim)
+    v = common.reshape(v, b, t, n_kv, head_dim)
     if rope_theta is not None and kv_source is None:
         if pos is None:
             positions = torch.arange(s, device=x.device)[None, :]
@@ -229,7 +268,7 @@ def attention_layer(ctx, params, x: torch.Tensor, *, n_heads: int,
             # term, while a plain cache (slot i == position i) passes it
             win = None if (window is not None and cache.size == window) \
                 else window
-            qh = q.reshape(b, n_kv, g, head_dim)
+            qh = common.reshape(q, b, n_kv, g, head_dim)
             out = ops.int8_cache_attention(
                 qh, new_cache.k.transpose(1, 2),
                 new_cache.k_scale.transpose(1, 2),
@@ -238,7 +277,7 @@ def attention_layer(ctx, params, x: torch.Tensor, *, n_heads: int,
         else:
             k_all, v_all = cache_kv(new_cache)
             out = dense_attention(
-                q.reshape(b, 1, n_kv, g, head_dim), k_all, v_all,
+                common.reshape(q, b, 1, n_kv, g, head_dim), k_all, v_all,
                 window=window, softcap=softcap, q_offset=pos,
                 kv_positions=new_cache.positions)
     elif kv_source is not None:
@@ -247,6 +286,6 @@ def attention_layer(ctx, params, x: torch.Tensor, *, n_heads: int,
     else:
         out = ops.FlashAttentionDenseGrad.apply(q, k, v, causal, window,
                                                 softcap, head_dim ** -0.5)
-    out = out.reshape(b, s, n_heads * head_dim)
+    out = common.reshape(out, b, s, n_heads * head_dim)
     out = common.dense(ctx, f"{name}/o", params["o"], out)
     return out, new_cache

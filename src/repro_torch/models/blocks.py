@@ -28,8 +28,9 @@ _ATTENTION = (cfgs.ATTN, cfgs.ATTN_LOCAL, cfgs.MOE, cfgs.MOE_LOCAL,
 
 def mlp_spec(d_model: int, d_ff: int) -> Dict[str, Any]:
     """SwiGLU / GeGLU weights: ``wi``, ``wg`` and ``wo``."""
-    return {"wi": dense_spec(d_model, d_ff), "wg": dense_spec(d_model, d_ff),
-            "wo": dense_spec(d_ff, d_model)}
+    return {"wi": dense_spec(d_model, d_ff, "embed", "mlp"),
+            "wg": dense_spec(d_model, d_ff, "embed", "mlp"),
+            "wo": dense_spec(d_ff, d_model, "mlp", "embed")}
 
 
 def mlp(ctx, params, x: torch.Tensor, activation: str = "silu",
@@ -85,15 +86,15 @@ def block_spec(kind: str, cfg: cfgs.ArchConfig) -> Dict[str, Any]:
 
 
 def init_block_cache(kind: str, cfg: cfgs.ArchConfig, batch: int,
-                     seq_len: int, *, int8: bool,
-                     device=None) -> Dict[str, Any]:
+                     seq_len: int, *, int8: bool, device=None,
+                     dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
     """Decode state of one block, zeros.
 
     Attention kinds: ``{"kv": KVCache}`` of ``seq_len`` slots (global
     layers; ``long_context_window`` caps them) or ``min(seq_len,
-    window)`` slots (local layers, a ring); int8 or float32.  Recurrent
-    kinds: their float32 state (``int8`` does not apply to them, as in
-    the reference).
+    window)`` slots (local layers, a ring); int8 or ``dtype``.  Recurrent
+    kinds: their float32 state, the RG-LRU's conv window in ``dtype`` as
+    the reference's (``int8`` does not apply to them).
     """
     d, h, hd = cfg.d_model, cfg.n_heads, cfg.hd
 
@@ -107,7 +108,8 @@ def init_block_cache(kind: str, cfg: cfgs.ArchConfig, batch: int,
         size = min(seq_len, window or seq_len)
     elif kind == cfgs.RGLRU:
         return {"h": zeros(batch, d),
-                "conv": zeros(batch, recurrent.CONV_WIDTH - 1, d)}
+                "conv": torch.zeros((batch, recurrent.CONV_WIDTH - 1, d),
+                                    dtype=dtype, device=device)}
     elif kind == cfgs.MLSTM:
         return {"c": zeros(batch, h, hd, hd), "n": zeros(batch, h, hd),
                 "m": zeros(batch, h)}
@@ -117,7 +119,8 @@ def init_block_cache(kind: str, cfg: cfgs.ArchConfig, batch: int,
     else:
         raise ValueError(kind)
     return {"kv": attention.init_cache(batch, size, cfg.n_kv_heads, cfg.hd,
-                                       int8=int8, device=device)}
+                                       int8=int8, device=device,
+                                       dtype=dtype)}
 
 
 def apply_block(kind: str, cfg: cfgs.ArchConfig, ctx, params,

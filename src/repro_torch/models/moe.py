@@ -25,16 +25,20 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import common
 from repro_torch.models.common import P, dense_spec
 
 
 def moe_spec(d_model: int, d_ff: int, n_experts: int) -> Dict[str, Any]:
     """The router and the stacked expert weights ``wi``, ``wg``, ``wo``."""
     return {
-        "router": dense_spec(d_model, n_experts),
-        "wi": {"w": P((n_experts, d_model, d_ff))},
-        "wg": {"w": P((n_experts, d_model, d_ff))},
-        "wo": {"w": P((n_experts, d_ff, d_model))},
+        "router": dense_spec(d_model, n_experts, "embed", None),
+        "wi": {"w": P((n_experts, d_model, d_ff),
+                      axes=("expert", "embed", "moe_mlp"))},
+        "wg": {"w": P((n_experts, d_model, d_ff),
+                      axes=("expert", "embed", "moe_mlp"))},
+        "wo": {"w": P((n_experts, d_ff, d_model),
+                      axes=("expert", "moe_mlp", "embed"))},
     }
 
 
@@ -62,7 +66,12 @@ def moe_ffn(ctx, params, x: torch.Tensor, *, n_experts: int, top_k: int,
     n_groups = tokens // group_size
     capacity = max(int(capacity_factor * top_k * group_size / n_experts),
                    top_k)
-    xg = x.reshape(n_groups, group_size, d)
+    # on DTensors, the reference's layout (repro/models/moe.py:60-62,
+    # 89, 118, 125): groups follow the batch over "data", the experts'
+    # hidden dim over "model"
+    x = common.with_constraint(x, ("data", None, None))
+    xg = common.with_constraint(common.reshape(x, n_groups, group_size, d),
+                                ("data", None, None))
 
     rw = params["router"]["w"]
     if quantize_router:
@@ -82,6 +91,7 @@ def moe_ffn(ctx, params, x: torch.Tensor, *, n_experts: int, top_k: int,
     pos = torch.sum(pos_in_expert * keep, dim=-1)              # (g, s, k)
     pos_oh = F.one_hot(pos.to(torch.int64), capacity).to(torch.float32)
     combine = torch.einsum("gsk,gske,gskc->gsec", gate_vals, keep, pos_oh)
+    combine = common.with_constraint(combine, ("data", None, None, None))
     dispatch = (combine > 0.0).to(x.dtype)                     # (g,s,e,c)
 
     # load-balance loss over the first choices
@@ -99,6 +109,12 @@ def moe_ffn(ctx, params, x: torch.Tensor, *, n_experts: int, top_k: int,
     act = F.silu(gate) if activation == "silu" \
         else F.gelu(gate, approximate="tanh")
     h = ctx.activation(f"{name}/h", h * act)
+    h = common.with_constraint(h, (None, "data", None, "model"))
     ye = torch.einsum("egcf,efd->egcd", h, wo)                 # (e,g,c,d)
+    # on DTensors a capacity the mesh does not divide stays whole: the
+    # combine's strategy would split it unevenly, which no view takes
+    ye = common.even_only(ye, whole=2)
+    combine = common.even_only(combine, whole=3)
     y = torch.einsum("gsec,egcd->gsd", combine.to(x.dtype), ye)
-    return y.reshape(b, s, d), aux.to(torch.float32)
+    y = common.with_constraint(y, ("data", None, None))
+    return common.reshape(y, b, s, d), aux.to(torch.float32)

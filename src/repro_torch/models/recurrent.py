@@ -34,6 +34,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.models import common
 from repro_torch.models.common import P, dense_spec
@@ -56,8 +57,8 @@ def _softplus(x: torch.Tensor) -> torch.Tensor:
 
 def conv1d_spec(channels: int) -> Dict[str, P]:
     """A ``(W, C)`` depthwise kernel (scale 0.5) and a zero bias."""
-    return {"w": P((CONV_WIDTH, channels), scale=0.5),
-            "b": P((channels,), init="zeros")}
+    return {"w": P((CONV_WIDTH, channels), scale=0.5, axes=(None, "mlp")),
+            "b": P((channels,), init="zeros", axes=("mlp",))}
 
 
 def causal_conv1d(params, x: torch.Tensor,
@@ -92,13 +93,13 @@ def rglru_spec(d_model: int) -> Dict[str, Any]:
     width is ``d_model``, as in recurrentgemma-2b)."""
     dr = d_model
     return {
-        "wx": dense_spec(d_model, dr),
-        "wg": dense_spec(d_model, dr),
+        "wx": dense_spec(d_model, dr, "embed", "mlp"),
+        "wg": dense_spec(d_model, dr, "embed", "mlp"),
         "conv": conv1d_spec(dr),
-        "gate_a": dense_spec(dr, dr),
-        "gate_x": dense_spec(dr, dr),
-        "log_lambda": P((dr,), init="normal", scale=0.5),
-        "wo": dense_spec(dr, d_model),
+        "gate_a": dense_spec(dr, dr, "mlp", None),
+        "gate_x": dense_spec(dr, dr, "mlp", None),
+        "log_lambda": P((dr,), init="normal", scale=0.5, axes=("mlp",)),
+        "wo": dense_spec(dr, d_model, "mlp", "embed"),
     }
 
 
@@ -180,14 +181,108 @@ def mlstm_spec(d_model: int, n_heads: int, head_dim: int) -> Dict[str, Any]:
     output gate and the out projection."""
     d_inner = n_heads * head_dim
     return {
-        "wq": dense_spec(d_model, d_inner),
-        "wk": dense_spec(d_model, d_inner),
-        "wv": dense_spec(d_model, d_inner),
-        "wi": dense_spec(d_model, n_heads, bias=True),
-        "wf": dense_spec(d_model, n_heads, bias=True),
-        "wg": dense_spec(d_model, d_inner),
-        "wo": dense_spec(d_inner, d_model),
+        "wq": dense_spec(d_model, d_inner, "embed", "heads"),
+        "wk": dense_spec(d_model, d_inner, "embed", "heads"),
+        "wv": dense_spec(d_model, d_inner, "embed", "heads"),
+        "wi": dense_spec(d_model, n_heads, "embed", None, bias=True),
+        "wf": dense_spec(d_model, n_heads, "embed", None, bias=True),
+        "wg": dense_spec(d_model, d_inner, "embed", "heads"),
+        "wo": dense_spec(d_inner, d_model, "heads", "embed"),
     }
+
+
+def _scan(fn, *args):
+    """``fn(*args) -> (h, c, n, m)``, a block's loop over the steps of
+    ``args[0]`` (``(B, S, ...)``).  On DTensors a loop of more than one
+    step runs on each rank's batch shard (``common.batch_local``: no
+    DTensor dispatch per op); one step (decode) keeps DTensor's own
+    layout, its state split as the reference's caches are."""
+    if args[0].shape[1] > 1:
+        return common.batch_local(fn, 4, *args)
+    return fn(*args)
+
+
+def time_loop(step, carry: Tuple[torch.Tensor, ...],
+              xs: Tuple[torch.Tensor, ...]) -> Tuple[torch.Tensor, ...]:
+    """``step(*carry, *x_t) -> (*carry, h_t)`` over the time steps of
+    ``xs`` (each ``(B, S, ...)``): ``(h (B, S, ...), *carry)``.
+
+    In the pod dry-run's trace (``FakeTensor`` inputs) one step is traced
+    and counted as ``S`` (``_TracedLoop``), as the reference's analysis
+    weights its scan's body by its trip count: 4,096 steps cost one
+    step's dispatch.
+    """
+    s = xs[0].shape[1]
+    if isinstance(xs[0], FakeTensor) and s > 1:
+        return _TracedLoop.apply(step, len(carry), *carry, *xs)
+    hs = []
+    for t in range(s):
+        *carry, h = step(*carry, *(x[:, t] for x in xs))
+        hs.append(h)
+    return (torch.stack(hs, dim=1), *carry)
+
+
+class _TracedLoop(torch.autograd.Function):
+    """``time_loop`` over fake tensors: the forward runs step 0 counted
+    ``S`` times and holds, for the backward, ``S`` times the bytes that
+    step saves for it (the loop's saved activations); the backward counts
+    step 0's gradient ``S`` times (its recomputation not at all).  The
+    outputs are empty tensors of the loop's shapes."""
+
+    @staticmethod
+    def forward(ctx, step, n_carry, *args):
+        from repro_torch.launch import trace_analysis as ta
+        s = args[n_carry].shape[1]
+        need = ctx.needs_input_grad[2:]
+        xs = {a.untyped_storage()._cdata for a in args[n_carry:]}
+        saved = {}
+
+        def pack(t):        # what a step keeps (its slices of xs aside)
+            st = t.untyped_storage()
+            if st._cdata not in xs:
+                saved[st._cdata] = st.nbytes()
+            return t
+        with torch.enable_grad(), ta.repeated(s), \
+                torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            *carry, h = step(*_step_inputs(args, n_carry, need))
+        hold = h.new_empty((s * sum(saved.values()),), dtype=torch.uint8) \
+            if any(need) else None
+        ctx.step, ctx.n_carry = step, n_carry
+        ctx.save_for_backward(*args, hold)
+        return (h.new_empty((h.shape[0], s) + tuple(h.shape[1:])),
+                *(c.detach() for c in carry))
+
+    @staticmethod
+    def backward(ctx, gh, *gcarry):
+        from repro_torch.launch import trace_analysis as ta
+        args = ctx.saved_tensors[:-1]
+        n_carry, s = ctx.n_carry, args[ctx.n_carry].shape[1]
+        need = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            inputs = _step_inputs(args, n_carry, need)
+            with ta.repeated(0):
+                outs = ctx.step(*inputs)
+            pairs = [(o, g) for o, g in zip(outs, (*gcarry, gh[:, 0]))
+                     if g is not None and o.requires_grad]
+            wrt = [x for x, nd in zip(inputs, need) if nd]
+            with ta.repeated(s):
+                grads = iter(torch.autograd.grad(
+                    [o for o, _ in pairs], wrt, [g for _, g in pairs],
+                    allow_unused=True))
+        out = []
+        for i, (a, nd) in enumerate(zip(args, need)):
+            g = next(grads) if nd else None
+            if nd and i >= n_carry:     # a step's slice -> the whole
+                g = a.new_empty(a.shape)
+            out.append(g)
+        return (None, None, *out)
+
+
+def _step_inputs(args, n_carry, need):
+    """Step 0's inputs out of ``_TracedLoop``'s arguments, detached, each
+    asking for its gradient where ``need`` says."""
+    return [(a if i < n_carry else a[:, 0]).detach().requires_grad_(nd)
+            for i, (a, nd) in enumerate(zip(args, need))]
 
 
 def _mlstm_step(c, n, m, q, k, v, i_pre, log_f):
@@ -205,6 +300,16 @@ def _mlstm_step(c, n, m, q, k, v, i_pre, log_f):
     return c_new, n_new, m_new, h
 
 
+def _mlstm_scan(q, k, v, i_pre, log_f, c, n, m):
+    """The recurrence over the sequence from ``(c, n, m)`` (zeros where
+    None): ``(h (B, S, H, Dh), c, n, m)`` after the last step."""
+    if c is None:
+        b, _, nh, hd = q.shape
+        c, n, m = (q.new_zeros((b, nh, hd, hd)), q.new_zeros((b, nh, hd)),
+                   q.new_zeros((b, nh)))
+    return time_loop(_mlstm_step, (c, n, m), (q, k, v, i_pre, log_f))
+
+
 def mlstm_block(ctx, params, x: torch.Tensor, *, n_heads: int,
                 head_dim: int, state: Optional[State] = None,
                 name: str = "mlstm") -> Tuple[torch.Tensor, State]:
@@ -213,7 +318,7 @@ def mlstm_block(ctx, params, x: torch.Tensor, *, n_heads: int,
     b, s, _ = x.shape
 
     def to_heads(t):
-        return t.reshape(b, s, n_heads, head_dim).to(torch.float32)
+        return common.reshape(t, b, s, n_heads, head_dim).to(torch.float32)
     q = to_heads(common.dense(ctx, f"{name}/wq", params["wq"], x)) \
         * head_dim ** -0.5
     k = to_heads(common.dense(ctx, f"{name}/wk", params["wk"], x)) \
@@ -225,21 +330,13 @@ def mlstm_block(ctx, params, x: torch.Tensor, *, n_heads: int,
                          quant_act=False).to(torch.float32)
     log_f = -_softplus(-f_pre)
 
-    if state is None:
-        c = torch.zeros((b, n_heads, head_dim, head_dim), device=x.device)
-        n = torch.zeros((b, n_heads, head_dim), device=x.device)
-        m = torch.zeros((b, n_heads), device=x.device)
-    else:
-        c, n, m = state["c"], state["n"], state["m"]
-    hs = []
-    for t in range(s):
-        c, n, m, h = _mlstm_step(c, n, m, q[:, t], k[:, t], v[:, t],
-                                 i_pre[:, t], log_f[:, t])
-        hs.append(h)
-    h = torch.stack(hs, dim=1)                     # (B, S, H, Dh)
+    h, c, n, m = _scan(
+        _mlstm_scan, q, k, v, i_pre, log_f,
+        *((None,) * 3 if state is None
+          else (state["c"], state["n"], state["m"])))
 
     gate = F.silu(common.dense(ctx, f"{name}/wg", params["wg"], x))
-    h = ctx.activation(f"{name}/h", h.reshape(b, s, n_heads * head_dim)
+    h = ctx.activation(f"{name}/h", common.reshape(h, b, s, n_heads * head_dim)
                        .to(x.dtype))
     out = common.dense(ctx, f"{name}/wo", params["wo"], h * gate)
     return out, {"c": c, "n": n, "m": m}
@@ -250,11 +347,11 @@ def slstm_spec(d_model: int, n_heads: int, head_dim: int) -> Dict[str, Any]:
     the out projection."""
     d_inner = n_heads * head_dim
     return {
-        "wz": dense_spec(d_model, d_inner),
-        "wi": dense_spec(d_model, n_heads, bias=True),
-        "wf": dense_spec(d_model, n_heads, bias=True),
-        "wo_gate": dense_spec(d_model, d_inner),
-        "wo": dense_spec(d_inner, d_model),
+        "wz": dense_spec(d_model, d_inner, "embed", "heads"),
+        "wi": dense_spec(d_model, n_heads, "embed", None, bias=True),
+        "wf": dense_spec(d_model, n_heads, "embed", None, bias=True),
+        "wo_gate": dense_spec(d_model, d_inner, "embed", "heads"),
+        "wo": dense_spec(d_inner, d_model, "heads", "embed"),
     }
 
 
@@ -270,36 +367,38 @@ def _slstm_step(c, n, m, tz, i_pre, log_f):
     return c_new, n_new, m_new, h
 
 
+def _slstm_scan(tz, i_pre, log_f, c, n, m):
+    """The recurrence over the sequence from ``(c, n, m)`` (zeros where
+    None): ``(h (B, S, H, Dh), c, n, m)`` after the last step."""
+    if c is None:
+        b, _, nh, hd = tz.shape
+        c, n, m = (tz.new_zeros((b, nh, hd)), tz.new_zeros((b, nh)),
+                   tz.new_zeros((b, nh)))
+    return time_loop(_slstm_step, (c, n, m), (tz, i_pre, log_f))
+
+
 def slstm_block(ctx, params, x: torch.Tensor, *, n_heads: int,
                 head_dim: int, state: Optional[State] = None,
                 name: str = "slstm") -> Tuple[torch.Tensor, State]:
     """The sLSTM block over ``x (B, S, D)``, from ``state`` or zeros;
     returns the output and the state after the last step."""
     b, s, _ = x.shape
-    z = common.dense(ctx, f"{name}/wz", params["wz"], x) \
-        .reshape(b, s, n_heads, head_dim).to(torch.float32)
+    z = common.reshape(common.dense(ctx, f"{name}/wz", params["wz"], x),
+                       b, s, n_heads, head_dim).to(torch.float32)
     i_pre = common.dense(ctx, f"{name}/wi", params["wi"], x,
                          quant_act=False).to(torch.float32)
     f_pre = common.dense(ctx, f"{name}/wf", params["wf"], x,
                          quant_act=False).to(torch.float32)
     tz, log_f = torch.tanh(z), -_softplus(-f_pre)
 
-    if state is None:
-        c = torch.zeros((b, n_heads, head_dim), device=x.device)
-        n = torch.zeros((b, n_heads), device=x.device)
-        m = torch.zeros((b, n_heads), device=x.device)
-    else:
-        c, n, m = state["c"], state["n"], state["m"]
-    hs = []
-    for t in range(s):
-        c, n, m, h = _slstm_step(c, n, m, tz[:, t], i_pre[:, t],
-                                 log_f[:, t])
-        hs.append(h)
-    h = torch.stack(hs, dim=1)
+    h, c, n, m = _scan(
+        _slstm_scan, tz, i_pre, log_f,
+        *((None,) * 3 if state is None
+          else (state["c"], state["n"], state["m"])))
 
     gate = F.silu(common.dense(ctx, f"{name}/wo_gate", params["wo_gate"],
                                x))
-    h = ctx.activation(f"{name}/h", h.reshape(b, s, n_heads * head_dim)
+    h = ctx.activation(f"{name}/h", common.reshape(h, b, s, n_heads * head_dim)
                        .to(x.dtype))
     out = common.dense(ctx, f"{name}/wo", params["wo"], h * gate)
     return out, {"c": c, "n": n, "m": m}

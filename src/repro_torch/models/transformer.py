@@ -47,6 +47,7 @@ from typing import Any, Dict, Optional, Set, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs import base as cfgs
@@ -66,7 +67,8 @@ def _unit_spec(cfg: cfgs.ArchConfig) -> Dict[str, Any]:
 def param_specs(cfg: cfgs.ArchConfig) -> Dict[str, Any]:
     """The model's parameter spec tree (the reference's key layout)."""
     spec: Dict[str, Any] = {
-        "embed": {"w": P((cfg.vocab, cfg.d_model), init="embed")},
+        "embed": {"w": P((cfg.vocab, cfg.d_model), init="embed",
+                         axes=("vocab", "embed"))},
         "final_norm": blocks.norm_spec(cfg),
         "layers": common.stack_specs(_unit_spec(cfg), cfg.pattern_repeats),
     }
@@ -75,13 +77,41 @@ def param_specs(cfg: cfgs.ArchConfig) -> Dict[str, Any]:
             f"r{i}_{kind}": blocks.block_spec(kind, cfg)
             for i, kind in enumerate(cfg.pattern_remainder)}
     if not cfg.tie_embeddings:
-        spec["lm_head"] = {"w": P((cfg.d_model, cfg.vocab))}
+        spec["lm_head"] = {"w": P((cfg.d_model, cfg.vocab),
+                                  axes=("embed", "vocab"))}
     if cfg.encoder_layers:
         spec["encoder"] = common.stack_specs(
             {"b0_attn": blocks.block_spec(cfgs.ATTN, cfg)},
             cfg.encoder_layers)
         spec["encoder_norm"] = blocks.norm_spec(cfg)
     return spec
+
+
+def partition_specs(cfg: cfgs.ArchConfig, *, multi_pod: bool = False
+                    ) -> Dict[str, Any]:
+    """The param tree's per-dim mesh-dim entries under the config's
+    policy, the reference's rules: an axis is sharded only where it
+    divides its mesh dim (``model`` 16; the data dims 16, or 32 with
+    ``multi_pod``, for fsdp's ``embed``)."""
+    mesh_div = 32 if multi_pod else 16
+
+    def divisible(axis: str) -> bool:
+        model = 16
+        if axis == "vocab":
+            return cfg.vocab % model == 0
+        if axis == "heads":
+            return (cfg.n_heads * cfg.hd) % model == 0
+        if axis == "kv":
+            return (cfg.n_kv_heads * cfg.hd) % model == 0
+        if axis in ("mlp", "moe_mlp"):
+            return cfg.d_ff % model == 0 if cfg.d_ff else False
+        if axis == "embed":
+            return cfg.d_model % mesh_div == 0
+        return True
+
+    rules = common.sharding_rules(cfg.sharding, multi_pod=multi_pod,
+                                  divisible=divisible)
+    return common.partition_specs(param_specs(cfg), rules)
 
 
 def init_params(cfg: cfgs.ArchConfig, generator: torch.Generator,
@@ -143,9 +173,23 @@ def _write_state(cache: Dict[str, Any], new: Dict[str, Any]) -> None:
             cache[k].copy_(v)
 
 
+def _batch_constraint(x: torch.Tensor, multi_pod: bool) -> torch.Tensor:
+    """The reference's activation layout between blocks: batch over the
+    data dims and, sequence parallelism, the sequence over ``model`` where
+    it is a multiple of 16 (a no-op on a plain tensor)."""
+    axes = ("pod", "data") if multi_pod else "data"
+    seq = "model" if (x.dim() == 3 and x.shape[1] % 16 == 0
+                      and x.shape[1] > 1) else None
+    return common.with_constraint(
+        x, (axes, seq) + (None,) * (x.dim() - 2))
+
+
 def _embed(cfg: cfgs.ArchConfig, ctx, params: Params,
            tokens: torch.Tensor) -> torch.Tensor:
-    x = params["embed"]["w"][tokens]
+    # F.embedding: one lookup op whose backward DTensor splits by vocab
+    w = params["embed"]["w"]
+    x = F.embedding(tokens, common.grad_in_layout(w)
+                    if cfg.tie_embeddings else w)
     if cfg.tie_embeddings:
         # sqrt(d) rounded to float32, then to the compute dtype
         x = x * torch.tensor(math.sqrt(cfg.d_model)).to(x.dtype)
@@ -154,8 +198,15 @@ def _embed(cfg: cfgs.ArchConfig, ctx, params: Params,
 
 def _head(cfg: cfgs.ArchConfig, ctx, params: Params,
           x: torch.Tensor) -> torch.Tensor:
+    x = common.unsplit(x, -2)            # the sequence, on DTensors
+    return common.whole_seq_grad(_logits(cfg, ctx, params, x))
+
+
+def _logits(cfg: cfgs.ArchConfig, ctx, params: Params,
+            x: torch.Tensor) -> torch.Tensor:
     if cfg.tie_embeddings:
-        w = ctx.weight("lm_head/w", params["embed"]["w"])
+        w = ctx.weight("lm_head/w",
+                       common.grad_in_layout(params["embed"]["w"]))
         logits = torch.matmul(x, w.to(x.dtype).t())
     else:
         w = ctx.weight("lm_head/w", params["lm_head"]["w"])
@@ -257,7 +308,8 @@ def init_qat_collection(cfg: cfgs.ArchConfig, device=None
 def forward(cfg: cfgs.ArchConfig, params: Params, tokens: torch.Tensor, *,
             qat_collection: Optional[Dict] = None, step=0,
             encoder_out: Optional[torch.Tensor] = None,
-            return_hidden: bool = False, ctx_in=None, ctx_out=None
+            multi_pod: bool = False, return_hidden: bool = False,
+            ctx_in=None, ctx_out=None
             ) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
     """Full-sequence forward, as the reference's: ``(out, aux,
     new_collection)``.  ``out`` is the logits ``(B, S, vocab)``, or with
@@ -274,7 +326,9 @@ def forward(cfg: cfgs.ArchConfig, params: Params, tokens: torch.Tensor, *,
     d_model)``: the frontend's embeddings, run through the encoder
     (whisper) and cross-attended by the ``cross`` blocks.  Every attention
     layer is one ``ops.FlashAttentionDenseGrad`` call (kernel B4 on the
-    card).
+    card).  On DTensor params and tokens the reference's constraints
+    apply between blocks (``_batch_constraint``, ``multi_pod`` choosing
+    the data dims).
     """
     collection = qat_collection or {}
     inside = {k: v for k, v in collection.items() if k.startswith("unit/")}
@@ -282,7 +336,7 @@ def forward(cfg: cfgs.ArchConfig, params: Params, tokens: torch.Tensor, *,
                if not k.startswith("unit/")}
     step = torch.as_tensor(step, device=tokens.device)
     ctx_out = ctx_out or _make_ctx(cfg, outside, step)
-    x = _embed(cfg, ctx_out, params, tokens)
+    x = _batch_constraint(_embed(cfg, ctx_out, params, tokens), multi_pod)
     if encoder_out is not None:
         encoder_out = _run_encoder(cfg, params, ctx_out, encoder_out)
 
@@ -293,11 +347,12 @@ def forward(cfg: cfgs.ArchConfig, params: Params, tokens: torch.Tensor, *,
                                          unit[f"b{i}_{kind}"], x,
                                          encoder_out=enc, name=f"unit/b{i}")
             aux = aux + a
+        x = _batch_constraint(x, multi_pod)
         return x, (obs if ctx_in is not None else ctx.merged_collection()), \
             aux
 
     remat = cfg.remat and torch.is_grad_enabled()
-    aux = torch.zeros((), device=x.device)
+    aux = torch.zeros((), device=tokens.device)
     for li in range(cfg.pattern_repeats):
         args = (x, inside, aux, encoder_out, _layer(params["layers"], li))
         x, inside, aux = _checkpointed(unit_fn, *args) if remat \
@@ -318,7 +373,8 @@ def forward(cfg: cfgs.ArchConfig, params: Params, tokens: torch.Tensor, *,
 
 def loss_fn(cfg: cfgs.ArchConfig, params: Params,
             batch: Dict[str, torch.Tensor], *, qat_collection=None, step=0,
-            ce_chunk: int = 256, aux_weight: float = 0.01
+            multi_pod: bool = False, ce_chunk: int = 256,
+            aux_weight: float = 0.01
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Causal-LM loss ``ce + aux_weight * aux`` and its metrics
     (``ce_loss``, ``aux_loss``, ``qat_collection``: the forward's new
@@ -333,10 +389,12 @@ def loss_fn(cfg: cfgs.ArchConfig, params: Params,
     tokens, labels = batch["tokens"], batch["labels"]
     hidden, aux, new_coll = forward(
         cfg, params, tokens, qat_collection=qat_collection, step=step,
-        encoder_out=batch.get("encoder_out"), return_hidden=True)
+        encoder_out=batch.get("encoder_out"), multi_pod=multi_pod,
+        return_hidden=True)
     ctx = _make_ctx(cfg, {k: v for k, v in (qat_collection or {}).items()
                           if not k.startswith("unit/")},
                     torch.as_tensor(step, device=tokens.device))
+    hidden = common.unsplit(hidden, 1)       # chunked below, on DTensors
     b, s, _ = hidden.shape
     ce_chunk = min(ce_chunk, s)
     if s % ce_chunk:
@@ -345,7 +403,10 @@ def loss_fn(cfg: cfgs.ArchConfig, params: Params,
     def chunk_loss(h, y):
         logits = _head(cfg, ctx, params, h).to(torch.float32)
         logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, y[..., None].long())[..., 0]
+        # the gold logit from a vocab gathered whole: DTensor's masked
+        # partial gather over a split vocab cannot be reduced here
+        gold = torch.gather(common.unsplit(logits, -1), -1,
+                            y[..., None].long())[..., 0]
         return torch.sum(logz - gold)
 
     totals = []
@@ -359,31 +420,34 @@ def loss_fn(cfg: cfgs.ArchConfig, params: Params,
 
 
 def prefill(cfg: cfgs.ArchConfig, params: Params, tokens: torch.Tensor, *,
-            encoder_out: Optional[torch.Tensor] = None) -> torch.Tensor:
+            encoder_out: Optional[torch.Tensor] = None,
+            multi_pod: bool = False) -> torch.Tensor:
     """Prompt pass returning the last token's logits ``(B, 1, vocab)``."""
     hidden, _, _ = forward(cfg, params, tokens, encoder_out=encoder_out,
-                           return_hidden=True)
+                           multi_pod=multi_pod, return_hidden=True)
     ctx = _make_ctx(cfg, {}, torch.zeros((), dtype=torch.long,
                                          device=tokens.device))
     return _head(cfg, ctx, params, hidden[:, -1:])
 
 
 def init_caches(cfg: cfgs.ArchConfig, batch: int, seq_len: int, *,
-                int8: Optional[bool] = None, device=None) -> Dict[str, Any]:
+                int8: Optional[bool] = None, device=None,
+                dtype: torch.dtype = torch.float32) -> Dict[str, Any]:
     """Decode state: ``{"stacked": {block: state}, "remainder": [state,
     ...]}``, each block's state (``{"kv": KVCache}``, or a recurrent
     state dict) stacked over the pattern's repeats on a leading
     ``layers`` axis.
 
     ``int8`` (the attention caches only) defaults to
-    ``cfg.quant.int8_kv_cache``; ``device`` (``None`` is ``cuda``).
+    ``cfg.quant.int8_kv_cache``; ``device`` (``None`` is ``cuda``);
+    ``dtype`` is a float KV cache's (recurrent state stays float32).
     """
     int8 = cfg.quant.int8_kv_cache if int8 is None else int8
     device = resolve_device(device)
 
     def block_cache(kind):
         return blocks.init_block_cache(kind, cfg, batch, seq_len, int8=int8,
-                                       device=device)
+                                       device=device, dtype=dtype)
 
     stacked = {f"b{i}_{kind}": _stack([block_cache(kind) for _ in
                                        range(cfg.pattern_repeats)])
@@ -395,7 +459,8 @@ def init_caches(cfg: cfgs.ArchConfig, batch: int, seq_len: int, *,
 
 def decode_step(cfg: cfgs.ArchConfig, params: Params, tokens: torch.Tensor,
                 caches: Dict[str, Any], pos, *,
-                encoder_out: Optional[torch.Tensor] = None
+                encoder_out: Optional[torch.Tensor] = None,
+                multi_pod: bool = False
                 ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """One decode token: ``tokens (B, 1)`` at absolute position ``pos``
     (an int or a 0-d tensor) -> ``(logits (B, 1, vocab), caches)``.
@@ -411,8 +476,8 @@ def decode_step(cfg: cfgs.ArchConfig, params: Params, tokens: torch.Tensor,
     """
     ctx = _make_ctx(cfg, {}, torch.zeros((), dtype=torch.long,
                                          device=tokens.device))
-    x = _embed(cfg, ctx, params, tokens)
-    pos = torch.as_tensor(pos, device=x.device)
+    x = _batch_constraint(_embed(cfg, ctx, params, tokens), multi_pod)
+    pos = torch.as_tensor(pos, device=tokens.device)
     if encoder_out is not None:
         encoder_out = _run_encoder(cfg, params, ctx, encoder_out)
     for li in range(cfg.pattern_repeats):

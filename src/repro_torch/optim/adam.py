@@ -3,7 +3,12 @@ param trees.
 
 Counterpart of ``repro/optim/adam.py``.  Params, gradients and the
 moments are nested dicts of tensors (``core.ptq.tree_map``);
-``adam_update`` is functional, returning new params and state.  The
+``adam_update`` is functional, returning new params and state (the RL
+learners keep the pre-step params: DQN's warm-up picks between old and
+new); ``adam_update_`` writes the same values into the params' and the
+moments' own storage and returns the same tensors, the counterpart of
+the reference's LM step donating params and moments
+(``donate_argnums=(0, 1, 3)``), so a step holds one copy of each.  The
 update keeps the reference's expression order,
 
     m = b1 * m + (1 - b1) * g
@@ -57,7 +62,11 @@ def _block_size(last_dim: int) -> int:
 def _blocks(x: torch.Tensor, shape: Tuple[int, ...]) -> torch.Tensor:
     if not shape:
         return x.reshape(1, 1)
-    return x.reshape(tuple(shape[:-1]) + (-1, _block_size(shape[-1])))
+    # models.common.reshape: a DTensor whose split the blocks do not
+    # divide is gathered first
+    from repro_torch.models import common
+    return common.reshape(x, *(tuple(shape[:-1])
+                               + (-1, _block_size(shape[-1]))))
 
 
 def block_quantize(x: torch.Tensor) -> BlockQuantized:
@@ -164,10 +173,8 @@ def clip_by_global_norm(grads: Tree, max_norm: float
                     grads), norm
 
 
-def adam_update(grads: Tree, state: AdamState, params: Tree,
-                config: AdamConfig) -> Tuple[Tree, AdamState, dict]:
-    """One Adam step: ``(new_params, new_state, stats)``; ``stats`` holds
-    the pre-clip ``grad_norm`` when clipping is on."""
+def _prepare(grads: Tree, state: AdamState, config: AdamConfig):
+    """The clipped grads, the stats, the new step and the leaf update."""
     stats = {}
     if config.grad_clip is not None:
         grads, stats["grad_norm"] = clip_by_global_norm(grads,
@@ -193,10 +200,40 @@ def adam_update(grads: Tree, state: AdamState, params: Tree,
         if config.eightbit:
             return new_p, block_quantize(mm), block_quantize(vv)
         return new_p, mm, vv
+    return grads, stats, step, leaf
 
+
+def adam_update(grads: Tree, state: AdamState, params: Tree,
+                config: AdamConfig) -> Tuple[Tree, AdamState, dict]:
+    """One Adam step: ``(new_params, new_state, stats)``; ``stats`` holds
+    the pre-clip ``grad_norm`` when clipping is on."""
+    grads, stats, step, leaf = _prepare(grads, state, config)
     out = _map(leaf, params, state.m, state.v, grads)
     return (_pick(out, 0), AdamState(step, _pick(out, 1), _pick(out, 2)),
             stats)
+
+
+def adam_update_(grads: Tree, state: AdamState, params: Tree,
+                 config: AdamConfig) -> Tuple[Tree, AdamState, dict]:
+    """``adam_update`` in place: each param, moment (8-bit codes and
+    scales too) and the step count take their new values in their own
+    storage, leaf by leaf (one leaf's float32 temporaries at a time), and
+    the same ``params`` and ``state`` come back with the stats.  Bitwise
+    ``adam_update``'s values."""
+    grads, stats, step, leaf = _prepare(grads, state, config)
+
+    def write(p, m_q, v_q, g):
+        new_p, new_m, new_v = leaf(p, m_q, v_q, g)
+        p.copy_(new_p)
+        for old, new in ((m_q, new_m), (v_q, new_v)):
+            if config.eightbit:
+                old.codes.copy_(new.codes)
+                old.scales.copy_(new.scales)
+            else:
+                old.copy_(new)
+    _map(write, params, state.m, state.v, grads)
+    state.step.copy_(step)
+    return params, state, stats
 
 
 def _pick(tree, i: int):

@@ -58,7 +58,7 @@ streams; the params' and the evaluator's are the same on every rank), the
 learner's updates averaged over the ranks, and every rank returns the
 same rewards, divergences and learner params (a calibrated evaluation
 packs on every rank's observations, gathered).  Not ported yet, and
-raising ``NotImplementedError`` naming ROADMAP queue A item 14b: a mesh
+raising ``NotImplementedError`` naming ROADMAP queue A item 14c: a mesh
 with checkpoints or with the resilience hooks (the supervisor).
 """
 from __future__ import annotations
@@ -176,10 +176,10 @@ def _check_supported(algo, topology, num_actors, sync_every, mesh,
                          f"(the learner trains fp32; use PTQ eval)")
     if mesh is not None and (checkpoint_dir or resume):
         raise _not_ported("a checkpoint of a mesh run (sharded replay)",
-                          "14b")
+                          "14c")
     if mesh is not None and resilience is not None:
         raise _not_ported("the resilience hooks and the supervisor under a "
-                          "mesh", "14b")
+                          "mesh", "14c")
 
 
 def _build(algo: str, env: Env, quant: QuantConfig, net_kwargs: Dict,

@@ -428,17 +428,17 @@ def test_async_rejects_invalid_configs():
 
 def test_unported_topology_options_raise(tmp_path):
     """A mesh with checkpoints or with the resilience hooks (the
-    supervisor's) still raises in the topologies (item 14b; for DDPG
+    supervisor's) still raises in the topologies (item 14c; for DDPG
     too); the resilience hooks (item 11) are ported, so a real context
     runs there as the reference's does; checkpointing is ported, and its
     knobs are validated as the reference's."""
     kw = dict(iterations=2, device="cpu", num_actors=2)
     for topo in ("actor-learner", "async"):
-        with pytest.raises(NotImplementedError, match="item 14b"):
+        with pytest.raises(NotImplementedError, match="item 14c"):
             loops.train("ddpg", "pendulum", topology=topo, mesh=object(),
                         checkpoint_dir=str(tmp_path), checkpoint_every=1,
                         **kw)
-        with pytest.raises(NotImplementedError, match="item 14b"):
+        with pytest.raises(NotImplementedError, match="item 14c"):
             loops.train("dqn", "cartpole", topology=topo, mesh=object(),
                         resilience=ResilienceContext(), **kw)
         ctx = ResilienceContext()
@@ -449,7 +449,7 @@ def test_unported_topology_options_raise(tmp_path):
         for extra in (dict(resume=True), dict(checkpoint_every=3)):
             with pytest.raises(ValueError, match="needs checkpoint_dir"):
                 loops.train("dqn", "cartpole", topology=topo, **kw, **extra)
-    with pytest.raises(NotImplementedError, match="item 14b"):
+    with pytest.raises(NotImplementedError, match="item 14c"):
         loops.train("dqn", "cartpole", topology="async", mesh=object(),
                     checkpoint_dir=str(tmp_path), resume=True, **kw)
 

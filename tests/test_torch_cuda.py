@@ -592,6 +592,39 @@ def test_flash_attention_key_split_on_card(cuda, s, h, kv, d):
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("causal,window,softcap", [
+    (True, None, None), (True, 48, None), (True, None, 30.0),
+    (False, None, None)])
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_attention_query_offset_on_card(cuda, d, causal, window,
+                                              softcap):
+    """A ``model`` split of the query rows: each shard of 4 launched at
+    its own query offset, within 1e-5 of the plain version at the same
+    offset, and the shards together the unsplit call's plain output."""
+    b, h, kv, s, t = 2, 8, 2, 256, 320
+    rng = np.random.default_rng(d + (window or 0))
+    q, k, v = (torch.from_numpy(rng.normal(size=sh).astype(np.float32)
+                                ).to(cuda)
+               for sh in ((b, s, h, d), (b, t, kv, d), (b, t, kv, d)))
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    whole = flash_attention.flash_attention_plain(q, k, v, **kw)
+    parts = []
+    for r0 in range(0, s, s // 4):
+        qs = q[:, r0:r0 + s // 4].contiguous()
+        off = r0 + t - s
+        before = flash_attention.launches.value
+        got = flash_attention.flash_attention_cuda(qs, k, v, q_offset=off,
+                                                   **kw)
+        want = flash_attention.flash_attention_plain(qs, k, v, q_offset=off,
+                                                     **kw)
+        torch.cuda.synchronize()
+        assert flash_attention.launches.value == before + 1
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        parts.append(got)
+    torch.testing.assert_close(torch.cat(parts, 1), whole, rtol=1e-5,
+                               atol=1e-5)
+
+
 @pytest.mark.parametrize("d", [16, 40, 64, 80, 200, 256])
 def test_flash_attention_plan_matches_the_kernel(cuda, d):
     """``plan``'s shared memory and rows a block are the built kernel's."""

@@ -166,8 +166,10 @@ def test_cross_attention_grad_matches_jax_dense_attention(s, t):
 def _to_jax_bf16(tree):
     if isinstance(tree, dict):
         return {k: _to_jax_bf16(v) for k, v in tree.items()}
+    # a copy: JAX may alias a numpy buffer, and the port's step updates
+    # its params in place
     return jnp.asarray(tree.view(torch.uint16).numpy().view(
-        ml_dtypes.bfloat16))
+        ml_dtypes.bfloat16).copy())
 
 
 def _ordered(bits):

@@ -255,7 +255,7 @@ def test_mesh_rejections(ranks, world):
 def test_fused_mesh_and_unported_mesh_options_raise(tmp_path):
     """``mesh`` is an actor-learner knob (the reference's ValueError, its
     loops.py:336-338); a mesh with checkpoints or the resilience hooks is
-    not ported (item 14b)."""
+    not ported (item 14c)."""
     with pytest.raises(ValueError, match="actor-learner knobs"):
         loops.train("dqn", "cartpole", mesh=object(), iterations=1,
                     device="cpu")
@@ -265,7 +265,7 @@ def test_fused_mesh_and_unported_mesh_options_raise(tmp_path):
         for extra in (dict(checkpoint_dir=str(tmp_path)),
                       dict(resume=True, checkpoint_dir=str(tmp_path)),
                       dict(resilience=ResilienceContext())):
-            with pytest.raises(NotImplementedError, match="item 14b"):
+            with pytest.raises(NotImplementedError, match="item 14c"):
                 loops.train("ddpg", "pendulum", **kw, **extra)
 
 

@@ -409,9 +409,9 @@ def test_unported_options_raise(tmp_path):
     kw = dict(iterations=1, device="cpu")
     # the topologies and prioritized replay are ported (item 7), and the
     # actor mesh (item 14a); a mesh with checkpoints or the resilience
-    # hooks is not (item 14b), and fused-only knobs given to the fused
+    # hooks is not (item 14c), and fused-only knobs given to the fused
     # driver are refused as in the reference
-    with pytest.raises(NotImplementedError, match="item 14b"):
+    with pytest.raises(NotImplementedError, match="item 14c"):
         loops.train("dqn", "cartpole", topology="async", mesh=object(),
                     checkpoint_dir=str(tmp_path), **kw)
     # the resilience hooks are ported (item 11): a real context runs, as
@@ -425,7 +425,7 @@ def test_unported_options_raise(tmp_path):
             loops.train("dqn", "cartpole", **kw, **extra)
     with pytest.raises(ValueError, match="actor-learner knobs"):
         loops.train("dqn", "cartpole", num_actors=2, **kw)
-    with pytest.raises(NotImplementedError, match="item 14b"):
+    with pytest.raises(NotImplementedError, match="item 14c"):
         loops.train("ddpg", "pendulum", topology="actor-learner",
                     mesh=object(), resilience=ResilienceContext(), **kw)
     with pytest.raises(ValueError, match="algo"):

@@ -64,7 +64,9 @@ def configs(name, fp32=True, quant=None, jquant=None, **kw):
 def to_jax(tree):
     if isinstance(tree, dict):
         return {k: to_jax(v) for k, v in tree.items()}
-    return jnp.asarray(tree.detach().numpy())
+    # a copy: JAX may alias a numpy buffer, and the port's train step
+    # updates its params in place
+    return jnp.asarray(tree.detach().numpy().copy())
 
 
 @functools.lru_cache(maxsize=None)
